@@ -1,0 +1,76 @@
+"""Build the CUDA sources of ``bayesgm_torch/csrc`` and load them.
+
+Each source is compiled on first use with ``nvcc`` into a shared library with
+a plain C interface under ``build/bayesgm_torch_kernels/`` at the root of the
+checkout, named by a hash of the source, and loaded with ``ctypes``.  A build
+that fails raises with the compiler's output; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "bayesgm_torch_kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+class KernelLibrary:
+    """A loaded ``.so`` plus what its build printed and how long it took."""
+
+    def __init__(self, lib: ctypes.CDLL, path: Path, build_log: str, build_s: float):
+        self.lib = lib
+        self.path = path
+        self.build_log = build_log
+        self.build_s = build_s
+
+
+_LOCK = threading.Lock()
+_LOADED: dict = {}
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): "
+                       "the CUDA kernels cannot be built")
+
+
+def load_library(source: str) -> KernelLibrary:
+    """Build (if not cached) and load ``csrc/<source>``."""
+    with _LOCK:
+        if source in _LOADED:
+            return _LOADED[source]
+        src = CSRC / source
+        digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        so = BUILD_DIR / f"{src.stem}_{digest}.so"
+        log, build_s = "(cached)", 0.0
+        if not so.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            t0 = time.perf_counter()
+            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+                                  capture_output=True, text=True)
+            build_s = time.perf_counter() - t0
+            log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                raise RuntimeError(f"nvcc failed to build {src} "
+                                   f"(exit {proc.returncode}):\n{log}")
+            os.replace(tmp, so)
+        lib = KernelLibrary(ctypes.CDLL(str(so)), so, log, build_s)
+        _LOADED[source] = lib
+        return lib

@@ -1,0 +1,211 @@
+"""Adaptive random-walk Metropolis–Hastings on the device, and chain
+diagnostics (port of ``bayesgm_tpu/ops/mcmc.py``).
+
+All ``n`` subjects are independent chains stepped in lockstep along axis 0.
+The chain is a plain Python loop whose state, acceptance window and proposal
+sd stay on the device: a step never reads a value back to the host, so the
+host only enqueues work.  (The JAX package cuts its chain into 500-step
+jitted chunks for the TPU program watchdog; nothing here needs that.)
+
+The adaptation schedule is the reference's: every ``adjustment_interval``
+burn-in steps, ``q_sd`` is multiplied by 0.9 or 1.1 when the windowed
+acceptance rate leaves ``target_rate ± tolerance``.
+
+Randomness comes from one explicit ``torch.Generator``, drawn in a fixed
+order each step: the proposal noise, the target evaluation(s), then the
+accept uniforms.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+
+class MHResult(NamedTuple):
+    samples: Optional[torch.Tensor]  # collected values, leading axis n_keep
+    q_sd: torch.Tensor  # final proposal sd (0-d)
+    accept_rate: torch.Tensor  # windowed acceptance rate at the end (0-d)
+
+
+def _mh_step(carry, generator, log_prob_fn, q_sd_is_adaptive, burn_in,
+             target_rate, tolerance, adjustment_interval, window_size,
+             recompute_current, paired_log_prob_fn=None):
+    """One MH step.  ``carry = (state, logp, q_sd, window, t)`` with ``t`` a
+    host int; ``window`` (the ring of per-step acceptance fractions) is
+    updated in place.  Returns ``(carry, windowed_rate)``."""
+    state, logp, q_sd, window, t = carry
+    proposed = state + q_sd * torch.randn(state.shape, generator=generator,
+                                          device=state.device, dtype=state.dtype)
+    if recompute_current and paired_log_prob_fn is not None:
+        # Both states in one launch, each with its own weight-noise draw.
+        logp_prop, logp = paired_log_prob_fn(proposed, state, generator)
+    else:
+        logp_prop = log_prob_fn(proposed, generator)
+        if recompute_current:
+            # Stochastic targets re-evaluate the current state with fresh
+            # weight noise each step, as the reference does.
+            logp = log_prob_fn(state, generator)
+
+    log_ratio = torch.clamp_max(logp_prop - logp, 0.0)
+    u = torch.rand(logp.shape, generator=generator, device=logp.device)
+    accept = u < torch.exp(log_ratio)
+    new_state = torch.where(accept[:, None], proposed, state)
+    new_logp = torch.where(accept, logp_prop, logp)
+
+    window[t % window_size] = accept.to(torch.float32).mean()
+    rate = window.sum() / float(min(t + 1, window_size))
+
+    if q_sd_is_adaptive and t < burn_in and t % adjustment_interval == 0 and t > 0:
+        q_sd = torch.where(rate < target_rate - tolerance, q_sd * 0.9, q_sd)
+        q_sd = torch.where(rate > target_rate + tolerance, q_sd * 1.1, q_sd)
+
+    return (new_state, new_logp, q_sd, window, t + 1), rate
+
+
+def adaptive_mh(log_prob_fn: Callable, init_state, generator: torch.Generator, *,
+                burn_in: int = 5000, n_keep: int = 3000, q_sd: float = 1.0,
+                adaptive: bool = True, target_rate: float = 0.25,
+                tolerance: float = 0.05, adjustment_interval: int = 50,
+                window_size: int = 100, recompute_current: bool = False,
+                collect: Optional[Callable] = None,
+                paired_log_prob_fn: Optional[Callable] = None,
+                multi_step_fn: Optional[Callable] = None,
+                params=None, early_stop: Optional[dict] = None) -> MHResult:
+    """Vectorized adaptive random-walk Metropolis–Hastings.
+
+    Every callable takes ``params`` (passed through unchanged; the MH
+    target's weights and data) first: ``log_prob_fn(params, state, g) ->
+    (n,)``, ``paired_log_prob_fn(params, proposed, current, g) ->
+    (logp_prop, logp_cur)`` (both states of a ``recompute_current`` step in
+    one launch) and ``collect(params, state, g)`` (the per-kept-step
+    statistic; the raw state by default).  ``samples`` stacks the collected
+    tensors on the device along a leading ``n_keep`` axis (None when
+    ``n_keep == 0``).
+
+    ``multi_step_fn`` (the K-steps-per-launch window kernel) and
+    ``early_stop`` (ESS-adaptive chain length) are not ported yet.
+    """
+    if multi_step_fn is not None:
+        raise NotImplementedError("multi_step_fn (the MH window kernel) is not ported yet")
+    if early_stop is not None:
+        raise NotImplementedError("early_stop (ESS-adaptive chain length) is not ported yet")
+    collect_fn = (lambda p, s, g: s) if collect is None else collect
+    statics = dict(
+        q_sd_is_adaptive=bool(adaptive), burn_in=burn_in, target_rate=target_rate,
+        tolerance=tolerance, adjustment_interval=adjustment_interval,
+        window_size=window_size, recompute_current=recompute_current)
+    step_lp = lambda s, g: log_prob_fn(params, s, g)
+    step_plp = None if paired_log_prob_fn is None else (
+        lambda a, b, g: paired_log_prob_fn(params, a, b, g))
+
+    dev = init_state.device
+    logp0 = log_prob_fn(params, init_state, generator)
+    carry = (init_state, logp0, torch.tensor(q_sd, dtype=torch.float32, device=dev),
+             torch.zeros((window_size,), dtype=torch.float32, device=dev), 0)
+    rate = torch.zeros((), dtype=torch.float32, device=dev)
+
+    for _ in range(burn_in):
+        carry, rate = _mh_step(carry, generator, step_lp,
+                               paired_log_prob_fn=step_plp, **statics)
+    samples = []
+    for _ in range(n_keep):
+        carry, rate = _mh_step(carry, generator, step_lp,
+                               paired_log_prob_fn=step_plp, **statics)
+        samples.append(collect_fn(params, carry[0], generator))
+    stacked = torch.stack(samples) if samples else None
+    return MHResult(samples=stacked, q_sd=carry[2], accept_rate=rate)
+
+
+# ---------------------------------------------------------------------------
+# Convergence diagnostics: host-side numpy over the collected draws, copied
+# from the JAX package (whose module imports jax).
+# ---------------------------------------------------------------------------
+
+
+def _fft_len(n):
+    """FFT length used by :func:`_autocovariance` for an n-draw series."""
+    return 1 << int(2 * n - 1).bit_length()
+
+
+def _autocovariance(x):
+    """Per-column biased autocovariance of ``x (n, m)`` via FFT."""
+    n = x.shape[0]
+    xc = x - x.mean(axis=0)
+    nfft = _fft_len(n)
+    f = np.fft.rfft(xc, n=nfft, axis=0)
+    acov = np.fft.irfft(f * np.conj(f), n=nfft, axis=0)[:n].real
+    return acov / n
+
+
+def effective_sample_size(draws, axis=0):
+    """Effective sample size per series (Geyer initial positive sequence).
+
+    ``draws`` has the MCMC draw axis at ``axis``; every other axis indexes an
+    independent series.  Returns an array shaped like ``draws`` without the
+    draw axis; constant series report the full draw count, series with
+    non-finite draws NaN.
+    """
+    x = np.moveaxis(np.asarray(draws, np.float64), axis, 0)
+    n = x.shape[0]
+    shape = x.shape[1:]
+    x = x.reshape(n, -1)
+    if n < 4:
+        return np.where(np.isfinite(x).all(axis=0), float(n), np.nan).reshape(shape)
+    out = np.empty(x.shape[1])
+    # Bound the FFT workspace near 256 MB per chunk of columns.
+    chunk = int(np.clip((1 << 28) // (_fft_len(n) * 16), 128, 8192))
+    for c0 in range(0, x.shape[1], chunk):
+        xb = x[:, c0 : c0 + chunk]
+        acov = _autocovariance(xb)
+        var = acov[0]
+        ok = var > 0  # False for constant AND for NaN-contaminated series
+        rho = acov / np.where(ok, var, 1.0)
+        n_pairs = (n - 2) // 2
+        gamma = rho[1 : 1 + 2 * n_pairs : 2] + rho[2 : 2 + 2 * n_pairs : 2]
+        alive = np.logical_and.accumulate(gamma > 0, axis=0)
+        gamma = np.minimum.accumulate(np.where(alive, gamma, np.inf), axis=0)
+        gamma = np.where(alive, gamma, 0.0)
+        tau = 1.0 + 2.0 * gamma.sum(axis=0)  # includes lag-0 (rho_0 = 1)
+        ess = np.where(ok, n / np.maximum(tau, 1.0 / n), float(n))
+        ess = np.clip(ess, 1.0, float(n))
+        out[c0 : c0 + chunk] = np.where(np.isfinite(xb).all(axis=0), ess, np.nan)
+    return out.reshape(shape)
+
+
+def split_rhat(draws, axis=0):
+    """Split-R̂ (Gelman–Rubin on the two halves of each chain).
+
+    Same shape contract as :func:`effective_sample_size`; constant series
+    report 1.0, halves stuck at different values inf, non-finite draws NaN.
+    """
+    x = np.moveaxis(np.asarray(draws, np.float64), axis, 0)
+    n = x.shape[0]
+    shape = x.shape[1:]
+    x = x.reshape(n, -1)
+    half = n // 2
+    if half < 2:
+        return np.where(np.isfinite(x).all(axis=0), 1.0, np.nan).reshape(shape)
+    chains = np.stack([x[:half], x[n - half :]])  # (2, half, m)
+    W = chains.var(axis=1, ddof=1).mean(axis=0)
+    B = half * chains.mean(axis=1).var(axis=0, ddof=1)
+    var_plus = (half - 1) / half * W + B / half
+    ok = W > 0
+    rhat = np.sqrt(var_plus / np.where(ok, W, 1.0))
+    stuck_diverged = (~ok) & (B > 0)
+    rhat = np.where(ok, rhat, np.where(stuck_diverged, np.inf, 1.0))
+    rhat = np.where(np.isfinite(x).all(axis=0), rhat, np.nan)
+    return rhat.reshape(shape)
+
+
+def chain_diagnostics(draws, axis=0, accept_rate=None):
+    """Bundle ESS + split-R̂ (+ acceptance) for a block of chain draws."""
+    out = {
+        "ess": effective_sample_size(draws, axis=axis),
+        "rhat": split_rhat(draws, axis=axis),
+    }
+    if accept_rate is not None:
+        out["accept_rate"] = float(accept_rate)
+    return out

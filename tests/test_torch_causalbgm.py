@@ -1,0 +1,186 @@
+"""The ported predict slice: JAX weights through save_weights / the bridge,
+predict from both packages on the same data, the device contract, and that
+the port never imports JAX."""
+
+import os
+import subprocess
+import sys
+import textwrap
+import warnings
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from bayesgm_tpu.datasets import Sim_Hirano_Imbens_sampler  # noqa: E402
+from bayesgm_tpu.models import causalbgm as jcb  # noqa: E402
+from bayesgm_torch import bridge  # noqa: E402
+from bayesgm_torch.models import causalbgm as tcb  # noqa: E402
+from bayesgm_torch.ops import mcmc as tmcmc  # noqa: E402
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _params(tmp_path, **kw):
+    p = dict(v_dim=6, z_dims=[1, 1, 1, 2], binary_treatment=False, dataset="t",
+             output_dir=str(tmp_path), save_res=False, g_units=[16, 16], e_units=[16],
+             h_units=[8], f_units=[8], dz_units=[8])
+    p.update(kw)
+    return p
+
+
+def _data(n=64, binary=False):
+    x, y, v = Sim_Hirano_Imbens_sampler(batch_size=32, N=n, v_dim=6, seed=0).load_all()
+    if binary:
+        x = (x > np.median(x)).astype(np.float32)
+    return x, y, v
+
+
+@pytest.fixture(scope="module")
+def jax_weights(tmp_path_factory):
+    """A JAX CausalBGM (flipout nets, random init) saved with save_weights."""
+    tmp = tmp_path_factory.mktemp("jaxw")
+    model = jcb.CausalBGM(_params(tmp), random_seed=0)
+    path = str(tmp / "w.npz")
+    model.save_weights(path)
+    return model, path
+
+
+def test_load_npz_gives_every_tensor_of_the_jax_nets(jax_weights):
+    jmodel, path = jax_weights
+    bundle = bridge.load_npz(path)
+    assert {"g", "h", "f", "e"} <= set(bundle["nets"])
+    for k in ("g", "h", "f", "e"):
+        jnet, tnet = jmodel.nets[k], bundle["nets"][k]
+        np.testing.assert_array_equal(tnet.gamma.detach().numpy(), np.asarray(jnet["norm"]["gamma"]))
+        np.testing.assert_array_equal(tnet.beta.detach().numpy(), np.asarray(jnet["norm"]["beta"]))
+        for i, layer in enumerate(jnet["layers"]):
+            for name in ("loc", "rho", "b"):
+                np.testing.assert_array_equal(getattr(tnet, name)[i].detach().numpy(),
+                                              np.asarray(layer[name]))
+
+
+def test_load_weights_checks_dims(jax_weights, tmp_path):
+    _, path = jax_weights
+    model = tcb.CausalBGM(_params(tmp_path), random_seed=1, device="cpu").load_weights(path)
+    assert model.nets["g"].dims == [5, 16, 16, 7]
+    wrong = tcb.CausalBGM(_params(tmp_path, g_units=[8]), random_seed=1, device="cpu")
+    with pytest.raises(ValueError, match="dims"):
+        wrong.load_weights(path)
+
+
+def test_predict_matches_jax_within_monte_carlo_error(jax_weights, tmp_path):
+    """Same bridged weights, same data: each ADRF point within
+    4 * sqrt(se_port^2 + se_jax^2), se = sd(draws) / sqrt(ESS)."""
+    jmodel, path = jax_weights
+    data = _data()
+    kw = dict(x_values=np.linspace(0, 3, 5), alpha=0.05, burn_in=150, n_mcmc=300, q_sd=1.0,
+              return_diagnostics=True, return_draws=True)
+    adrf_j, ci_j, diag_j, draws_j = jmodel.predict(data, **kw)
+    tmodel = tcb.CausalBGM(_params(tmp_path), random_seed=3, device="cpu").load_weights(path)
+    adrf_t, ci_t, diag_t, draws_t = tmodel.predict(data, **kw)
+
+    assert adrf_t.shape == adrf_j.shape == (5,)
+    assert np.all(ci_t[:, 0] <= ci_t[:, 1])
+    se = lambda draws, diag: draws.std(axis=1) / np.sqrt(diag["ess"])
+    bound = 4.0 * np.sqrt(se(draws_t, diag_t) ** 2 + se(draws_j, diag_j) ** 2)
+    assert np.all(np.abs(adrf_t - adrf_j) <= bound), (adrf_t, adrf_j, bound)
+    assert abs(diag_t["accept_rate"] - diag_j["accept_rate"]) <= 0.05
+
+
+def test_antithetic_eps_predict(tmp_path):
+    """params['antithetic_eps'] gives the paired halves eps_1 = -eps_0."""
+    model = tcb.CausalBGM(_params(tmp_path, antithetic_eps=True), random_seed=0, device="cpu")
+    adrf, ci = model.predict(_data(n=16), x_values=[0.5, 1.5], burn_in=10, n_mcmc=20)
+    assert np.all(np.isfinite(adrf)) and np.all(ci[:, 0] <= ci[:, 1])
+
+
+def test_binary_predict_shapes(tmp_path):
+    model = tcb.CausalBGM(_params(tmp_path, binary_treatment=True), random_seed=0, device="cpu")
+    data = _data(n=24, binary=True)
+    ite, ci, diag = model.predict(data, burn_in=10, n_mcmc=20, return_diagnostics=True)
+    assert ite.shape == (24,) and ci.shape == (24, 2) and np.all(ci[:, 0] <= ci[:, 1])
+    assert diag["ess"].shape == (24,) and 0.0 <= diag["accept_rate"] <= 1.0
+
+
+def test_cuda_device_raises_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the constructor does not raise here")
+    with pytest.raises(RuntimeError, match="cuda"):
+        tcb.CausalBGM(_params(tmp_path), device="cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        tcb.CausalBGM(_params(tmp_path))  # cuda is the default
+
+
+@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(sampler="mala"),
+                                dict(estimator="dr"), dict(ess_target=100.0)])
+def test_unported_predict_options_raise(tmp_path, kw):
+    model = tcb.CausalBGM(_params(tmp_path), random_seed=0, device="cpu")
+    with pytest.raises(NotImplementedError):
+        model.predict(_data(n=8), x_values=[1.0], burn_in=1, n_mcmc=1, **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(use_bnn=False), dict(save_model=True)])
+def test_unported_model_options_raise(tmp_path, kw):
+    with pytest.raises(NotImplementedError):
+        tcb.CausalBGM(_params(tmp_path, **kw), device="cpu")
+
+
+@pytest.mark.parametrize("bnn,binary,bs,n", [(True, False, None, 300), (True, True, None, 300),
+                                             (True, False, 50, 300), (True, False, 500, 300)])
+def test_resolve_predict_bs_matches_jax(bnn, binary, bs, n):
+    cfg = dict(v_dim=6, z_dims=(1, 1, 1, 2), binary_treatment=binary, use_bnn=bnn,
+               kl_weight=1e-4, sigma_v=None, sigma_x=None, sigma_y=None, use_z_rec=1.0,
+               lr=2e-4, lr_theta=1e-4, lr_z=1e-4, g_d_freq=5)
+    with warnings.catch_warnings(record=True) as wj:
+        warnings.simplefilter("always")
+        want = jcb._resolve_predict_bs(jcb.CBGMConfig(**cfg), bs, n)
+    with warnings.catch_warnings(record=True) as wt:
+        warnings.simplefilter("always")
+        got = tcb._resolve_predict_bs(tcb.CBGMConfig(**cfg), bs, n)
+    assert got == want and len(wt) == len(wj)
+
+
+def test_config_and_summary(tmp_path, capsys):
+    model = tcb.CausalBGM(_params(tmp_path), random_seed=0, device="cpu")
+    assert model.get_config()["params"]["v_dim"] == 6
+    model.initialize_nets(print_summary=True)
+    assert "g_net:" in capsys.readouterr().out
+    assert set(model.kernels) == {"bnn_hosteps", "bnn_hosteps_paired"}
+
+
+def test_port_cpu_predict_never_imports_jax(tmp_path):
+    code = textwrap.dedent(f"""
+        import sys
+        import numpy as np
+        import torch
+        torch.set_num_threads(2)
+        import bayesgm_torch
+        from bayesgm_torch import CausalBGM, Sim_Hirano_Imbens_sampler
+        x, y, v = Sim_Hirano_Imbens_sampler(batch_size=32, N=32, v_dim=6, seed=0).load_all()
+        m = CausalBGM(dict(v_dim=6, z_dims=[1, 1, 1, 2], binary_treatment=False,
+                           dataset="t", output_dir={str(tmp_path)!r}, save_res=False,
+                           g_units=[8], h_units=[8], f_units=[8]),
+                      random_seed=0, device="cpu")
+        adrf, ci = m.predict((x, y, v), x_values=[0.5, 1.0], burn_in=5, n_mcmc=5)
+        assert adrf.shape == (2,)
+        print("JAX_IMPORTED", "jax" in sys.modules)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "JAX_IMPORTED False" in out.stdout
+
+
+def test_effect_draws_are_chain_diagnosable(tmp_path):
+    """The port's predict draws feed its own diagnostics (ESS in [1, n])."""
+    model = tcb.CausalBGM(_params(tmp_path), random_seed=0, device="cpu")
+    _, _, diag, draws = model.predict(_data(n=16), x_values=[0.0, 2.0], burn_in=10,
+                                      n_mcmc=40, return_diagnostics=True, return_draws=True)
+    assert draws.shape == (2, 40)
+    ess = tmcmc.effective_sample_size(draws, axis=1)
+    np.testing.assert_array_equal(ess, diag["ess"])
+    assert np.all((ess >= 1) & (ess <= 40))

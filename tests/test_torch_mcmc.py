@@ -1,0 +1,136 @@
+"""The port's adaptive MH and chain diagnostics: an analytic Gaussian target,
+the adaptation schedule against the JAX step, and ESS / split-R̂ against the
+JAX functions on the same draws."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from bayesgm_tpu.ops import mcmc as jmcmc  # noqa: E402
+from bayesgm_torch.ops import mcmc as tmcmc  # noqa: E402
+
+torch.set_num_threads(2)
+
+MU = torch.tensor([1.0, -2.0])
+SD = torch.tensor([0.5, 2.0])
+
+
+def _gauss_lp(p, s, g):
+    return -0.5 * torch.sum(((s - MU) / SD) ** 2, dim=1)
+
+
+def _run(seed, paired=False, q_sd=1.0, adaptive=True, burn_in=600, n_keep=1500,
+         n_chains=256):
+    gen = torch.Generator().manual_seed(seed)
+    init = torch.randn((n_chains, 2), generator=gen)
+    plp = (lambda p, a, b, g: (_gauss_lp(p, a, g), _gauss_lp(p, b, g))) if paired else None
+    return tmcmc.adaptive_mh(_gauss_lp, init, gen, burn_in=burn_in, n_keep=n_keep,
+                             q_sd=q_sd, adaptive=adaptive, recompute_current=True,
+                             paired_log_prob_fn=plp)
+
+
+def _moments_within_mc_error(draws, mu, var):
+    """Pooled mean and variance within 5 Monte-Carlo standard errors, the
+    error sized by the per-chain ESS."""
+    x = draws.numpy()  # (n_keep, n_chains, d)
+    ess = tmcmc.effective_sample_size(x).sum(axis=0)  # (d,) over independent chains
+    mean, v = x.reshape(-1, 2).mean(axis=0), x.reshape(-1, 2).var(axis=0)
+    se_mean = np.sqrt(var / ess)
+    se_var = var * np.sqrt(2.0 / ess)
+    assert np.all(np.abs(mean - mu) < 5 * se_mean), (mean, mu, se_mean)
+    assert np.all(np.abs(v - var) < 5 * se_var), (v, var, se_var)
+
+
+def test_gaussian_target_moments():
+    res = _run(0)
+    assert tuple(res.samples.shape) == (1500, 256, 2)
+    _moments_within_mc_error(res.samples, MU.numpy(), (SD**2).numpy())
+
+
+def test_adaptation_brings_rate_into_band():
+    res = _run(1, q_sd=8.0, burn_in=1000, n_keep=200)
+    assert float(res.q_sd) < 8.0
+    assert abs(float(res.accept_rate) - 0.25) <= 0.05
+
+
+def test_paired_and_unpaired_recompute_agree_in_law():
+    a = _run(2, paired=False).samples.numpy().reshape(-1, 2)
+    b = _run(3, paired=True).samples.numpy().reshape(-1, 2)
+    # both against the truth, and against each other (loose: chains autocorrelate)
+    _moments_within_mc_error(torch.as_tensor(b.reshape(1500, 256, 2)), MU.numpy(),
+                             (SD**2).numpy())
+    np.testing.assert_allclose(a.mean(axis=0), b.mean(axis=0), atol=0.1)
+    np.testing.assert_allclose(a.var(axis=0), b.var(axis=0), rtol=0.1)
+
+
+def test_adaptation_fires_on_the_same_steps_as_jax():
+    """Scripted acceptance (a per-step fraction of rows accepts): the q_sd
+    trajectory of the port's _mh_step equals JAX's step for step."""
+    n, steps = 64, 320
+    statics = dict(q_sd_is_adaptive=True, burn_in=260, target_rate=0.25, tolerance=0.05,
+                   adjustment_interval=50, window_size=100, recompute_current=False)
+    fracs = np.random.default_rng(0).uniform(0.0, 0.6, size=steps)
+    fracs[:120] = 0.05  # a low-acceptance run, then a mix
+
+    def scripted(t):
+        k = int(round(fracs[t] * n))
+        return np.where(np.arange(n) < k, 0.0, -np.inf).astype(np.float32)
+
+    j_carry = (jnp.zeros((n, 2)), jnp.zeros((n,)), jnp.float32(1.0),
+               jnp.zeros((100,), jnp.float32), jnp.int32(0))
+    t_carry = (torch.zeros((n, 2)), torch.zeros(n), torch.tensor(1.0),
+               torch.zeros(100), 0)
+    gen = torch.Generator().manual_seed(0)
+    j_q, t_q = [], []
+    for t in range(steps):
+        lp_t = scripted(t)
+        j_carry, _ = jmcmc._mh_step(j_carry, jax.random.PRNGKey(t),
+                                    lambda s, k: jnp.asarray(lp_t), shared_eval_key=False,
+                                    **statics)
+        t_carry, _ = tmcmc._mh_step(t_carry, gen, lambda s, g: torch.as_tensor(lp_t),
+                                    **statics)
+        j_q.append(float(j_carry[2]))
+        t_q.append(float(t_carry[2]))
+    np.testing.assert_allclose(t_q, j_q, rtol=1e-6)
+    assert len(set(np.round(t_q, 6))) > 3  # the schedule did fire, both ways
+
+
+def test_diagnostics_equal_jax():
+    rng = np.random.default_rng(0)
+    x = np.zeros((400, 6))
+    for t in range(1, 400):  # AR(1) with varying correlation per series
+        x[t] = np.linspace(0.0, 0.9, 6) * x[t - 1] + rng.normal(size=6)
+    x[:, 4] = 1.5  # constant series
+    x[7, 5] = np.nan  # diverged series
+    for fn in ("effective_sample_size", "split_rhat"):
+        np.testing.assert_array_equal(getattr(tmcmc, fn)(x), getattr(jmcmc, fn)(x))
+        np.testing.assert_array_equal(getattr(tmcmc, fn)(x.T, axis=1),
+                                      getattr(jmcmc, fn)(x.T, axis=1))
+    got = tmcmc.chain_diagnostics(x[:, :4], accept_rate=0.3)
+    want = jmcmc.chain_diagnostics(x[:, :4], accept_rate=0.3)
+    assert got.keys() == want.keys()
+    for k in got:
+        np.testing.assert_array_equal(got[k], want[k])
+
+
+@pytest.mark.parametrize("kw", [dict(multi_step_fn=lambda *a: None),
+                                dict(early_stop=dict(min_ess=100))])
+def test_unported_options_raise(kw):
+    with pytest.raises(NotImplementedError):
+        tmcmc.adaptive_mh(_gauss_lp, torch.zeros((4, 2)), torch.Generator(), burn_in=1,
+                          n_keep=1, **kw)
+
+
+def test_burn_in_only_returns_no_samples_and_collect_is_used():
+    gen = torch.Generator().manual_seed(0)
+    res = tmcmc.adaptive_mh(_gauss_lp, torch.zeros((8, 2)), gen, burn_in=20, n_keep=0)
+    assert res.samples is None and 0.0 <= float(res.accept_rate) <= 1.0
+    params = {"shift": torch.tensor(3.0)}
+    res = tmcmc.adaptive_mh(_gauss_lp, torch.zeros((8, 2)), gen,
+                            burn_in=5, n_keep=7, params=params,
+                            collect=lambda p, s, g: s.mean(dim=0) + p["shift"])
+    assert tuple(res.samples.shape) == (7, 2)
