@@ -2,8 +2,7 @@
 
 Module names follow the JAX package one for one, so each part of the port
 sits beside the function it is held against.  The port imports ``torch`` and
-never ``jax``; the dataset samplers are shared with the JAX package (they are
-plain numpy).
+never ``jax`` nor anything of the JAX package.
 
 Top-level symbols are resolved lazily, as in ``bayesgm_tpu/__init__.py``, so
 importing the package stays cheap.
@@ -13,7 +12,7 @@ __version__ = "0.1.0"
 
 _SYMBOL_TO_MODULE = {
     "CausalBGM": "bayesgm_torch.models.causalbgm",
-    "Sim_Hirano_Imbens_sampler": "bayesgm_tpu.datasets.causal_samplers",
+    "Sim_Hirano_Imbens_sampler": "bayesgm_torch.datasets.causal_samplers",
 }
 
 __all__ = sorted(_SYMBOL_TO_MODULE) + ["__version__"]

@@ -1,21 +1,32 @@
 """CausalBGM: causal inference with a 4-way partitioned latent generative
 model (port of ``bayesgm_tpu/models/causalbgm.py``).
 
-This slice of the port serves ``predict`` for the default flipout-BNN model
-(``use_bnn=True``) with the adaptive MH sampler and the plug-in estimator.
-Weights come from the port's own init (``random_seed``) or from a JAX
-``save_weights`` file (:meth:`CausalBGM.load_weights`).  The MH target is
-K1, :func:`~bayesgm_torch.ops._pk_bnn_hosteps.make_fused_causal_logp_bnn_hosteps`:
-one unpaired launch for the initial state, then one paired
-``[proposed; current]`` launch per step.
+This slice of the port trains and serves the default flipout-BNN model
+(``use_bnn=True``, continuous or binary treatment, one device):
 
+- ``fit``: the WGAN-GP EGM warm start (:meth:`CausalBGM.egm_init`), the
+  ``e(V)`` latent init, then iterative updating — per batch, Adam steps of
+  g, h and f, then a row-sparse Adam step on the latent table whose
+  value-and-gradient is K2,
+  :func:`~bayesgm_torch.ops._pk_bnn_hosteps.make_fused_causal_logp_and_grad_bnn_hosteps`;
+  eval epochs keep the best-``mse_y`` and tail-averaged (SWA) snapshots;
+- ``predict``: adaptive MH with the plug-in estimator; the MH target is K1,
+  :func:`~bayesgm_torch.ops._pk_bnn_hosteps.make_fused_causal_logp_bnn_hosteps`
+  (one unpaired launch for the initial state, then one paired
+  ``[proposed; current]`` launch per step).
+
+Weights come from the port's own init (``random_seed``), from ``fit``, or
+from a JAX ``save_weights`` file (:meth:`CausalBGM.load_weights`);
+:meth:`CausalBGM.save_weights` writes one that JAX ``load_weights`` reads.
 The model runs on ``device="cuda"`` by default and raises where CUDA is
 absent; ``device="cpu"`` (by name) runs the plain PyTorch versions.
 """
 
 from __future__ import annotations
 
+import copy
 import datetime
+import glob
 import os
 import warnings
 from typing import NamedTuple, Optional
@@ -25,14 +36,25 @@ import torch
 
 from bayesgm_torch import bridge
 from bayesgm_torch.ops import distributions as dist
-from bayesgm_torch.ops import mcmc
-from bayesgm_torch.ops._pk_bnn_hosteps import make_fused_causal_logp_bnn_hosteps
+from bayesgm_torch.ops import mcmc, optim
+from bayesgm_torch.ops._pk_bnn_hosteps import (
+    make_fused_causal_logp_and_grad_bnn_hosteps,
+    make_fused_causal_logp_bnn_hosteps,
+)
 from bayesgm_torch.ops._pk_util import (
     flatten_flipout_params,
     flipout_step_perturbations,
     split_flipout_flat,
 )
-from bayesgm_torch.ops.nn import FlipoutMLP, flipout_mlp_apply
+from bayesgm_torch.ops.nn import (
+    Critic,
+    FlipoutMLP,
+    _fused_flipout_draws,
+    critic_apply,
+    flipout_mlp_apply,
+    flipout_mlp_kl,
+)
+from bayesgm_torch.utils.data_io import save_data
 from bayesgm_torch.utils.device import resolve_device
 
 
@@ -72,15 +94,21 @@ DEFAULTS = dict(
     use_z_rec=1.0,
 )
 
+NET_NAMES = ("g", "e", "f", "h", "dz")
+
 
 def _split_z(cfg: CBGMConfig, z):
     d0, d1, d2, _ = cfg.z_dims
     return z[..., :d0], z[..., d0 : d0 + d1], z[..., d0 + d1 : d0 + d1 + d2]
 
 
-def _apply(cfg: CBGMConfig, net, x, generator):
+def _apply(cfg: CBGMConfig, net, x, generator, draws=None):
     """Forward through a flipout MLP (the only kind this slice builds)."""
-    return flipout_mlp_apply(net, x, generator)
+    return flipout_mlp_apply(net, x, generator, draws)
+
+
+def _kl(cfg: CBGMConfig, net):
+    return flipout_mlp_kl(net)
 
 
 def _sigma_sq(fixed: Optional[float], raw):
@@ -90,9 +118,63 @@ def _sigma_sq(fixed: Optional[float], raw):
     return dist.softplus_var(raw)
 
 
+# ---------------------------------------------------------------------------
+# Loss terms
+# ---------------------------------------------------------------------------
+
+
+def _loss_v(cfg, g_net, z, v, generator):
+    """``(-log p(V|Z) batch mean + kl_weight * KL, mse_v)``."""
+    out = _apply(cfg, g_net, z, generator)
+    mu_v = out[:, : cfg.v_dim]
+    sigma_sq_v = _sigma_sq(cfg.sigma_v, out[:, -1])
+    loss_mse = torch.mean((v - mu_v) ** 2)
+    loss = torch.mean(dist.gaussian_nll_iso(v, mu_v, sigma_sq_v, cfg.v_dim))
+    return loss + _kl(cfg, g_net) * cfg.kl_weight, loss_mse
+
+
+def _loss_x(cfg, h_net, z, x, generator):
+    """``(-log p(X|Z0,Z2) batch mean + kl_weight * KL, fit term)``."""
+    z0, _, z2 = _split_z(cfg, z)
+    out = _apply(cfg, h_net, torch.cat([z0, z2], dim=-1), generator)
+    mu_x = out[:, :1]
+    if cfg.binary_treatment:
+        loss_fit = torch.mean(dist.bernoulli_logits_nll(x, mu_x))
+        loss = loss_fit
+    else:
+        sigma_sq_x = _sigma_sq(cfg.sigma_x, out[:, -1])
+        loss_fit = torch.mean((x - mu_x) ** 2)
+        loss = torch.mean(dist.gaussian_nll_iso(x, mu_x, sigma_sq_x, 1))
+    return loss + _kl(cfg, h_net) * cfg.kl_weight, loss_fit
+
+
+def _loss_y(cfg, f_net, z, x, y, generator):
+    """``(-log p(Y|Z0,Z1,X) batch mean + kl_weight * KL, mse_y)``; with
+    ``deconf_weight > 0`` plus that weight times the squared correlation of
+    the residual ``y - mu_y`` with the centred, scaled cubic basis of x."""
+    z0, z1, _ = _split_z(cfg, z)
+    out = _apply(cfg, f_net, torch.cat([z0, z1, x], dim=-1), generator)
+    mu_y = out[:, :1]
+    sigma_sq_y = _sigma_sq(cfg.sigma_y, out[:, -1])
+    loss_mse = torch.mean((y - mu_y) ** 2)
+    loss = torch.mean(dist.gaussian_nll_iso(y, mu_y, sigma_sq_y, 1))
+    loss = loss + _kl(cfg, f_net) * cfg.kl_weight
+    if cfg.deconf_weight:
+        r = (y - mu_y)[:, 0]
+        rc = r - torch.mean(r)
+        xs = x[:, 0]
+        feats = torch.stack([xs, xs**2, xs**3], dim=1)
+        fc = feats - torch.mean(feats, dim=0, keepdim=True)
+        fc = fc / (torch.sqrt(torch.mean(fc**2, dim=0, keepdim=True)) + 1e-6)
+        cov = torch.mean(fc * rc[:, None], dim=0)
+        r2 = torch.sum(cov**2) / (torch.mean(rc**2) + 1e-6)
+        loss = loss + cfg.deconf_weight * r2
+    return loss, loss_mse
+
+
 def _neg_log_posterior_rows(cfg, nets, z, x, y, v, generator):
     """Per-sample negative log posterior through the nets' own flipout draws
-    (g, then h, then f) — the composite K1 is held against."""
+    (g, then h, then f) — the composite K1 and K2 are held against."""
     g_out = _apply(cfg, nets["g"], z, generator)
     mu_v = g_out[:, : cfg.v_dim]
     loss_pv = dist.gaussian_nll_iso(v, mu_v, _sigma_sq(cfg.sigma_v, g_out[:, -1]), cfg.v_dim)
@@ -110,6 +192,229 @@ def _neg_log_posterior_rows(cfg, nets, z, x, y, v, generator):
     loss_py = dist.gaussian_nll_iso(y, mu_y, _sigma_sq(cfg.sigma_y, f_out[:, -1]), 1)
 
     return loss_pv + loss_px + loss_py + dist.standard_normal_neg_log_prior(z)
+
+
+def _latent_loss(cfg, nets, z, x, y, v, generator):
+    """Batch-mean negative log posterior: the latent update's scalar loss."""
+    return torch.mean(_neg_log_posterior_rows(cfg, nets, z, x, y, v, generator))
+
+
+# ---------------------------------------------------------------------------
+# Training steps
+# ---------------------------------------------------------------------------
+
+
+def _params(nets, names):
+    return [p for k in names for p in nets[k].parameters()]
+
+
+def _train_batch_step(cfg: CBGMConfig, nets, opts, z_table, z_opt, idx, generator, data,
+                      latent_vg=None, lr_scale=1.0):
+    """One iterative-updating step, in place: g, h and f each take their own
+    flipout draw and an Adam step at ``lr_theta * lr_scale``; then, with the
+    updated nets, the batch's latent rows take a row-sparse Adam step at
+    ``lr_z * lr_scale``.
+
+    ``latent_vg(bz, bx, by, bv, nets, generator) -> (neg_rows, grad_rows)``
+    is the fused latent value-and-gradient (K2); its gradient is that of the
+    row sum, so it is divided by the batch size.  Without it the gradient is
+    autograd of :func:`_latent_loss`.  Returns ``(opts, z_opt, losses)``;
+    the losses are 0-d tensors on the device."""
+    x, y, v = data
+    bx, by, bv = x[idx], y[idx], v[idx]
+    bz = z_table[idx]
+    lr = cfg.lr_theta * lr_scale
+    opts = dict(opts)
+    losses = {}
+    for name, loss_fn, args, keys in (
+            ("g", _loss_v, (bz, bv), ("loss_v", "mse_v")),
+            ("h", _loss_x, (bz, bx), ("loss_x", "mse_x")),
+            ("f", _loss_y, (bz, bx, by), ("loss_y", "mse_y"))):
+        loss, aux = loss_fn(cfg, nets[name], *args, generator)
+        params = list(nets[name].parameters())
+        grads = torch.autograd.grad(loss, params)
+        opts[name] = optim.adam_update(grads, opts[name], params, lr)
+        losses[keys[0]], losses[keys[1]] = loss.detach(), aux.detach()
+
+    if latent_vg is not None:
+        neg_rows, grad_rows = latent_vg(bz, bx, by, bv, nets, generator)
+        loss_post = torch.mean(neg_rows)
+        z_grads = grad_rows / bz.shape[0]  # grad of the batch-mean loss
+    else:
+        zr = bz.detach().requires_grad_(True)
+        loss_post = _latent_loss(cfg, nets, zr, bx, by, bv, generator)
+        (z_grads,) = torch.autograd.grad(loss_post, zr)
+    z_opt = optim.table_adam_update_rows(z_grads, idx, z_opt, z_table, cfg.lr_z * lr_scale)
+    losses["loss_postrior_z"] = loss_post.detach()
+    return opts, z_opt, losses
+
+
+def _interp_weight(generator, device):
+    """The WGAN-GP interpolation weight: one U(0, 1) scalar per critic step."""
+    return torch.rand((), generator=generator, device=device)
+
+
+def _egm_batch(generator, n: int, batch_size: int, z_dim: int, device):
+    """One EGM step's batch: row indices (with replacement) and N(0, I) z."""
+    idx = torch.randint(0, n, (batch_size,), generator=generator, device=device)
+    return idx, torch.randn((batch_size, z_dim), generator=generator, device=device)
+
+
+def _egm_disc_step(cfg: CBGMConfig, nets, opt_d, z, v, generator):
+    """WGAN-GP critic step in latent space, in place: Wasserstein loss plus
+    10 x the gradient penalty ``(||d critic / d z_hat|| - 1)^2`` at one
+    random interpolate per step (a double backward).  Returns
+    ``(opt_d, losses)``."""
+    eps = _interp_weight(generator, z.device)
+    with torch.no_grad():
+        z_fake = _apply(cfg, nets["e"], v, generator)
+    z_hat = (z * eps + z_fake * (1.0 - eps)).requires_grad_(True)
+    dz_net = nets["dz"]
+    d_fake = critic_apply(dz_net, z_fake)
+    d_real = critic_apply(dz_net, z)
+    dz_loss = -torch.mean(d_real) + torch.mean(d_fake)
+    (grad_z,) = torch.autograd.grad(torch.sum(critic_apply(dz_net, z_hat)), z_hat,
+                                    create_graph=True)
+    grad_norm = torch.sqrt(torch.sum(grad_z**2, dim=1))
+    gp = torch.mean((grad_norm - 1.0) ** 2)
+    d_loss = dz_loss + 10.0 * gp
+    params = list(dz_net.parameters())
+    opt_d = optim.adam_update(torch.autograd.grad(d_loss, params), opt_d, params, cfg.lr)
+    return opt_d, dict(dz_loss=dz_loss.detach(), d_loss=d_loss.detach())
+
+
+def _egm_gen_step(cfg: CBGMConfig, nets, opt_ge, z, v, x, y, generator):
+    """Joint g/e/f/h generator step, in place: adversarial, roundtrip
+    (``l2_loss_v``, ``use_z_rec * l2_loss_z``, the latter reaching e through
+    ``z_rec = e(g(z))``), supervised x/y terms and ``0.001 x`` the mean
+    squared raw variance-head outputs; one Adam state over all four nets.
+    Returns ``(opt_ge, losses)``."""
+    g, e, f, h = (nets[k] for k in ("g", "e", "f", "h"))
+    g_out = _apply(cfg, g, z, generator)
+    v_fake = g_out[:, : cfg.v_dim]
+    sigma_sq_loss = torch.mean(g_out[:, -1] ** 2)
+    z_enc = _apply(cfg, e, v, generator)
+    z0, z1, z2 = _split_z(cfg, z_enc)
+
+    z_rec = _apply(cfg, e, v_fake, generator)
+    v_rec = _apply(cfg, g, z_enc, generator)[:, : cfg.v_dim]
+    d_fake = critic_apply(nets["dz"], z_enc)
+
+    l2_loss_v = torch.mean((v - v_rec) ** 2)
+    l2_loss_z = torch.mean((z - z_rec) ** 2)
+    e_loss_adv = -torch.mean(d_fake)
+
+    f_out = _apply(cfg, f, torch.cat([z0, z1, x], dim=-1), generator)
+    y_fake = f_out[:, :1]
+    sigma_sq_loss = sigma_sq_loss + torch.mean(f_out[:, -1] ** 2)
+    h_out = _apply(cfg, h, torch.cat([z0, z2], dim=-1), generator)
+    x_fake = h_out[:, :1]
+    sigma_sq_loss = sigma_sq_loss + torch.mean(h_out[:, -1] ** 2)
+
+    if cfg.binary_treatment:
+        l2_loss_x = torch.mean(dist.bernoulli_logits_nll(x, x_fake))
+    else:
+        l2_loss_x = torch.mean((x_fake - x) ** 2)
+    l2_loss_y = torch.mean((y_fake - y) ** 2)
+
+    g_e_loss = (e_loss_adv + (l2_loss_v + cfg.use_z_rec * l2_loss_z)
+                + (l2_loss_x + l2_loss_y) + 0.001 * sigma_sq_loss)
+    params = _params(nets, ("g", "e", "f", "h"))
+    opt_ge = optim.adam_update(torch.autograd.grad(g_e_loss, params), opt_ge, params, cfg.lr)
+    losses = dict(e_loss_adv=e_loss_adv, l2_loss_v=l2_loss_v, l2_loss_z=l2_loss_z,
+                  l2_loss_x=l2_loss_x, l2_loss_y=l2_loss_y, g_e_loss=g_e_loss)
+    return opt_ge, {k: t.detach() for k, t in losses.items()}
+
+
+def _egm_iter(cfg: CBGMConfig, nets, opt_d, opt_ge, data, generator, batch_size):
+    """One EGM iteration: ``g_d_freq`` critic steps, then one generator step;
+    each step draws its own batch indices and batch z.  Returns
+    ``(opt_d, opt_ge, losses)``."""
+    x, y, v = data
+    n, z_dim = x.shape[0], sum(cfg.z_dims)
+    d_losses = {}
+    for _ in range(cfg.g_d_freq):
+        idx, batch_z = _egm_batch(generator, n, batch_size, z_dim, x.device)
+        opt_d, d_losses = _egm_disc_step(cfg, nets, opt_d, batch_z, v[idx], generator)
+    idx, batch_z = _egm_batch(generator, n, batch_size, z_dim, x.device)
+    opt_ge, g_losses = _egm_gen_step(cfg, nets, opt_ge, batch_z, v[idx], x[idx], y[idx],
+                                     generator)
+    return opt_d, opt_ge, {**d_losses, **g_losses}
+
+
+# ---------------------------------------------------------------------------
+# Evaluation
+# ---------------------------------------------------------------------------
+
+
+def _percentile_nearest(x, pct: float):
+    """``jnp.percentile(x, pct, method="nearest")``: the index is computed in
+    float32 as JAX computes it, and a tie (weight exactly 0.5) takes the
+    lower neighbour."""
+    flat = torch.sort(x.reshape(-1)).values
+    n = flat.shape[0]
+    f = np.float32
+    q = (f(pct) / f(100.0)) * f(n - 1)
+    low = np.floor(q)
+    idx = int(low) if q - low <= f(0.5) else int(np.ceil(q))
+    return flat[min(max(idx, 0), n - 1)]
+
+
+def _linspace(start, stop, num: int):
+    """``jnp.linspace`` (endpoint included) on 0-d tensors:
+    ``start * (1 - s) + stop * s`` with ``s = i / (num - 1)``, then ``stop``."""
+    div = num - 1
+    step = torch.arange(div, dtype=torch.float32, device=start.device) / div
+    return torch.cat([start * (1 - step) + stop * step, stop.reshape(1)])
+
+
+@torch.no_grad()
+def _evaluate(cfg: CBGMConfig, nets, data, z, generator, nb_intervals: int = 200):
+    """Full-data reconstruction MSEs and the in-sample ITE (binary) or ADRF
+    grid (continuous).  Returns ``(causal_pre, mse_x, mse_y, mse_v)`` as
+    device tensors.
+
+    Draw order: e (when ``z`` is None), g, f, h, then the effect.  The ADRF
+    grid (``nb_intervals`` points between the 5th and 95th 'nearest'
+    percentiles of x) takes ONE flipout draw shared by every grid point,
+    as JAX's vmap over one key does."""
+    x, y, v = data
+    if z is None:
+        z = _apply(cfg, nets["e"], v, generator)
+    z0, z1, z2 = _split_z(cfg, z)
+    v_pred = _apply(cfg, nets["g"], z, generator)[:, : cfg.v_dim]
+    y_pred = _apply(cfg, nets["f"], torch.cat([z0, z1, x], dim=-1), generator)[:, :1]
+    x_pred = _apply(cfg, nets["h"], torch.cat([z0, z2], dim=-1), generator)[:, :1]
+    if cfg.binary_treatment:
+        x_pred = torch.sigmoid(x_pred)
+    mse_v = torch.mean((v - v_pred) ** 2)
+    mse_x = torch.mean((x - x_pred) ** 2)
+    mse_y = torch.mean((y - y_pred) ** 2)
+
+    f_net = nets["f"]
+    if cfg.binary_treatment:
+        ones = torch.ones((x.shape[0], 1), device=x.device)
+        y_pos = _apply(cfg, f_net, torch.cat([z0, z1, ones], dim=-1), generator)[:, :1]
+        y_neg = _apply(cfg, f_net, torch.cat([z0, z1, 0.0 * ones], dim=-1), generator)[:, :1]
+        return y_pos - y_neg, mse_x, mse_y, mse_v
+
+    x_grid = _linspace(_percentile_nearest(x, 5.0), _percentile_nearest(x, 95.0), nb_intervals)
+    zz = torch.cat([z0, z1], dim=-1)
+    n, d = zz.shape
+    draws = _fused_flipout_draws(f_net.layers(), (n, d + 1), generator)
+    chunk = max(1, min(nb_intervals, (1 << 22) // max(n, 1)))
+    means = []
+    for start in range(0, nb_intervals, chunk):
+        xv = x_grid[start:start + chunk]
+        inp = torch.cat([zz.expand(xv.shape[0], n, d),
+                         xv[:, None, None].expand(xv.shape[0], n, 1)], dim=-1)
+        means.append(torch.mean(_apply(cfg, f_net, inp, generator, draws)[..., 0], dim=1))
+    return torch.cat(means), mse_x, mse_y, mse_v
+
+
+# ---------------------------------------------------------------------------
+# Inference
+# ---------------------------------------------------------------------------
 
 
 def _effect_collector(cfg: CBGMConfig, nets, x_values, sample_y: bool):
@@ -179,6 +484,23 @@ def _resolve_predict_bs(cfg: CBGMConfig, bs, n_test: int) -> int:
     return bs
 
 
+class _KernelLogProb(torch.autograd.Function):
+    """``log p(z)`` from a fused value-and-gradient ``run(z) -> (neg, dneg/dz)``
+    (K2): the forward returns ``-neg`` and keeps the gradient, the backward
+    scales it per row by the cotangent."""
+
+    @staticmethod
+    def forward(ctx, z, run):
+        neg, grad_neg = run(z)
+        ctx.save_for_backward(grad_neg)
+        return -neg
+
+    @staticmethod
+    def backward(ctx, cotangent):
+        (grad_neg,) = ctx.saved_tensors
+        return -cotangent[:, None] * grad_neg, None
+
+
 def _kernel_seed(generator, device):
     """Two int32 seed words for the kernel's sign generator, drawn on the
     device (no host round trip)."""
@@ -187,7 +509,7 @@ def _kernel_seed(generator, device):
 
 
 class CausalBGM:
-    """Causal Bayesian Generative Model (predict slice).
+    """Causal Bayesian Generative Model (fit and predict slice).
 
     Parameters
     ----------
@@ -195,20 +517,30 @@ class CausalBGM:
         Required keys: ``'v_dim'``, ``'z_dims'`` ([z0, z1, z2, z3]),
         ``'binary_treatment'``, ``'dataset'``, ``'output_dir'``.  Optional
         keys as in :data:`DEFAULTS`, plus fixed-variance overrides
-        ``'sigma_v'``/``'sigma_x'``/``'sigma_y'`` and ``'antithetic_eps'``.
+        ``'sigma_v'``/``'sigma_x'``/``'sigma_y'``, ``'antithetic_eps'``,
+        ``'lr_decay'`` (``'cosine'``, ``'linear'`` or None) and
+        ``'use_pallas_latent'`` (``"auto"``: K2 on CUDA and the autograd
+        composite on the CPU; True: K2's wrapper everywhere, which on the
+        CPU is its plain version; any other value raises ``ValueError``).
     timestamp : str or None
         Run timestamp (current local time if None).
     random_seed : int or None
-        Seed of the init and of the model's generator (default 42).
+        Seed of the init and of the model's generators (default 42).
     device : str or torch.device
         ``"cuda"`` (default; raises without CUDA) or ``"cpu"``.
 
     Attributes
     ----------
+    nets : dict
+        ``g``, ``h``, ``f``, ``e`` (flipout MLPs) and ``dz`` (the critic).
     kernels : dict
-        The K1 wrappers the MH target uses (``"bnn_hosteps"`` for the initial
-        evaluation, ``"bnn_hosteps_paired"`` per step); each counts its
+        The kernel wrappers: K1 for the MH target (``"bnn_hosteps"`` for the
+        initial evaluation, ``"bnn_hosteps_paired"`` per step) and K2
+        (``"bnn_hosteps_grad"``) for fit's latent update; each counts its
         kernel launches in ``launches``.
+    egm_losses, fit_losses : dict
+        The last EGM iteration's and the last training step's losses, as
+        floats (set by ``egm_init`` and after every ``fit`` epoch).
     """
 
     def __init__(self, params, timestamp=None, random_seed=None, device="cuda"):
@@ -237,15 +569,34 @@ class CausalBGM:
             raise NotImplementedError("use_bnn=False (plain MLP nets) is not ported yet")
         if p["save_model"]:
             raise NotImplementedError("save_model (checkpointing) is not ported yet")
+        if p.get("metrics_path"):
+            raise NotImplementedError("metrics_path (MetricsLogger) is not ported yet")
+        use_k2 = p.get("use_pallas_latent", "auto")
+        if not (use_k2 is True or (isinstance(use_k2, str) and use_k2 == "auto")):
+            raise ValueError(f"use_pallas_latent={use_k2!r}: only 'auto' or True (the "
+                             "latent update and the MH target on CUDA always run the kernels)")
+        self._kernel_path = self.device.type == "cuda" or use_k2 is True
         self.seed = 42 if random_seed is None else int(random_seed)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(self.seed)
+        # Host-side stream: epoch permutations and the seeds of forked
+        # generators, drawn with no device round trip.
+        self._host_gen = torch.Generator().manual_seed(self.seed + 1)
         self._build_nets()
         self.data_z = None
+        self.best_causal_pre = None
+        self.best_epoch = None
+        self.best_nets = None  # snapshot of the nets at the best-mse_y eval
+        self.swa_nets = None   # running mean of the eval snapshots (tail half)
+        self._swa_count = 0
+        self.egm_losses = None
+        self.fit_losses = None
 
         self.timestamp = timestamp
         if self.timestamp is None:
             self.timestamp = datetime.datetime.now().strftime("%Y%m%d_%H%M%S")
+        self.checkpoint_path = "{}/checkpoints/{}/{}".format(
+            p["output_dir"], p["dataset"], self.timestamp)
         self.save_dir = "{}/results/{}/{}".format(
             p["output_dir"], p["dataset"], self.timestamp)
         if p["save_res"] and not os.path.exists(self.save_dir):
@@ -256,41 +607,63 @@ class CausalBGM:
     def _build_nets(self):
         cfg, p = self.cfg, self.params
         init_gen = torch.Generator().manual_seed(self.seed)
+        z_dim = sum(cfg.z_dims)
         d0, d1, d2, _ = cfg.z_dims
         nets = {
-            "g": FlipoutMLP(sum(cfg.z_dims), cfg.v_dim + 1, p["g_units"], init_gen),
+            "g": FlipoutMLP(z_dim, cfg.v_dim + 1, p["g_units"], init_gen),
             "h": FlipoutMLP(d0 + d2, 2, p["h_units"], init_gen),
             "f": FlipoutMLP(d0 + d1 + 1, 2, p["f_units"], init_gen),
+            "e": FlipoutMLP(cfg.v_dim, z_dim, p["e_units"], init_gen),
+            "dz": Critic(z_dim, p["dz_units"], init_gen),
         }
-        self._set_nets(nets)
-
-    def _set_nets(self, nets):
-        for net in nets.values():
-            net.requires_grad_(False)
-        self.nets = {k: nets[k].to(self.device) for k in ("g", "h", "f")}
+        self.nets = {k: nets[k].to(self.device) for k in NET_NAMES}
+        self.opts = {k: optim.adam_init(self.nets[k].parameters()) for k in ("g", "f", "h")}
+        self._opt_d = optim.adam_init(self.nets["dz"].parameters())
+        self._opt_ge = optim.adam_init(_params(self.nets, ("g", "e", "f", "h")))
         dims = [self.nets[k].dims for k in "ghf"]
         self.kernels = {
             "bnn_hosteps": make_fused_causal_logp_bnn_hosteps(self.cfg, *dims),
             "bnn_hosteps_paired": make_fused_causal_logp_bnn_hosteps(self.cfg, *dims,
                                                                      paired=True),
+            "bnn_hosteps_grad": make_fused_causal_logp_and_grad_bnn_hosteps(self.cfg, *dims),
         }
+
+    def _fork_generator(self) -> torch.Generator:
+        """A new device generator seeded from the host stream (no sync)."""
+        seed = int(torch.randint(0, 2**62, (), generator=self._host_gen))
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    def _data(self, data):
+        """``(x, y, v)`` as float32 tensors on the model's device."""
+        return tuple(torch.as_tensor(a if torch.is_tensor(a) else np.asarray(a, np.float32),
+                                     dtype=torch.float32, device=self.device) for a in data)
 
     def get_config(self):
         """Return ``{"params": params}``."""
         return {"params": self.params}
 
+    def save_weights(self, path: str):
+        """Save every net (and the latent table, if fitted) as the ``.npz``
+        JAX ``CausalBGM.save_weights`` writes; JAX ``load_weights`` reads it."""
+        return bridge.save_npz(path, self.nets, self.data_z)
+
     def load_weights(self, path: str):
-        """Restore g/h/f (and the latent table, if present) from a JAX
-        ``CausalBGM.save_weights`` ``.npz``; shapes must match this model."""
+        """Restore all five nets (and the latent table, if present) from a
+        ``save_weights`` ``.npz`` of either package; shapes must match this
+        model.  The values are copied into the model's own parameters, so
+        the optimizer states stay attached."""
         bundle = bridge.load_npz(path)
         nets = bundle["nets"]
-        for k in ("g", "h", "f"):
-            if k not in nets:
-                raise ValueError(f"{path}: no flipout net {k!r}")
+        for k in NET_NAMES:
+            if k not in nets or type(nets[k]) is not type(self.nets[k]):
+                raise ValueError(f"{path}: no {type(self.nets[k]).__name__} {k!r}")
             if nets[k].dims != self.nets[k].dims:
                 raise ValueError(f"{path}: net {k!r} has dims {nets[k].dims}, "
                                  f"this model {self.nets[k].dims}")
-        self._set_nets(nets)
+        with torch.no_grad():
+            for k in NET_NAMES:
+                for dst, src in zip(self.nets[k].parameters(), nets[k].parameters()):
+                    dst.copy_(src)
         if "data_z" in bundle:
             self.data_z = torch.as_tensor(bundle["data_z"], device=self.device)
         return self
@@ -301,6 +674,203 @@ class CausalBGM:
             for name in ("g", "f", "h"):
                 n_params = sum(t.numel() for t in self.nets[name].parameters())
                 print(f"{name}_net: {n_params} parameters")
+
+    # -- EGM initialization -------------------------------------------------
+
+    def egm_init(self, data, egm_n_iter=30000, batch_size=32, egm_batches_per_eval=500,
+                 verbose=1):
+        """Adversarial EGM warm start: ``egm_n_iter + 1`` iterations of
+        (``g_d_freq`` critic steps + one generator step), with a logging
+        slot every ``egm_batches_per_eval`` iterations.  At each slot an
+        evaluation generator is forked whether or not it is used; the
+        evaluation itself runs only when ``save_res`` writes its result."""
+        data = self._data(data)
+        print("EGM Initialization Starts ...")
+        done, total = 0, egm_n_iter + 1
+        losses = None
+        while done < total:
+            n_eval = min(egm_batches_per_eval, total - done)
+            for _ in range(n_eval):
+                self._opt_d, self._opt_ge, losses = _egm_iter(
+                    self.cfg, self.nets, self._opt_d, self._opt_ge, data, self._gen,
+                    batch_size)
+            done += n_eval
+            if verbose:
+                lv = {k: float(t) for k, t in losses.items()}
+                print(
+                    "EGM Initialization Iter [%d] : e_loss_adv [%.4f], l2_loss_v [%.4f], "
+                    "l2_loss_z [%.4f], l2_loss_x [%.4f], l2_loss_y [%.4f], g_e_loss [%.4f], "
+                    "dz_loss [%.4f], d_loss [%.4f]"
+                    % (done - 1, lv["e_loss_adv"], lv["l2_loss_v"], lv["l2_loss_z"],
+                       lv["l2_loss_x"], lv["l2_loss_y"], lv["g_e_loss"],
+                       lv["dz_loss"], lv["d_loss"]))
+            eval_gen = self._fork_generator()
+            if self.params["save_res"]:
+                causal_pre, *_ = self.evaluate(data, generator=eval_gen)
+                save_data(f"{self.save_dir}/causal_pre_egm_init_iter-{done - 1}.txt",
+                          causal_pre.cpu().numpy())
+        self.egm_losses = {k: float(t) for k, t in losses.items()}
+        print("EGM Initialization Ends.")
+
+    # -- iterative updating -------------------------------------------------
+
+    def _build_fused_latent_vg(self):
+        """The latent value-and-gradient closure ``(bz, bx, by, bv, nets,
+        generator) -> (neg_rows, grad_rows)`` through K2, or None for the
+        autograd composite.
+
+        On CUDA it is always K2, and a K2 that fails to build or launch
+        raises.  On the CPU ``params['use_pallas_latent']`` picks: ``"auto"``
+        (default) the composite, True K2's wrapper, i.e. its plain version."""
+        if not self._kernel_path:
+            return None
+        fused = self.kernels["bnn_hosteps_grad"]
+
+        def vg(bz, bx, by, bv, nets, generator):
+            ws, sigs = zip(*(split_flipout_flat(flatten_flipout_params(nets[k]))
+                             for k in "ghf"))
+            ps = flipout_step_perturbations(sum(sigs, []), generator)
+            return fused(bz, bx, by, bv, _kernel_seed(generator, bz.device), *ws, ps)
+
+        return vg
+
+    def fit(self, data, epochs=100, epochs_per_eval=5, batch_size=32, startoff=0,
+            use_egm_init=True, egm_n_iter=30000, egm_batches_per_eval=500,
+            save_format="txt", verbose=1, mesh=None, egm_batch_size=None):
+        """EGM warm start (optional), then ``epochs + 1`` passes of iterative
+        updating over a fresh permutation each (full batches, then the
+        remainder batch), with the ``params['lr_decay']`` schedule.  Every
+        ``epochs_per_eval`` epochs :meth:`evaluate` runs; its ``mse_y`` keeps
+        the best snapshot (``best_nets``, ``best_causal_pre``, from epoch
+        ``startoff`` on) and the tail half of training feeds the running
+        mean ``swa_nets``.
+
+        ``mesh`` and resuming from a checkpoint are not ported yet and raise
+        ``NotImplementedError``."""
+        if mesh is not None:
+            raise NotImplementedError("fit(mesh=...) is not ported yet")
+        if glob.glob(os.path.join(self.checkpoint_path, "ckpt-*.npz")):
+            raise NotImplementedError(
+                f"{self.checkpoint_path} holds a checkpoint; resuming is not ported yet")
+        tdata = self._data(data)
+        data_v = tdata[2]
+        n = data_v.shape[0]
+        cfg = self.cfg
+        if self.params["save_res"]:
+            with open(f"{self.save_dir}/params.txt", "w") as f:
+                f.write(str(self.params))
+
+        best_loss = np.inf
+        if use_egm_init:
+            self.egm_init(tdata, egm_n_iter=egm_n_iter,
+                          batch_size=egm_batch_size or batch_size,
+                          egm_batches_per_eval=egm_batches_per_eval, verbose=verbose)
+            print("Initialize latent variables Z with e(V)...")
+            with torch.no_grad():
+                self.data_z = _apply(cfg, self.nets["e"], data_v, self._gen)
+        else:
+            print("Random initialization of latent variables Z...")
+            self.data_z = torch.randn((n, sum(cfg.z_dims)), generator=self._gen,
+                                      device=self.device)
+        z_opt = optim.table_adam_init(self.data_z)
+
+        n_full = n // batch_size
+        remainder = n - n_full * batch_size
+        latent_vg = self._build_fused_latent_vg()
+        decay = self.params.get("lr_decay")
+        print("Iterative Updating Starts ...")
+        for epoch in range(0, epochs + 1):
+            perm = torch.randperm(n, generator=self._host_gen).to(self.device)
+            scale = optim.lr_schedule_scale(decay, epoch, epochs)
+            batches = [perm[b * batch_size:(b + 1) * batch_size] for b in range(n_full)]
+            if remainder:
+                batches.append(perm[n_full * batch_size:])
+            for idx in batches:
+                self.opts, z_opt, losses = _train_batch_step(
+                    cfg, self.nets, self.opts, self.data_z, z_opt, idx, self._gen, tdata,
+                    latent_vg=latent_vg, lr_scale=scale)
+            self.fit_losses = {k: float(t) for k, t in losses.items()}
+
+            if epoch % epochs_per_eval == 0:
+                causal_pre, mse_x, mse_y, mse_v = self.evaluate(tdata, self.data_z)
+                causal_pre = causal_pre.cpu().numpy()
+                mse_y = float(mse_y)
+                if verbose:
+                    print("Epoch [%d/%d]: MSE_x: %.4f, MSE_y: %.4f, MSE_v: %.4f\n"
+                          % (epoch, epochs, float(mse_x), mse_y, float(mse_v)))
+                if epoch >= startoff and mse_y < best_loss:
+                    best_loss = mse_y
+                    self.best_causal_pre = causal_pre
+                    self.best_epoch = epoch
+                    self.best_nets = copy.deepcopy(self.nets)
+                if epoch >= epochs // 2:
+                    self._swa_count += 1
+                    if self.swa_nets is None:
+                        self.swa_nets = copy.deepcopy(self.nets)
+                    else:
+                        w = 1.0 / self._swa_count
+                        with torch.no_grad():
+                            for k in NET_NAMES:
+                                for a, b in zip(self.swa_nets[k].parameters(),
+                                                self.nets[k].parameters()):
+                                    a.add_((b - a) * w)
+                if self.params["save_res"]:
+                    save_data(f"{self.save_dir}/causal_pre_at_{epoch}.{save_format}",
+                              causal_pre)
+
+    # -- evaluation -----------------------------------------------------------
+
+    def evaluate(self, data, data_z=None, nb_intervals=200, generator=None):
+        """Reconstruction MSEs and the in-sample ITE/ADRF:
+        ``(causal_pre, mse_x, mse_y, mse_v)`` as device tensors.  Without
+        ``data_z`` the latents are ``e(V)``.  ``generator`` defaults to a
+        fresh fork of the model's stream."""
+        data = self._data(data)
+        if data_z is not None:
+            data_z = torch.as_tensor(data_z, dtype=torch.float32, device=self.device)
+        return _evaluate(self.cfg, self.nets, data, data_z,
+                         self._fork_generator() if generator is None else generator,
+                         nb_intervals=nb_intervals)
+
+    # -- posterior ------------------------------------------------------------
+
+    def get_log_posterior(self, data_x, data_y, data_v, data_z, generator=None):
+        """Batched ``log p(Z | X, Y, V)`` up to a constant, shape ``(n,)``,
+        through the nets' own flipout draws."""
+        x, y, v, z = self._data((data_x, data_y, data_v, data_z))
+        return -_neg_log_posterior_rows(self.cfg, self.nets, z, x, y, v,
+                                        self._gen if generator is None else generator)
+
+    def _make_log_prob(self, data_x, data_y, data_v, differentiable=False):
+        """Log-target over Z, ``log_prob(z, generator) -> (n,)``.
+
+        On the kernel path (CUDA, or ``params['use_pallas_latent'] is True``)
+        it is K1 with fresh eps and sign seed per call; with
+        ``differentiable=True`` it is K2 wrapped in a ``torch.autograd.Function``
+        whose backward scales K2's z-gradient (taken through the same weight
+        noise) by the cotangent.  Elsewhere it is the autograd composite."""
+        cfg, nets = self.cfg, self.nets
+        x, y, v = self._data((data_x, data_y, data_v))
+
+        def composite_log_prob(z, generator):
+            return -_neg_log_posterior_rows(cfg, nets, z, x, y, v, generator)
+
+        if not self._kernel_path:
+            return composite_log_prob
+        ws, sigs = zip(*(split_flipout_flat(flatten_flipout_params(nets[k])) for k in "ghf"))
+        sigs = sum(sigs, [])
+
+        def kernel_args(z, generator):
+            ps = flipout_step_perturbations(sigs, generator)
+            return (z.detach().contiguous(), x, y, v, _kernel_seed(generator, z.device), *ws, ps)
+
+        if not differentiable:
+            fused = self.kernels["bnn_hosteps"]
+            return lambda z, generator: -fused(*kernel_args(z, generator))
+
+        fused_vg = self.kernels["bnn_hosteps_grad"]
+        return lambda z, generator: _KernelLogProb.apply(
+            z, lambda zz: fused_vg(*kernel_args(zz, generator)))
 
     # -- MH target ----------------------------------------------------------
 
@@ -358,7 +928,8 @@ class CausalBGM:
     # -- inference ----------------------------------------------------------
 
     def predict(self, data, alpha=0.01, n_mcmc=3000, burn_in=5000, x_values=None,
-                q_sd=1.0, sample_y=True, bs=None, sampler="mh", mesh=None,
+                q_sd=1.0, sample_y=True, bs=None, sampler="mh",
+                use_best_nets=False, use_swa_nets=False, mesh=None,
                 return_diagnostics=False, return_draws=False,
                 estimator="plugin", ess_target=None):
         """Causal effects with posterior intervals from latent MCMC.
@@ -370,6 +941,9 @@ class CausalBGM:
         the 0.9/1.1 proposal-sd adaptation.  ``return_diagnostics=True``
         appends ESS / split-R̂ / pooled acceptance; ``return_draws=True``
         appends the effect draw matrix (see :meth:`_aggregate_predict`).
+        ``use_best_nets`` / ``use_swa_nets`` infer with ``fit``'s best-mse_y
+        snapshot or its tail weight average instead of the final nets (when
+        ``fit`` made one).
 
         ``mesh``, ``sampler="mala"``, ``estimator="dr"`` and ``ess_target``
         are not ported yet and raise ``NotImplementedError``.
@@ -395,6 +969,11 @@ class CausalBGM:
         data_x, data_y, data_v = [np.asarray(a, dtype=np.float32) for a in data]
         n_test = len(data_x)
         bs = _resolve_predict_bs(cfg, bs, n_test)
+        nets = self.nets
+        if use_best_nets and self.best_nets is not None:
+            nets = self.best_nets
+        elif use_swa_nets and self.swa_nets is not None:
+            nets = self.swa_nets
         adaptive = q_sd is None or q_sd <= 0
         q0 = 1.0 if adaptive else float(q_sd)
 
@@ -406,7 +985,7 @@ class CausalBGM:
             with torch.no_grad():
                 init = torch.randn((bx.shape[0], sum(cfg.z_dims)), generator=self._gen,
                                    device=self.device)
-                params = make_params(self.nets, (bx, by, bv), True)
+                params = make_params(nets, (bx, by, bv), True)
                 res = mcmc.adaptive_mh(
                     lp, init, self._gen, burn_in=burn_in, n_keep=n_mcmc, q_sd=q0,
                     adaptive=adaptive, recompute_current=True, collect=collect_p,

@@ -1,15 +1,20 @@
-"""Flipout-BNN negative log-posterior with host-provided weight noise (K1).
+"""Flipout-BNN negative log-posterior with host-provided weight noise: K1,
+and K2 (the same value plus its z-gradient).
 
-Port of ``bayesgm_tpu/ops/_pk_bnn_hosteps.py::make_fused_causal_logp_bnn_hosteps``.
-The weight-noise matrices ``P = sigma * eps`` are drawn once per evaluation
-by :func:`~bayesgm_torch.ops._pk_util.flipout_step_perturbations` and shared
-by all rows (the DenseFlipout convention); the per-row Rademacher signs are
-made inside the kernel from Philox (see ``_pk_traced_common``).
+Ports of ``bayesgm_tpu/ops/_pk_bnn_hosteps.py``:
+``make_fused_causal_logp_bnn_hosteps`` (K1) and
+``make_fused_causal_logp_and_grad_bnn_hosteps`` (K2).  The weight-noise
+matrices ``P = sigma * eps`` are drawn once per evaluation by
+:func:`~bayesgm_torch.ops._pk_util.flipout_step_perturbations` and shared by
+all rows (the DenseFlipout convention); the per-row Rademacher signs are made
+inside the kernel from Philox (see ``_pk_traced_common``).
 
-This module holds the kernel's plain PyTorch version (:func:`logp_plain`)
-and its wrapper (:func:`make_fused_causal_logp_bnn_hosteps`).  The wrapper
-launches the CUDA kernel (``csrc/bnn_hosteps.cu``) for CUDA tensors and
-takes the plain version only for CPU tensors.
+This module holds each kernel's plain PyTorch version (:func:`logp_plain`,
+:func:`logp_and_grad_plain`) and its wrapper
+(:func:`make_fused_causal_logp_bnn_hosteps`,
+:func:`make_fused_causal_logp_and_grad_bnn_hosteps`).  A wrapper launches
+its CUDA kernel (``csrc/bnn_hosteps.cu``) for CUDA tensors and takes the
+plain version only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -103,6 +108,22 @@ def logp_plain(cfg, z, x, y, v, seed, g_w, h_w, f_w, p_flat, n_half=None,
     return loss + torch.sum(z * z, dim=1) / 2.0
 
 
+def logp_and_grad_plain(cfg, z, x, y, v, seed, g_w, h_w, f_w, p_flat, sign_words=None):
+    """Plain PyTorch version of K2: ``(neg_logp (n,), d neg_logp / dz (n, z_dim))``.
+
+    The value is :func:`logp_plain` with one eps set; the gradient is
+    ``torch.autograd.grad`` of its row sum with respect to ``z``, through the
+    same ``P`` and the same sign words (Philox, or ``sign_words``) — so it is
+    independent of the kernel's hand-written backward."""
+    if p_flat[0].shape[0] != 1:
+        raise ValueError("K2 takes one eps set (it is never paired)")
+    with torch.enable_grad():
+        zz = z.detach().requires_grad_(True)
+        neg = logp_plain(cfg, zz, x, y, v, seed, g_w, h_w, f_w, p_flat, sign_words=sign_words)
+        (grad,) = torch.autograd.grad(neg.sum(), zz)
+    return neg.detach(), grad
+
+
 def _lib():
     from bayesgm_torch.ops._build import load_library
 
@@ -115,6 +136,12 @@ def _lib():
             + [i32, i32, f32, f32, f32]                   # binary fixed_mask sigmas
             + [vp, vp, vp, vp])                           # n_layers dims ptrs stream
         lib.bnn_hosteps_logp.restype = i32
+        lib.bnn_hosteps_logp_and_grad.argtypes = (
+            [vp, vp, vp, vp, vp, vp, vp]                  # z x y v seed out grad
+            + [i32, i32, i32, i32, i32, i32]              # n_rows z_dim v_dim d0 d1 d2
+            + [i32, i32, f32, f32, f32]                   # binary fixed_mask sigmas
+            + [vp, vp, vp, vp])                           # n_layers dims ptrs stream
+        lib.bnn_hosteps_logp_and_grad.restype = i32
         lib.bnn_hosteps_sign_words.argtypes = [vp, vp, i32, i32, i32, i32, vp]
         lib.bnn_hosteps_sign_words.restype = i32
         lib.bnn_hosteps_error_string.argtypes = [i32]
@@ -155,36 +182,24 @@ def sign_words_cuda(seed, rows: int, cols: int, chain: int, group: int = 0):
     return out.to(torch.int64) & 0xFFFFFFFF
 
 
-class FusedCausalLogpBnnHosteps:
-    """K1's wrapper: ``fn(z, x, y, v, seed, g_w, h_w, f_w, p_flat) -> (n,)``.
+class _HostepsKernel:
+    """What K1's and K2's wrappers share: the layer dims, the launch count
+    and the checks of a launch's arguments."""
 
-    ``seed`` is an int32 tensor of 2 words on the data's device; ``g_w`` etc.
-    are ``[gamma_eff, beta, (loc, b) x L]`` and ``p_flat`` the perturbations
-    (set axis 1, or 2 when ``paired``: the first half of the rows takes set
-    0, the second half set 1).  CUDA tensors go to the kernel; CPU tensors
-    to :func:`logp_plain`.  ``launches`` counts kernel launches.
-    """
-
-    def __init__(self, cfg, g_dims, h_dims, f_dims, paired: bool = False):
+    def __init__(self, cfg, g_dims, h_dims, f_dims):
         self.cfg = cfg
         self.dims = (list(g_dims), list(h_dims), list(f_dims))
-        self.paired = bool(paired)
         self.launches = 0
 
-    def __call__(self, z, x, y, v, seed, g_w, h_w, f_w, p_flat):
-        if z.device.type == "cpu":
-            return logp_plain(self.cfg, z, x, y, v, seed, g_w, h_w, f_w, p_flat)
-        if z.device.type != "cuda":
-            raise ValueError(f"unsupported device {z.device}")
-        return self._launch(z, x, y, v, seed, g_w, h_w, f_w, p_flat)
-
-    def _launch(self, z, x, y, v, seed, g_w, h_w, f_w, p_flat):
+    def _c_args(self, z, x, y, v, seed, g_w, h_w, f_w, p_flat, n_sets):
+        """Check every tensor (device, dtype, shape, contiguity) and return
+        the kernels' common C arguments after the row count:
+        ``(z_dim, v_dim, d0, d1, d2, binary, fixed_mask, sigma_v, sigma_x,
+        sigma_y, n_layers, dims, ptrs)``; the ctypes arrays are kept alive by
+        the returned tuple."""
         cfg, dev = self.cfg, z.device
         n, z_dim = z.shape
         d0, d1, d2, _ = cfg.z_dims
-        n_sets = 2 if self.paired else 1
-        if self.paired and n % 2:
-            raise ValueError(f"paired launch needs an even row count, got {n}")
         _require_cuda_f32("z", z, dev, (n, sum(cfg.z_dims)))
         _require_cuda_f32("x", x, dev, (n, 1))
         _require_cuda_f32("y", y, dev, (n, 1))
@@ -209,24 +224,75 @@ class FusedCausalLogpBnnHosteps:
         if p_i != len(p_flat):
             raise ValueError(f"p_flat: expected {p_i} tensors, got {len(p_flat)}")
 
-        lib = _lib()
-        out = torch.empty((n,), dtype=torch.float32, device=dev)
         n_layers = (ctypes.c_int * 3)(*[len(d) - 1 for d in self.dims])
         flat_dims = [d for dims in self.dims for d in dims]
         dims_arr = (ctypes.c_int * len(flat_dims))(*flat_dims)
         ptr_arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
         sig = [cfg.sigma_v, cfg.sigma_x, cfg.sigma_y]
         fixed_mask = sum(1 << k for k, s in enumerate(sig) if s is not None)
+        keep = (n_layers, dims_arr, ptr_arr)
+        return keep, (z_dim, cfg.v_dim, d0, d1, d2, int(bool(cfg.binary_treatment)),
+                      fixed_mask, *[0.0 if s is None else float(s) for s in sig],
+                      *[ctypes.cast(a, ctypes.c_void_p) for a in keep])
+
+
+class FusedCausalLogpBnnHosteps(_HostepsKernel):
+    """K1's wrapper: ``fn(z, x, y, v, seed, g_w, h_w, f_w, p_flat) -> (n,)``.
+
+    ``seed`` is an int32 tensor of 2 words on the data's device; ``g_w`` etc.
+    are ``[gamma_eff, beta, (loc, b) x L]`` and ``p_flat`` the perturbations
+    (set axis 1, or 2 when ``paired``: the first half of the rows takes set
+    0, the second half set 1).  CUDA tensors go to the kernel; CPU tensors
+    to :func:`logp_plain`.  ``launches`` counts kernel launches.
+    """
+
+    def __init__(self, cfg, g_dims, h_dims, f_dims, paired: bool = False):
+        super().__init__(cfg, g_dims, h_dims, f_dims)
+        self.paired = bool(paired)
+
+    def __call__(self, z, x, y, v, seed, g_w, h_w, f_w, p_flat):
+        if z.device.type == "cpu":
+            return logp_plain(self.cfg, z, x, y, v, seed, g_w, h_w, f_w, p_flat)
+        if z.device.type != "cuda":
+            raise ValueError(f"unsupported device {z.device}")
+        n = z.shape[0]
+        if self.paired and n % 2:
+            raise ValueError(f"paired launch needs an even row count, got {n}")
+        _keep, args = self._c_args(z, x, y, v, seed, g_w, h_w, f_w, p_flat,
+                                   2 if self.paired else 1)
+        lib = _lib()
+        out = torch.empty((n,), dtype=torch.float32, device=z.device)
         code = lib.bnn_hosteps_logp(
             z.data_ptr(), x.data_ptr(), y.data_ptr(), v.data_ptr(), seed.data_ptr(),
-            out.data_ptr(), n, n // 2 if self.paired else n, z_dim, cfg.v_dim,
-            d0, d1, d2, int(bool(cfg.binary_treatment)), fixed_mask,
-            *[0.0 if s is None else float(s) for s in sig],
-            ctypes.cast(n_layers, ctypes.c_void_p), ctypes.cast(dims_arr, ctypes.c_void_p),
-            ctypes.cast(ptr_arr, ctypes.c_void_p), _stream(dev))
+            out.data_ptr(), n, n // 2 if self.paired else n, *args, _stream(z.device))
         _check(lib, code, "bnn_hosteps_logp launch")
         self.launches += 1
         return out
+
+
+class FusedCausalLogpAndGradBnnHosteps(_HostepsKernel):
+    """K2's wrapper: ``fn(z, x, y, v, seed, g_w, h_w, f_w, p_flat) ->
+    (neg_logp (n,), d neg_logp / dz (n, z_dim))`` with one eps set
+    (``p_flat`` entries ``(1, in, out)``).  CUDA tensors go to the kernel;
+    CPU tensors to :func:`logp_and_grad_plain`.  ``launches`` counts kernel
+    launches."""
+
+    def __call__(self, z, x, y, v, seed, g_w, h_w, f_w, p_flat):
+        if z.device.type == "cpu":
+            return logp_and_grad_plain(self.cfg, z, x, y, v, seed, g_w, h_w, f_w, p_flat)
+        if z.device.type != "cuda":
+            raise ValueError(f"unsupported device {z.device}")
+        _keep, args = self._c_args(z, x, y, v, seed, g_w, h_w, f_w, p_flat, 1)
+        lib = _lib()
+        n, z_dim = z.shape
+        out = torch.empty((n,), dtype=torch.float32, device=z.device)
+        grad = torch.empty((n, z_dim), dtype=torch.float32, device=z.device)
+        code = lib.bnn_hosteps_logp_and_grad(
+            z.data_ptr(), x.data_ptr(), y.data_ptr(), v.data_ptr(), seed.data_ptr(),
+            out.data_ptr(), grad.data_ptr(), n, *args, _stream(z.device))
+        _check(lib, code, "bnn_hosteps_logp_and_grad launch")
+        self.launches += 1
+        return out, grad
 
 
 def make_fused_causal_logp_bnn_hosteps(cfg, g_dims, h_dims, f_dims, paired: bool = False):
@@ -238,3 +304,13 @@ def make_fused_causal_logp_bnn_hosteps(cfg, g_dims, h_dims, f_dims, paired: bool
     carries two eps sets; each half takes its own set.
     """
     return FusedCausalLogpBnnHosteps(cfg, g_dims, h_dims, f_dims, paired)
+
+
+def make_fused_causal_logp_and_grad_bnn_hosteps(cfg, g_dims, h_dims, f_dims):
+    """K2 for the nets of ``g_dims``/``h_dims``/``f_dims``: the K1 value and
+    its z-gradient through the same weight noise, one eps set, never paired.
+
+    Returns ``fn(z, x, y, v, seed, g_w, h_w, f_w, p_flat) -> (neg_logp (n,),
+    d neg_logp/dz (n, z_dim))`` with the JAX kernel's argument order.
+    """
+    return FusedCausalLogpAndGradBnnHosteps(cfg, g_dims, h_dims, f_dims)

@@ -1,8 +1,12 @@
-"""Flipout Bayesian MLP (port of the flipout subset of ``bayesgm_tpu/ops/nn.py``).
+"""Flipout Bayesian MLP and the WGAN critic (port of the flipout subset and
+the critic of ``bayesgm_tpu/ops/nn.py``).
 
 Conventions kept from the JAX package for numerical parity:
 
 - LeakyReLU slope 0.2 between hidden layers, linear final layer;
+- dense layers of the critic: Glorot-uniform kernel, zero bias (Keras
+  ``Dense``); the critic's hidden norms are frozen BatchNorm affines and its
+  activation is tanh;
 - the input norm is inference-mode BatchNorm with frozen (0, 1) statistics,
   i.e. the affine ``x * gamma * (1 + BN_EPS)^-1/2 + beta``;
 - mean-field Gaussian kernel posterior ``N(loc, softplus(rho)^2)`` with a
@@ -12,7 +16,9 @@ Conventions kept from the JAX package for numerical parity:
 
 Randomness comes from an explicit ``torch.Generator``.  Every apply accepts
 inputs with leading batch axes ``(..., n, in)``: each leading index gets its
-own weight-noise draw (the effect collector's per-grid-point draws).
+own weight-noise draw (the effect collector's per-grid-point draws).  All
+parameters are trainable ``nn.Parameter``s; gradients flow through every
+apply.
 """
 
 from __future__ import annotations
@@ -36,6 +42,52 @@ def leaky_relu(x):
 def frozen_batchnorm_apply(gamma, beta, x):
     """Inference-mode BatchNorm with frozen (0, 1) moving statistics."""
     return x * gamma * (1.0 + BN_EPS) ** -0.5 + beta
+
+
+def _glorot_dense(in_dim: int, out_dim: int, generator):
+    """``(w, b)``: Glorot-uniform kernel and zero bias (Keras Dense defaults)."""
+    limit = math.sqrt(6.0 / (in_dim + out_dim))
+    w = (torch.rand((in_dim, out_dim), generator=generator) * 2.0 - 1.0) * limit
+    return nn.Parameter(w), nn.Parameter(torch.zeros(out_dim))
+
+
+def dense_apply(w, b, x):
+    return x @ w + b
+
+
+class Critic(nn.Module):
+    """The WGAN critic ``dims = [in, *hidden, 1]``: per hidden layer dense,
+    frozen-BN affine (trainable ``bn_gamma[i]``/``bn_beta[i]``), tanh; a
+    linear last layer."""
+
+    def __init__(self, input_dim: int, hidden: Sequence[int],
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        dims = [int(input_dim), *map(int, hidden), 1]
+        self.w = nn.ParameterList()
+        self.b = nn.ParameterList()
+        for d_in, d_out in zip(dims[:-1], dims[1:]):
+            w, b = _glorot_dense(d_in, d_out, generator)
+            self.w.append(w)
+            self.b.append(b)
+        self.bn_gamma = nn.ParameterList([nn.Parameter(torch.ones(h)) for h in dims[1:-1]])
+        self.bn_beta = nn.ParameterList([nn.Parameter(torch.zeros(h)) for h in dims[1:-1]])
+
+    @property
+    def dims(self) -> list:
+        return [self.w[0].shape[0]] + [w.shape[1] for w in self.w]
+
+    def forward(self, x):
+        return critic_apply(self, x)
+
+
+def critic_apply(net: Critic, x):
+    """tanh critic with frozen-BN affines, scalar logit out ``(..., 1)``."""
+    n_hidden = len(net.w) - 1
+    for i in range(n_hidden):
+        x = dense_apply(net.w[i], net.b[i], x)
+        x = torch.tanh(frozen_batchnorm_apply(net.bn_gamma[i], net.bn_beta[i], x))
+    return dense_apply(net.w[-1], net.b[-1], x)
 
 
 class FlipoutMLP(nn.Module):
@@ -115,10 +167,16 @@ def _fused_flipout_draws(layers, x_shape, generator):
     return eps_list, r_in_list, r_out_list
 
 
-def flipout_mlp_apply(net: FlipoutMLP, x, generator: torch.Generator):
+def flipout_mlp_apply(net: FlipoutMLP, x, generator: torch.Generator, draws=None):
+    """Flipout forward with a fresh draw from ``generator``, or with
+    ``draws`` (an earlier ``_fused_flipout_draws`` result, which broadcasts
+    against extra leading axes of ``x``: every leading index then sees the
+    same eps and signs)."""
     x = frozen_batchnorm_apply(net.gamma, net.beta, x)
     layers = net.layers()
-    eps, r_in, r_out = _fused_flipout_draws(layers, x.shape, generator)
+    if draws is None:
+        draws = _fused_flipout_draws(layers, x.shape, generator)
+    eps, r_in, r_out = draws
     for j, layer in enumerate(layers[:-1]):
         x = leaky_relu(_flipout_dense_pre(layer, x, eps[j], r_in[j], r_out[j]))
     return _flipout_dense_pre(layers[-1], x, eps[-1], r_in[-1], r_out[-1])

@@ -1,7 +1,8 @@
-"""K1 (the flipout-BNN log-posterior with host eps): the port's plain
-version against the JAX kernel in interpret mode, with the TPU sign PRNG
-replaced by a counter hash whose words are replayed into the port, and the
-port's Philox sign source against the Random123 known answers."""
+"""K1 (the flipout-BNN log-posterior with host eps) and K2 (K1 plus its
+z-gradient): the port's plain versions against the JAX kernels in interpret
+mode, with the TPU sign PRNG replaced by a counter hash whose words are
+replayed into the port, and the port's Philox sign source against the
+Random123 known answers."""
 
 import numpy as np
 import pytest
@@ -21,48 +22,12 @@ from bayesgm_torch.ops import _pk_bnn_hosteps as tk  # noqa: E402
 from bayesgm_torch.ops import _pk_traced_common as ttc  # noqa: E402
 from bayesgm_torch.ops import _pk_util as tpk  # noqa: E402
 from bayesgm_torch.ops import nn as tnn  # noqa: E402
+from _torch_parity import replayed_words as _replayed_words  # noqa: E402
+from _torch_parity import stub_prng as _stub_prng  # noqa: E402
 
 torch.set_num_threads(2)
 
 TOL = dict(rtol=2e-5, atol=2e-5)  # as the JAX kernel's own mirror test
-
-
-class _CounterBits:
-    """Deterministic stand-in for the on-core TPU PRNG (the murmur3 counter
-    stream of tests/test_pallas.py): draw i is a pure function of (i, shape),
-    and the counter resets at prng_seed, so every row block of the JAX
-    kernel replays the same words."""
-
-    def __init__(self):
-        self.counter = 0
-
-    @staticmethod
-    def bits_for(i, shape):
-        rows, cols = shape
-        idx = (jax.lax.broadcasted_iota(jnp.uint32, shape, 0) * jnp.uint32(cols)
-               + jax.lax.broadcasted_iota(jnp.uint32, shape, 1))
-        x = idx + jnp.uint32(0x9E3779B9) * jnp.uint32(i + 1)
-        x = (x ^ (x >> jnp.uint32(16))) * jnp.uint32(0x85EBCA6B)
-        x = (x ^ (x >> jnp.uint32(13))) * jnp.uint32(0xC2B2AE35)
-        return x ^ (x >> jnp.uint32(16))
-
-    def seed(self, *words):
-        self.counter = 0
-
-    def random_bits(self, shape):
-        bits = self.bits_for(self.counter, tuple(shape))
-        self.counter += 1
-        return bits
-
-
-def _stub_prng(monkeypatch):
-    from jax.experimental.pallas import tpu as pltpu
-
-    stream = _CounterBits()
-    monkeypatch.setattr(pltpu, "prng_seed", lambda *w: stream.seed(*w))
-    monkeypatch.setattr(pltpu, "prng_random_bits", lambda shape: stream.random_bits(shape))
-    monkeypatch.setattr(pltpu, "bitcast", lambda x, dt: jax.lax.bitcast_convert_type(x, dt))
-    return stream
 
 
 def _cfgs(binary=False, sigma_v=None):
@@ -118,14 +83,6 @@ def _port_logp(tcfg, z, x, y, v, ws, ps, seed=(0, 0), **kw):
     return tk.logp_plain(tcfg, _t(z), _t(x), _t(y), _t(v),
                          torch.tensor(seed, dtype=torch.int32),
                          *[[_t(a) for a in w] for w in ws], [_t(p) for p in ps], **kw).numpy()
-
-
-def _replayed_words(dims, rows, block_rows):
-    """The words the stubbed JAX kernel reads: per chain one (block_rows,
-    max_w) draw, counter 0/1/2 for g/h/f, replayed in every row block."""
-    return [torch.as_tensor(np.tile(np.asarray(_CounterBits.bits_for(i, (block_rows, max(d)))),
-                                    (rows // block_rows, 1)).astype(np.int64))
-            for i, d in enumerate(dims)]
 
 
 @pytest.mark.parametrize("variant", ["continuous", "binary", "fixed_sigma_v"])
@@ -304,3 +261,75 @@ def test_deep_chain_takes_signs_from_word_group_one():
             tk.logp_plain(tcfg, z, x, y, v, seed, *ws, ps, sign_words=words)
     signs = ttc._sign_source(lambda g: ttc.philox_sign_words(seed, 10, 13, 0, g))
     assert not torch.equal(signs(1, 13), signs(33, 13))  # same bit, other group
+
+
+@pytest.mark.parametrize("variant", ["continuous", "binary", "fixed_sigmas"])
+def test_k2_plain_matches_jax_kernel_interpret(monkeypatch, variant):
+    """K2's plain version (autograd of the K1 plain version) against the JAX
+    K2 in interpret mode, same words and P: the value at rtol/atol 2e-5, the
+    gradient at rtol 5e-4 / atol 5e-5 (the tolerances of JAX's own mirror
+    test of its hand-written backward, tests/test_pallas.py)."""
+    jcfg, tcfg = _cfgs(binary=variant == "binary",
+                       sigma_v=0.5 if variant == "fixed_sigmas" else None)
+    if variant == "fixed_sigmas":
+        jcfg, tcfg = (c._replace(sigma_x=0.7, sigma_y=0.3) for c in (jcfg, tcfg))
+    nets = _jax_nets(jcfg)
+    n, block = 32, 16  # two row blocks
+    z, x, y, v = _data(jcfg, n, binary=variant == "binary", seed=4)
+    ws, ps, dims = _kernel_inputs(nets, 1, seed=5)
+
+    _stub_prng(monkeypatch)
+    fused = jk.make_fused_causal_logp_and_grad_bnn_hosteps(jcfg, *dims, block_rows=block,
+                                                           interpret=True)
+    neg_j, grad_j = (np.asarray(a) for a in
+                     fused(z, x, y, v, jnp.zeros((2,), jnp.int32), *ws, ps))
+
+    words = _replayed_words(dims, n, block)
+    neg_t, grad_t = tk.logp_and_grad_plain(
+        tcfg, _t(z), _t(x), _t(y), _t(v), torch.zeros(2, dtype=torch.int32),
+        *[[_t(a) for a in w] for w in ws], [_t(p) for p in ps], sign_words=words)
+    assert grad_t.shape == (n, sum(tcfg.z_dims))
+    np.testing.assert_allclose(neg_t.numpy(), neg_j, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(grad_t.numpy(), grad_j, rtol=5e-4, atol=5e-5)
+    # K2's value is K1's on the same inputs
+    k1 = _port_logp(tcfg, z, x, y, v, ws, ps, sign_words=words)
+    np.testing.assert_array_equal(neg_t.numpy(), k1)
+
+
+def test_k2_wrapper_takes_plain_version_on_cpu_and_counts_no_launch():
+    _, tcfg = _cfgs()
+    nets = _jax_nets(tcfg)
+    z, x, y, v = _data(tcfg, 20)
+    ws, ps, dims = _kernel_inputs(nets, 1)
+    fn = tk.make_fused_causal_logp_and_grad_bnn_hosteps(tcfg, *dims)
+    args = (_t(z), _t(x), _t(y), _t(v), torch.tensor([1, 2], dtype=torch.int32),
+            *[[_t(a) for a in w] for w in ws], [_t(p) for p in ps])
+    neg, grad = fn(*args)
+    want_neg, want_grad = tk.logp_and_grad_plain(tcfg, *args)
+    assert torch.equal(neg, want_neg) and torch.equal(grad, want_grad)
+    assert fn.launches == 0
+    with pytest.raises(ValueError, match="one eps set"):
+        tk.logp_and_grad_plain(tcfg, *args[:-1], [torch.cat([p, p]) for p in args[-1]])
+    meta = torch.empty((4, 5), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fn(meta, meta, meta, meta, meta, [], [], [], [])
+
+
+def test_k2_gradient_matches_finite_differences():
+    """The plain K2 gradient is the derivative of the K1 value under fixed
+    noise (central differences in float64 of the same function)."""
+    _, tcfg = _cfgs()
+    nets = _jax_nets(tcfg)
+    z, x, y, v = _data(tcfg, 6, seed=9)
+    ws, ps, _ = _kernel_inputs(nets, 1)
+    d = lambda a: torch.as_tensor(np.asarray(a, np.float64))
+    seed = torch.tensor([3, 4], dtype=torch.int32)
+    args = (d(x), d(y), d(v), seed, *[[d(a) for a in w] for w in ws], [d(p) for p in ps])
+    zt = d(z)
+    _, grad = tk.logp_and_grad_plain(tcfg, zt, *args)
+    h = 1e-6
+    for k in range(zt.shape[1]):
+        e = torch.zeros_like(zt)
+        e[:, k] = h
+        fd = (tk.logp_plain(tcfg, zt + e, *args) - tk.logp_plain(tcfg, zt - e, *args)) / (2 * h)
+        np.testing.assert_allclose(grad[:, k].numpy(), fd.numpy(), rtol=1e-6, atol=1e-6)

@@ -1,6 +1,6 @@
-"""The ported predict slice: JAX weights through save_weights / the bridge,
-predict from both packages on the same data, the device contract, and that
-the port never imports JAX."""
+"""The ported model: JAX weights through save_weights / the bridge, predict
+from both packages on the same data, the device contract, and that the port
+(fit, save_weights, predict) never imports JAX."""
 
 import os
 import subprocess
@@ -149,7 +149,7 @@ def test_config_and_summary(tmp_path, capsys):
     assert model.get_config()["params"]["v_dim"] == 6
     model.initialize_nets(print_summary=True)
     assert "g_net:" in capsys.readouterr().out
-    assert set(model.kernels) == {"bnn_hosteps", "bnn_hosteps_paired"}
+    assert set(model.kernels) == {"bnn_hosteps", "bnn_hosteps_paired", "bnn_hosteps_grad"}
 
 
 def test_port_cpu_predict_never_imports_jax(tmp_path):
@@ -163,8 +163,12 @@ def test_port_cpu_predict_never_imports_jax(tmp_path):
         x, y, v = Sim_Hirano_Imbens_sampler(batch_size=32, N=32, v_dim=6, seed=0).load_all()
         m = CausalBGM(dict(v_dim=6, z_dims=[1, 1, 1, 2], binary_treatment=False,
                            dataset="t", output_dir={str(tmp_path)!r}, save_res=False,
-                           g_units=[8], h_units=[8], f_units=[8]),
+                           g_units=[8], e_units=[8], h_units=[8], f_units=[8],
+                           dz_units=[8], lr_decay="cosine"),
                       random_seed=0, device="cpu")
+        m.fit((x, y, v), epochs=1, epochs_per_eval=1, batch_size=16, egm_n_iter=3,
+              egm_batches_per_eval=2, verbose=0)
+        m.save_weights({str(tmp_path / "w.npz")!r})
         adrf, ci = m.predict((x, y, v), x_values=[0.5, 1.0], burn_in=5, n_mcmc=5)
         assert adrf.shape == (2,)
         print("JAX_IMPORTED", "jax" in sys.modules)

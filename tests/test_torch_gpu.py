@@ -1,5 +1,6 @@
-"""K1 on the card: the CUDA kernel against its plain PyTorch version, and its
-sign words against the plain Philox words.  Every test needs a CUDA device
+"""K1 and K2 on the card: the CUDA kernels against their plain PyTorch
+versions, the sign words against the plain Philox words, and predict and fit
+through the kernels.  Every test needs a CUDA device
 and skips without one.  This file imports no JAX, so it also runs on a GPU
 machine that has none:
 
@@ -25,6 +26,9 @@ pytestmark = pytest.mark.gpu
 
 # f32 summation order (the kernel sums each dot product in order, cuBLAS does not)
 RTOL, ATOL = 1e-4, 1e-3
+# K2's z-gradient: f32 dots 24 to 201 wide, through up to 18 layers forward and
+# back, each summed in another order than autograd's cuBLAS calls
+GRAD_RTOL, GRAD_ATOL = 1e-3, 1e-3
 
 
 @pytest.fixture
@@ -121,3 +125,76 @@ def test_predict_on_cuda_goes_through_the_kernel(cuda, tmp_path):
     assert adrf.shape == (3,) and np.all(np.isfinite(adrf)) and np.all(ci[:, 0] <= ci[:, 1])
     assert model.kernels["bnn_hosteps"].launches == 1
     assert model.kernels["bnn_hosteps_paired"].launches == 50
+
+
+@pytest.mark.parametrize("variant,n", [
+    ("continuous", 1), ("continuous", 32), ("continuous", 999), ("binary", 257),
+    ("fixed_sigmas", 100), ("deep_g", 70)])
+def test_k2_kernel_matches_plain(cuda, variant, n):
+    cfg = _cfg(binary_treatment=variant == "binary",
+               **(dict(sigma_v=0.5, sigma_x=0.7, sigma_y=0.3) if variant == "fixed_sigmas" else {}))
+    g_hidden = [8] * 17 if variant == "deep_g" else (24, 40)
+    args, dims = _inputs(cfg, n, cuda, g_hidden=g_hidden)
+    fn = tk.make_fused_causal_logp_and_grad_bnn_hosteps(cfg, *dims)
+    neg, grad = fn(*args)
+    want_neg, want_grad = tk.logp_and_grad_plain(cfg, *args)
+    torch.cuda.synchronize()
+    assert fn.launches == 1 and bool(torch.isfinite(grad).all())
+    torch.testing.assert_close(neg, want_neg, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(grad, want_grad, rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    # the value is K1's, bit for bit
+    assert torch.equal(neg, tk.make_fused_causal_logp_bnn_hosteps(cfg, *dims)(*args))
+
+
+def test_k2_kernel_rejects_what_it_cannot_take(cuda):
+    cfg = _cfg()
+    args, dims = _inputs(cfg, 8, cuda)
+    fn = tk.make_fused_causal_logp_and_grad_bnn_hosteps(cfg, *dims)
+    with pytest.raises(ValueError, match="n_sets|shape"):
+        fn(*args[:-1], [torch.cat([p, p]) for p in args[-1]])
+    wide_cfg = _cfg(v_dim=400)
+    wide_args, wide_dims = _inputs(wide_cfg, 8, cuda, g_hidden=(300,))
+    with pytest.raises(RuntimeError, match="shared memory"):
+        tk.make_fused_causal_logp_and_grad_bnn_hosteps(wide_cfg, *wide_dims)(*wide_args)
+    assert fn.launches == 0
+
+
+def test_fit_on_cuda_goes_through_k2(cuda, tmp_path):
+    params = dict(v_dim=12, z_dims=[1, 1, 1, 3], binary_treatment=False, dataset="t",
+                  output_dir=str(tmp_path), save_res=False, g_units=[24, 24], e_units=[16],
+                  h_units=[8], f_units=[8], dz_units=[8], lr_decay="cosine")
+    model = CausalBGM(params, random_seed=0, device="cuda")
+    rng = np.random.default_rng(0)
+    data = (rng.normal(size=(100, 1)), rng.normal(size=(100, 1)), rng.normal(size=(100, 12)))
+    model.fit(data, epochs=2, epochs_per_eval=1, batch_size=32, egm_n_iter=10,
+              egm_batches_per_eval=5, verbose=0)
+    # 4 batches per pass (3 full + the remainder of 4 rows), epochs + 1 passes
+    assert model.kernels["bnn_hosteps_grad"].launches == 12
+    assert model.data_z.shape == (100, 6) and bool(torch.isfinite(model.data_z).all())
+    assert all(np.isfinite(v) for v in model.fit_losses.values())
+    adrf, ci = model.predict(data, x_values=[0.0, 1.0], burn_in=5, n_mcmc=5,
+                             use_swa_nets=True)
+    assert np.all(np.isfinite(adrf)) and np.all(ci[:, 0] <= ci[:, 1])
+
+
+def test_differentiable_log_prob_on_cuda_goes_through_k2(cuda, tmp_path):
+    """The gradient samplers' target: one K2 launch per call, and its
+    backward equals autograd of the plain version through the same noise."""
+    params = dict(v_dim=12, z_dims=[1, 1, 1, 3], binary_treatment=False, dataset="t",
+                  output_dir=str(tmp_path), save_res=False, g_units=[24, 24], h_units=[8],
+                  f_units=[8])
+    model = CausalBGM(params, random_seed=0, device="cuda")
+    rng = np.random.default_rng(1)
+    data = (rng.normal(size=(70, 1)), rng.normal(size=(70, 1)), rng.normal(size=(70, 12)))
+    z = torch.randn((70, 6), device=cuda, requires_grad=True)
+    lp = model._make_log_prob(*data, differentiable=True)(z, torch.Generator(cuda).manual_seed(3))
+    lp.sum().backward()
+    assert model.kernels["bnn_hosteps_grad"].launches == 1
+    gen = torch.Generator(cuda).manual_seed(3)
+    ws, sigs = zip(*(split_flipout_flat(flatten_flipout_params(model.nets[k])) for k in "ghf"))
+    ps = flipout_step_perturbations(sum(sigs, []), gen)
+    seed = torch.randint(0, 2**31 - 1, (2,), generator=gen, device=cuda, dtype=torch.int32)
+    x, y, v = (torch.as_tensor(a, dtype=torch.float32, device=cuda) for a in data)
+    neg, grad = tk.logp_and_grad_plain(model.cfg, z.detach(), x, y, v, seed, *ws, ps)
+    torch.testing.assert_close(lp.detach(), -neg, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(z.grad, -grad, rtol=GRAD_RTOL, atol=GRAD_ATOL)
