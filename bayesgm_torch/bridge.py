@@ -2,7 +2,8 @@
 
 - :func:`nets_from_numpy` takes a nested dict/list of numpy arrays shaped
   like ``bayesgm_tpu`` ``CausalBGM.nets`` and returns a ``FlipoutMLP`` per
-  flipout-shaped net and a ``Critic`` per critic-shaped net;
+  flipout-shaped net, a ``Critic`` per critic-shaped net and an ``MLP`` per
+  plain net (``use_bnn=False``);
 - :func:`load_npz` reads the ``.npz`` that ``CausalBGM.save_weights`` writes.
   Its keys are ``jax.tree_util.keystr`` paths such as
   ``"['nets']['g']['layers'][0]['loc']"``; they are parsed with numpy and
@@ -20,7 +21,7 @@ import re
 import numpy as np
 import torch
 
-from bayesgm_torch.ops.nn import Critic, FlipoutMLP
+from bayesgm_torch.ops.nn import MLP, Critic, FlipoutMLP
 
 _KEY_PART = re.compile(r"\['([^']*)'\]|\[(\d+)\]")
 
@@ -68,15 +69,35 @@ def critic_from_numpy(tree) -> Critic:
     return net
 
 
+def _is_mlp(tree) -> bool:
+    return (isinstance(tree, dict) and set(tree) == {"layers"}
+            and all(set(layer) == {"w", "b"} for layer in tree["layers"]))
+
+
+def mlp_from_numpy(tree) -> MLP:
+    """One plain ``MLP`` from ``{"layers": [{w, b}]}``."""
+    layers = tree["layers"]
+    dims = [np.shape(layers[0]["w"])[0]] + [np.shape(l["w"])[1] for l in layers]
+    net = MLP(dims[0], dims[-1], dims[1:-1])
+    as_t = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32)
+    with torch.no_grad():
+        for i, layer in enumerate(layers):
+            net.w[i].copy_(as_t(layer["w"]))
+            net.b[i].copy_(as_t(layer["b"]))
+    return net
+
+
 def nets_from_numpy(tree) -> dict:
-    """``{name: FlipoutMLP or Critic}`` for every flipout- or critic-shaped
-    entry of ``tree`` (nets of other kinds are left out)."""
+    """``{name: FlipoutMLP, Critic or MLP}`` for every flipout-, critic- or
+    plain-MLP-shaped entry of ``tree`` (nets of other kinds are left out)."""
     nets = {}
     for name, sub in tree.items():
         if _is_flipout_net(sub):
             nets[name] = flipout_mlp_from_numpy(sub)
         elif _is_critic(sub):
             nets[name] = critic_from_numpy(sub)
+        elif _is_mlp(sub):
+            nets[name] = mlp_from_numpy(sub)
     return nets
 
 
@@ -91,6 +112,8 @@ def net_to_numpy(net) -> dict:
         return {"layers": [{"w": a(w), "b": a(b)} for w, b in zip(net.w, net.b)],
                 "bn": [{"gamma": a(g), "beta": a(bt)}
                        for g, bt in zip(net.bn_gamma, net.bn_beta)]}
+    if isinstance(net, MLP):
+        return {"layers": [{"w": a(w), "b": a(b)} for w, b in zip(net.w, net.b)]}
     raise TypeError(f"no JAX layout for {type(net).__name__}")
 
 
@@ -164,7 +187,7 @@ def npz_tree(path: str) -> dict:
 
 
 def load_npz(path: str) -> dict:
-    """``{"nets": {name: FlipoutMLP}, **other arrays}`` from a JAX
+    """``{"nets": {name: net}, **other arrays}`` from a JAX
     ``CausalBGM.save_weights`` file (``data_z`` stays a numpy array)."""
     tree = npz_tree(path)
     out = {k: v for k, v in tree.items() if k != "nets"}

@@ -1,19 +1,26 @@
 """CausalBGM: causal inference with a 4-way partitioned latent generative
 model (port of ``bayesgm_tpu/models/causalbgm.py``).
 
-This slice of the port trains and serves the default flipout-BNN model
-(``use_bnn=True``, continuous or binary treatment, one device):
+This slice of the port trains and serves the model with flipout-BNN nets
+(``use_bnn=True``, the default) or plain MLP nets (``use_bnn=False``),
+continuous or binary treatment, on one device:
 
 - ``fit``: the WGAN-GP EGM warm start (:meth:`CausalBGM.egm_init`), the
   ``e(V)`` latent init, then iterative updating — per batch, Adam steps of
   g, h and f, then a row-sparse Adam step on the latent table whose
-  value-and-gradient is K2,
-  :func:`~bayesgm_torch.ops._pk_bnn_hosteps.make_fused_causal_logp_and_grad_bnn_hosteps`;
-  eval epochs keep the best-``mse_y`` and tail-averaged (SWA) snapshots;
-- ``predict``: adaptive MH with the plug-in estimator; the MH target is K1,
-  :func:`~bayesgm_torch.ops._pk_bnn_hosteps.make_fused_causal_logp_bnn_hosteps`
+  value-and-gradient is one kernel launch: K2,
+  :func:`~bayesgm_torch.ops._pk_bnn_hosteps.make_fused_causal_logp_and_grad_bnn_hosteps`
+  (BNN), or K3, :func:`~bayesgm_torch.ops._pk_plain.make_fused_causal_logp_and_grad`
+  (plain); eval epochs keep the best-``mse_y`` and tail-averaged (SWA)
+  snapshots;
+- ``predict``: adaptive MH with the plug-in estimator.  The BNN target is
+  K1, :func:`~bayesgm_torch.ops._pk_bnn_hosteps.make_fused_causal_logp_bnn_hosteps`
   (one unpaired launch for the initial state, then one paired
-  ``[proposed; current]`` launch per step).
+  ``[proposed; current]`` launch per step); the plain target is K4,
+  :func:`~bayesgm_torch.ops._pk_plain.make_fused_causal_logp` (one launch
+  for the initial state, then one per step).  ``sampler="mala"`` runs
+  adaptive MALA, each evaluation one K2 (BNN: two per step, fresh noise) or
+  K3 (plain: one per step, cached) launch.
 
 Weights come from the port's own init (``random_seed``), from ``fit``, or
 from a JAX ``save_weights`` file (:meth:`CausalBGM.load_weights`);
@@ -41,18 +48,25 @@ from bayesgm_torch.ops._pk_bnn_hosteps import (
     make_fused_causal_logp_and_grad_bnn_hosteps,
     make_fused_causal_logp_bnn_hosteps,
 )
+from bayesgm_torch.ops._pk_plain import (
+    make_fused_causal_logp,
+    make_fused_causal_logp_and_grad,
+)
 from bayesgm_torch.ops._pk_util import (
     flatten_flipout_params,
+    flatten_mlp_params,
     flipout_step_perturbations,
     split_flipout_flat,
 )
 from bayesgm_torch.ops.nn import (
+    MLP,
     Critic,
     FlipoutMLP,
     _fused_flipout_draws,
     critic_apply,
     flipout_mlp_apply,
     flipout_mlp_kl,
+    mlp_apply,
 )
 from bayesgm_torch.utils.data_io import save_data
 from bayesgm_torch.utils.device import resolve_device
@@ -103,12 +117,15 @@ def _split_z(cfg: CBGMConfig, z):
 
 
 def _apply(cfg: CBGMConfig, net, x, generator, draws=None):
-    """Forward through a flipout MLP (the only kind this slice builds)."""
-    return flipout_mlp_apply(net, x, generator, draws)
+    """Forward through a flipout MLP (``draws`` as in ``flipout_mlp_apply``)
+    or a plain MLP (no randomness)."""
+    if cfg.use_bnn:
+        return flipout_mlp_apply(net, x, generator, draws)
+    return mlp_apply(net, x)
 
 
 def _kl(cfg: CBGMConfig, net):
-    return flipout_mlp_kl(net)
+    return flipout_mlp_kl(net) if cfg.use_bnn else 0.0
 
 
 def _sigma_sq(fixed: Optional[float], raw):
@@ -174,7 +191,7 @@ def _loss_y(cfg, f_net, z, x, y, generator):
 
 def _neg_log_posterior_rows(cfg, nets, z, x, y, v, generator):
     """Per-sample negative log posterior through the nets' own flipout draws
-    (g, then h, then f) — the composite K1 and K2 are held against."""
+    (g, then h, then f) — the composite the kernels are held against."""
     g_out = _apply(cfg, nets["g"], z, generator)
     mu_v = g_out[:, : cfg.v_dim]
     loss_pv = dist.gaussian_nll_iso(v, mu_v, _sigma_sq(cfg.sigma_v, g_out[:, -1]), cfg.v_dim)
@@ -216,7 +233,7 @@ def _train_batch_step(cfg: CBGMConfig, nets, opts, z_table, z_opt, idx, generato
     ``lr_z * lr_scale``.
 
     ``latent_vg(bz, bx, by, bv, nets, generator) -> (neg_rows, grad_rows)``
-    is the fused latent value-and-gradient (K2); its gradient is that of the
+    is the fused latent value-and-gradient (K2 or K3); its gradient is that of the
     row sum, so it is divided by the batch size.  Without it the gradient is
     autograd of :func:`_latent_loss`.  Returns ``(opts, z_opt, losses)``;
     the losses are 0-d tensors on the device."""
@@ -401,7 +418,7 @@ def _evaluate(cfg: CBGMConfig, nets, data, z, generator, nb_intervals: int = 200
     x_grid = _linspace(_percentile_nearest(x, 5.0), _percentile_nearest(x, 95.0), nb_intervals)
     zz = torch.cat([z0, z1], dim=-1)
     n, d = zz.shape
-    draws = _fused_flipout_draws(f_net.layers(), (n, d + 1), generator)
+    draws = _fused_flipout_draws(f_net.layers(), (n, d + 1), generator) if cfg.use_bnn else None
     chunk = max(1, min(nb_intervals, (1 << 22) // max(n, 1)))
     means = []
     for start in range(0, nb_intervals, chunk):
@@ -486,8 +503,9 @@ def _resolve_predict_bs(cfg: CBGMConfig, bs, n_test: int) -> int:
 
 class _KernelLogProb(torch.autograd.Function):
     """``log p(z)`` from a fused value-and-gradient ``run(z) -> (neg, dneg/dz)``
-    (K2): the forward returns ``-neg`` and keeps the gradient, the backward
-    scales it per row by the cotangent."""
+    (K2 or K3): the forward returns ``-neg`` and keeps the gradient, the
+    backward scales it per row by the cotangent, so a value and its gradient
+    cost one launch."""
 
     @staticmethod
     def forward(ctx, z, run):
@@ -519,9 +537,11 @@ class CausalBGM:
         keys as in :data:`DEFAULTS`, plus fixed-variance overrides
         ``'sigma_v'``/``'sigma_x'``/``'sigma_y'``, ``'antithetic_eps'``,
         ``'lr_decay'`` (``'cosine'``, ``'linear'`` or None) and
-        ``'use_pallas_latent'`` (``"auto"``: K2 on CUDA and the autograd
-        composite on the CPU; True: K2's wrapper everywhere, which on the
-        CPU is its plain version; any other value raises ``ValueError``).
+        ``'use_pallas_latent'`` (``"auto"``: the kernels (K2/K3) on CUDA and
+        the autograd composite on the CPU; True: the kernels' wrappers
+        everywhere, which on the CPU are their plain versions; any other
+        value raises ``ValueError``).  ``'use_bnn'`` (default True) picks
+        flipout-BNN or plain MLP nets for g, e, h and f.
     timestamp : str or None
         Run timestamp (current local time if None).
     random_seed : int or None
@@ -532,12 +552,15 @@ class CausalBGM:
     Attributes
     ----------
     nets : dict
-        ``g``, ``h``, ``f``, ``e`` (flipout MLPs) and ``dz`` (the critic).
+        ``g``, ``h``, ``f``, ``e`` (flipout or plain MLPs) and ``dz`` (the
+        critic).
     kernels : dict
-        The kernel wrappers: K1 for the MH target (``"bnn_hosteps"`` for the
-        initial evaluation, ``"bnn_hosteps_paired"`` per step) and K2
-        (``"bnn_hosteps_grad"``) for fit's latent update; each counts its
-        kernel launches in ``launches``.
+        The kernel wrappers, each counting its kernel launches in
+        ``launches``.  BNN nets: K1 for the MH target (``"bnn_hosteps"`` for
+        the initial evaluation, ``"bnn_hosteps_paired"`` per step) and K2
+        (``"bnn_hosteps_grad"``) for fit's latent update and MALA.  Plain
+        nets: K4 (``"plain"``) for the MH target and K3 (``"plain_grad"``)
+        for fit's latent update and MALA.
     egm_losses, fit_losses : dict
         The last EGM iteration's and the last training step's losses, as
         floats (set by ``egm_init`` and after every ``fit`` epoch).
@@ -565,8 +588,6 @@ class CausalBGM:
             g_d_freq=int(p["g_d_freq"]),
             deconf_weight=float(p.get("deconf_weight", 0.0)),
         )
-        if not self.cfg.use_bnn:
-            raise NotImplementedError("use_bnn=False (plain MLP nets) is not ported yet")
         if p["save_model"]:
             raise NotImplementedError("save_model (checkpointing) is not ported yet")
         if p.get("metrics_path"):
@@ -609,11 +630,12 @@ class CausalBGM:
         init_gen = torch.Generator().manual_seed(self.seed)
         z_dim = sum(cfg.z_dims)
         d0, d1, d2, _ = cfg.z_dims
+        net = FlipoutMLP if cfg.use_bnn else MLP
         nets = {
-            "g": FlipoutMLP(z_dim, cfg.v_dim + 1, p["g_units"], init_gen),
-            "h": FlipoutMLP(d0 + d2, 2, p["h_units"], init_gen),
-            "f": FlipoutMLP(d0 + d1 + 1, 2, p["f_units"], init_gen),
-            "e": FlipoutMLP(cfg.v_dim, z_dim, p["e_units"], init_gen),
+            "g": net(z_dim, cfg.v_dim + 1, p["g_units"], init_gen),
+            "h": net(d0 + d2, 2, p["h_units"], init_gen),
+            "f": net(d0 + d1 + 1, 2, p["f_units"], init_gen),
+            "e": net(cfg.v_dim, z_dim, p["e_units"], init_gen),
             "dz": Critic(z_dim, p["dz_units"], init_gen),
         }
         self.nets = {k: nets[k].to(self.device) for k in NET_NAMES}
@@ -621,12 +643,16 @@ class CausalBGM:
         self._opt_d = optim.adam_init(self.nets["dz"].parameters())
         self._opt_ge = optim.adam_init(_params(self.nets, ("g", "e", "f", "h")))
         dims = [self.nets[k].dims for k in "ghf"]
-        self.kernels = {
-            "bnn_hosteps": make_fused_causal_logp_bnn_hosteps(self.cfg, *dims),
-            "bnn_hosteps_paired": make_fused_causal_logp_bnn_hosteps(self.cfg, *dims,
-                                                                     paired=True),
-            "bnn_hosteps_grad": make_fused_causal_logp_and_grad_bnn_hosteps(self.cfg, *dims),
-        }
+        if cfg.use_bnn:
+            self.kernels = {
+                "bnn_hosteps": make_fused_causal_logp_bnn_hosteps(cfg, *dims),
+                "bnn_hosteps_paired": make_fused_causal_logp_bnn_hosteps(cfg, *dims,
+                                                                         paired=True),
+                "bnn_hosteps_grad": make_fused_causal_logp_and_grad_bnn_hosteps(cfg, *dims),
+            }
+        else:
+            self.kernels = {"plain": make_fused_causal_logp(cfg, *dims),
+                            "plain_grad": make_fused_causal_logp_and_grad(cfg, *dims)}
 
     def _fork_generator(self) -> torch.Generator:
         """A new device generator seeded from the host stream (no sync)."""
@@ -716,14 +742,19 @@ class CausalBGM:
 
     def _build_fused_latent_vg(self):
         """The latent value-and-gradient closure ``(bz, bx, by, bv, nets,
-        generator) -> (neg_rows, grad_rows)`` through K2, or None for the
-        autograd composite.
+        generator) -> (neg_rows, grad_rows)`` through K2 (BNN nets) or K3
+        (plain nets), or None for the autograd composite.
 
-        On CUDA it is always K2, and a K2 that fails to build or launch
-        raises.  On the CPU ``params['use_pallas_latent']`` picks: ``"auto"``
-        (default) the composite, True K2's wrapper, i.e. its plain version."""
+        On CUDA it is always the kernel, and a kernel that fails to build or
+        launch raises.  On the CPU ``params['use_pallas_latent']`` picks:
+        ``"auto"`` (default) the composite, True the kernel's wrapper, i.e.
+        its plain version."""
         if not self._kernel_path:
             return None
+        if not self.cfg.use_bnn:
+            fused_plain = self.kernels["plain_grad"]
+            return lambda bz, bx, by, bv, nets, generator: fused_plain(
+                bz, bx, by, bv, *(flatten_mlp_params(nets[k]) for k in "ghf"))
         fused = self.kernels["bnn_hosteps_grad"]
 
         def vg(bz, bx, by, bv, nets, generator):
@@ -841,15 +872,18 @@ class CausalBGM:
         return -_neg_log_posterior_rows(self.cfg, self.nets, z, x, y, v,
                                         self._gen if generator is None else generator)
 
-    def _make_log_prob(self, data_x, data_y, data_v, differentiable=False):
-        """Log-target over Z, ``log_prob(z, generator) -> (n,)``.
+    def _make_log_prob(self, data_x, data_y, data_v, differentiable=False, nets=None):
+        """Log-target over Z, ``log_prob(z, generator) -> (n,)``, through
+        ``nets`` (the model's by default).
 
         On the kernel path (CUDA, or ``params['use_pallas_latent'] is True``)
-        it is K1 with fresh eps and sign seed per call; with
-        ``differentiable=True`` it is K2 wrapped in a ``torch.autograd.Function``
-        whose backward scales K2's z-gradient (taken through the same weight
-        noise) by the cotangent.  Elsewhere it is the autograd composite."""
-        cfg, nets = self.cfg, self.nets
+        it is K1 with fresh eps and sign seed per call (BNN nets) or K4
+        (plain nets); with ``differentiable=True`` it is K2 or K3 wrapped in
+        a ``torch.autograd.Function`` whose backward scales the kernel's
+        z-gradient (for K2 taken through the same weight noise) by the
+        cotangent.  Elsewhere it is the autograd composite."""
+        cfg = self.cfg
+        nets = self.nets if nets is None else nets
         x, y, v = self._data((data_x, data_y, data_v))
 
         def composite_log_prob(z, generator):
@@ -857,6 +891,15 @@ class CausalBGM:
 
         if not self._kernel_path:
             return composite_log_prob
+        if not cfg.use_bnn:
+            flats = [flatten_mlp_params(nets[k]) for k in "ghf"]
+            if not differentiable:
+                fused_plain = self.kernels["plain"]
+                return lambda z, generator: -fused_plain(z.detach().contiguous(), x, y, v,
+                                                         *flats)
+            fused_plain_vg = self.kernels["plain_grad"]
+            return lambda z, generator: _KernelLogProb.apply(
+                z, lambda zz: fused_plain_vg(zz.detach().contiguous(), x, y, v, *flats))
         ws, sigs = zip(*(split_flipout_flat(flatten_flipout_params(nets[k])) for k in "ghf"))
         sigs = sum(sigs, [])
 
@@ -880,17 +923,33 @@ class CausalBGM:
         Returns ``(lp, plp, make_params)``:
 
         - ``lp(params, z, g) -> (n,)``: the log-posterior through K1, with a
-          fresh eps draw and fresh sign seed per call;
+          fresh eps draw and fresh sign seed per call (BNN nets), or through
+          K4 (plain nets);
         - ``plp(params, z_prop, z_cur, g) -> (logp_prop, logp_cur)``: both
           states stacked into one paired K1 launch; eps set 0 feeds the
           proposed half and set 1 the current half, so each state sees its
           own whole-batch eps draw (the reference's two log-posterior calls
-          per step);
+          per step).  None for plain nets: their target is deterministic, so
+          the chain caches the current state's value;
         - ``make_params(nets, data, paired) -> dict``: flattened kernel
           weights, the raw nets (for the collector), the data and, when
           ``paired``, the data stacked twice.
         """
         cfg = self.cfg
+        if not cfg.use_bnn:
+            fused_plain = self.kernels["plain"]
+
+            def make_plain_params(nets, data, paired):
+                x, y, v = (torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+                           for a in data)
+                return {"nets": nets, "data": (x, y, v),
+                        "w": tuple(flatten_mlp_params(nets[k]) for k in "ghf")}
+
+            def plain_lp(params, z, generator):
+                x, y, v = params["data"]
+                return -fused_plain(z, x, y, v, *params["w"])
+
+            return plain_lp, None, make_plain_params
         fused = self.kernels["bnn_hosteps"]
         fused_paired = self.kernels["bnn_hosteps_paired"]
         anti = bool(self.params.get("antithetic_eps", False))
@@ -945,15 +1004,19 @@ class CausalBGM:
         snapshot or its tail weight average instead of the final nets (when
         ``fit`` made one).
 
-        ``mesh``, ``sampler="mala"``, ``estimator="dr"`` and ``ess_target``
-        are not ported yet and raise ``NotImplementedError``.
+        ``sampler="mala"`` runs adaptive MALA (step size 0.1, adapted toward
+        0.574 acceptance) on the differentiable target instead; with BNN nets
+        both sides of the accept ratio are evaluated afresh every step.
+
+        ``mesh``, ``estimator="dr"`` and ``ess_target`` are not ported yet and
+        raise ``NotImplementedError``.
         """
         if not 0 < alpha < 1:
             raise ValueError("The significance level 'alpha' must be greater than 0 and less than 1.")
         if mesh is not None:
             raise NotImplementedError("predict(mesh=...) is not ported yet")
-        if sampler != "mh":
-            raise NotImplementedError(f"sampler={sampler!r} is not ported yet (only 'mh')")
+        if sampler not in ("mh", "mala"):
+            raise ValueError(f"unknown sampler {sampler!r} (expected 'mh' or 'mala')")
         if estimator != "plugin":
             raise NotImplementedError(f"estimator={estimator!r} is not ported yet (only 'plugin')")
         if ess_target is not None:
@@ -980,16 +1043,23 @@ class CausalBGM:
         print("MCMC Latent Variable Sampling ...")
         lp, plp, make_params = self._make_param_log_prob()
         collect_p = _effect_collector_p(cfg, x_values, sample_y)
+        collect = _effect_collector(cfg, nets, x_values, sample_y)
 
         def run_batch(bx, by, bv):
             with torch.no_grad():
                 init = torch.randn((bx.shape[0], sum(cfg.z_dims)), generator=self._gen,
                                    device=self.device)
-                params = make_params(nets, (bx, by, bv), True)
-                res = mcmc.adaptive_mh(
-                    lp, init, self._gen, burn_in=burn_in, n_keep=n_mcmc, q_sd=q0,
-                    adaptive=adaptive, recompute_current=True, collect=collect_p,
-                    paired_log_prob_fn=plp, params=params)
+                if sampler == "mala":
+                    log_prob = self._make_log_prob(bx, by, bv, differentiable=True, nets=nets)
+                    res = mcmc.adaptive_mala(
+                        log_prob, init, self._gen, burn_in=burn_in, n_keep=n_mcmc,
+                        step_size=0.1, recompute_current=cfg.use_bnn, collect=collect)
+                else:
+                    params = make_params(nets, (bx, by, bv), cfg.use_bnn)
+                    res = mcmc.adaptive_mh(
+                        lp, init, self._gen, burn_in=burn_in, n_keep=n_mcmc, q_sd=q0,
+                        adaptive=adaptive, recompute_current=cfg.use_bnn, collect=collect_p,
+                        paired_log_prob_fn=plp, params=params)
                 rate = float(res.accept_rate)
                 samples = res.samples.cpu().numpy()
             print(f"Final MCMC Acceptance Rate: {rate:.4f}")

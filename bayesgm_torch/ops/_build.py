@@ -3,7 +3,9 @@
 Each source is compiled on first use with ``nvcc`` into a shared library with
 a plain C interface under ``build/bayesgm_torch_kernels/`` at the root of the
 checkout, named by a hash of the source, and loaded with ``ctypes``.  A build
-that fails raises with the compiler's output; nothing falls back.
+that fails raises with the compiler's output; nothing falls back.  The
+kernel wrappers' launch helpers live here too: the argument check, the
+current stream and the check of a launch's return code.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -35,7 +39,8 @@ class KernelLibrary:
         self.build_s = build_s
 
 
-_LOCK = threading.Lock()
+_GUARD = threading.Lock()
+_LOCKS: dict = {}  # one lock per source, so two sources build in parallel
 _LOADED: dict = {}
 
 
@@ -49,8 +54,11 @@ def _nvcc() -> str:
 
 
 def load_library(source: str) -> KernelLibrary:
-    """Build (if not cached) and load ``csrc/<source>``."""
-    with _LOCK:
+    """Build (if not cached) and load ``csrc/<source>``; safe to call from
+    several threads at once."""
+    with _GUARD:
+        lock = _LOCKS.setdefault(source, threading.Lock())
+    with lock:
         if source in _LOADED:
             return _LOADED[source]
         src = CSRC / source
@@ -74,3 +82,25 @@ def load_library(source: str) -> KernelLibrary:
         lib = KernelLibrary(ctypes.CDLL(str(so)), so, log, build_s)
         _LOADED[source] = lib
         return lib
+
+
+def cuda_stream(device) -> ctypes.c_void_p:
+    """PyTorch's current stream on ``device``, for a kernel's launch."""
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def require_cuda_f32(name, t, device, shape=None):
+    """Raise unless ``t`` is a contiguous float32 tensor on ``device`` (of
+    ``shape``, when given): what the kernels take."""
+    if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous float32 tensor on {device}, "
+                         f"got {t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+
+
+def check_launch(code: int, what: str, error_string) -> None:
+    """Raise unless a kernel library's host function returned 0; the message
+    is the library's ``error_string(code)``."""
+    if code != 0:
+        raise RuntimeError(f"{what} failed: {error_string(code).decode()} (code {code})")

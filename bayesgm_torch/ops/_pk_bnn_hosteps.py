@@ -23,12 +23,18 @@ import ctypes
 
 import torch
 
+from bayesgm_torch.ops._build import (
+    check_launch,
+    cuda_stream,
+    load_library,
+    require_cuda_f32,
+)
 from bayesgm_torch.ops._pk_traced_common import (
     _leaky,
     _sign_source,
+    neg_log_posterior_rows,
     philox_sign_words,
 )
-from bayesgm_torch.ops.distributions import softplus_var
 
 _SOURCE = "bnn_hosteps.cu"
 
@@ -51,12 +57,6 @@ def _chain_plain(h, w, ps, signs, n_half):
     return h
 
 
-def _sigma_sq(fixed, raw):
-    if fixed is not None:
-        return torch.tensor(float(fixed), dtype=torch.float32, device=raw.device) ** 2
-    return softplus_var(raw)
-
-
 def logp_plain(cfg, z, x, y, v, seed, g_w, h_w, f_w, p_flat, n_half=None,
                sign_words=None):
     """Plain PyTorch version of K1: ``(n,)`` negative log-posterior.
@@ -70,11 +70,12 @@ def logp_plain(cfg, z, x, y, v, seed, g_w, h_w, f_w, p_flat, n_half=None,
     n = z.shape[0]
     if n_half is None:
         n_half = n // 2 if p_flat[0].shape[0] == 2 else n
-    d0, d1, d2, _ = cfg.z_dims
-    n_layers = [(len(w) - 2) // 2 for w in (g_w, h_w, f_w)]
+    ws = (g_w, h_w, f_w)
+    n_layers = [(len(w) - 2) // 2 for w in ws]
     cuts = [0, n_layers[0], n_layers[0] + n_layers[1], sum(n_layers)]
 
-    def chain(ch, h, w):
+    def chain(ch, h):
+        w = ws[ch]
         max_w = max(max(w[2 + 2 * i].shape) for i in range(n_layers[ch]))
         if sign_words is not None:
             if 2 * n_layers[ch] > 32:
@@ -85,27 +86,7 @@ def logp_plain(cfg, z, x, y, v, seed, g_w, h_w, f_w, p_flat, n_half=None,
                 lambda group: philox_sign_words(seed, n, max_w, ch, group))
         return _chain_plain(h, w, p_flat[cuts[ch]:cuts[ch + 1]], signs, n_half)
 
-    z0, z1, z2 = z[:, :d0], z[:, d0:d0 + d1], z[:, d0 + d1:d0 + d1 + d2]
-    g_out = chain(0, z, g_w)
-    s_v = _sigma_sq(cfg.sigma_v, g_out[:, cfg.v_dim])
-    loss = torch.sum((v - g_out[:, :cfg.v_dim]) ** 2, dim=1) / (2.0 * s_v) \
-        + cfg.v_dim * torch.log(s_v) / 2.0
-
-    h_out = chain(1, torch.cat([z0, z2], dim=1), h_w)
-    if cfg.binary_treatment:
-        lx = h_out[:, 0]
-        loss = loss + torch.clamp_min(lx, 0.0) - lx * x[:, 0] \
-            + torch.log1p(torch.exp(-torch.abs(lx)))
-    else:
-        s_x = _sigma_sq(cfg.sigma_x, h_out[:, 1])
-        loss = loss + torch.sum((x - h_out[:, 0:1]) ** 2, dim=1) / (2.0 * s_x) \
-            + torch.log(s_x) / 2.0
-
-    f_out = chain(2, torch.cat([z0, z1, x], dim=1), f_w)
-    s_y = _sigma_sq(cfg.sigma_y, f_out[:, 1])
-    loss = loss + torch.sum((y - f_out[:, 0:1]) ** 2, dim=1) / (2.0 * s_y) \
-        + torch.log(s_y) / 2.0
-    return loss + torch.sum(z * z, dim=1) / 2.0
+    return neg_log_posterior_rows(cfg, z, x, y, v, chain)
 
 
 def logp_and_grad_plain(cfg, z, x, y, v, seed, g_w, h_w, f_w, p_flat, sign_words=None):
@@ -125,8 +106,6 @@ def logp_and_grad_plain(cfg, z, x, y, v, seed, g_w, h_w, f_w, p_flat, sign_words
 
 
 def _lib():
-    from bayesgm_torch.ops._build import load_library
-
     lib = load_library(_SOURCE).lib
     if not getattr(lib, "_bayesgm_argtypes", False):
         vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -150,24 +129,6 @@ def _lib():
     return lib
 
 
-def _check(lib, code: int, what: str):
-    if code != 0:
-        msg = lib.bnn_hosteps_error_string(code).decode()
-        raise RuntimeError(f"{what} failed: {msg} (code {code})")
-
-
-def _stream(device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
-
-def _require_cuda_f32(name, t, device, shape=None):
-    if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous float32 tensor on {device}, "
-                         f"got {t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
-
-
 def sign_words_cuda(seed, rows: int, cols: int, chain: int, group: int = 0):
     """The kernel's sign words for rows ``0..rows-1`` as ``(rows, cols)``
     int64 (uint32 values) — the CUDA twin of ``philox_sign_words``, for
@@ -176,9 +137,9 @@ def sign_words_cuda(seed, rows: int, cols: int, chain: int, group: int = 0):
         raise ValueError("seed: expected a CUDA int32 tensor of 2 words")
     lib = _lib()
     out = torch.empty((rows, cols), dtype=torch.int32, device=seed.device)
-    _check(lib, lib.bnn_hosteps_sign_words(seed.data_ptr(), out.data_ptr(), rows, cols,
-                                           chain, group, _stream(seed.device)),
-           "bnn_hosteps_sign_words launch")
+    code = lib.bnn_hosteps_sign_words(seed.data_ptr(), out.data_ptr(), rows, cols, chain,
+                                      group, cuda_stream(seed.device))
+    check_launch(code, "bnn_hosteps_sign_words launch", lib.bnn_hosteps_error_string)
     return out.to(torch.int64) & 0xFFFFFFFF
 
 
@@ -200,10 +161,10 @@ class _HostepsKernel:
         cfg, dev = self.cfg, z.device
         n, z_dim = z.shape
         d0, d1, d2, _ = cfg.z_dims
-        _require_cuda_f32("z", z, dev, (n, sum(cfg.z_dims)))
-        _require_cuda_f32("x", x, dev, (n, 1))
-        _require_cuda_f32("y", y, dev, (n, 1))
-        _require_cuda_f32("v", v, dev, (n, cfg.v_dim))
+        require_cuda_f32("z", z, dev, (n, sum(cfg.z_dims)))
+        require_cuda_f32("x", x, dev, (n, 1))
+        require_cuda_f32("y", y, dev, (n, 1))
+        require_cuda_f32("v", v, dev, (n, cfg.v_dim))
         if seed.device != dev or seed.dtype != torch.int32 or seed.numel() != 2:
             raise ValueError("seed: expected an int32 tensor of 2 words on the data's device")
         ptrs, p_i = [], 0
@@ -211,15 +172,15 @@ class _HostepsKernel:
             n_layers = len(dims) - 1
             if len(w) != 2 + 2 * n_layers:
                 raise ValueError(f"{name}_w: expected {2 + 2 * n_layers} tensors, got {len(w)}")
-            _require_cuda_f32(f"{name}.gamma_eff", w[0], dev, (dims[0],))
-            _require_cuda_f32(f"{name}.beta", w[1], dev, (dims[0],))
+            require_cuda_f32(f"{name}.gamma_eff", w[0], dev, (dims[0],))
+            require_cuda_f32(f"{name}.beta", w[1], dev, (dims[0],))
             ptrs += [w[0].data_ptr(), w[1].data_ptr()]
             for i in range(n_layers):
                 P = p_flat[p_i]
                 p_i += 1
-                _require_cuda_f32(f"{name}.loc[{i}]", w[2 + 2 * i], dev, (dims[i], dims[i + 1]))
-                _require_cuda_f32(f"{name}.b[{i}]", w[3 + 2 * i], dev, (dims[i + 1],))
-                _require_cuda_f32(f"{name}.P[{i}]", P, dev, (n_sets, dims[i], dims[i + 1]))
+                require_cuda_f32(f"{name}.loc[{i}]", w[2 + 2 * i], dev, (dims[i], dims[i + 1]))
+                require_cuda_f32(f"{name}.b[{i}]", w[3 + 2 * i], dev, (dims[i + 1],))
+                require_cuda_f32(f"{name}.P[{i}]", P, dev, (n_sets, dims[i], dims[i + 1]))
                 ptrs += [w[2 + 2 * i].data_ptr(), w[3 + 2 * i].data_ptr(), P.data_ptr()]
         if p_i != len(p_flat):
             raise ValueError(f"p_flat: expected {p_i} tensors, got {len(p_flat)}")
@@ -264,8 +225,8 @@ class FusedCausalLogpBnnHosteps(_HostepsKernel):
         out = torch.empty((n,), dtype=torch.float32, device=z.device)
         code = lib.bnn_hosteps_logp(
             z.data_ptr(), x.data_ptr(), y.data_ptr(), v.data_ptr(), seed.data_ptr(),
-            out.data_ptr(), n, n // 2 if self.paired else n, *args, _stream(z.device))
-        _check(lib, code, "bnn_hosteps_logp launch")
+            out.data_ptr(), n, n // 2 if self.paired else n, *args, cuda_stream(z.device))
+        check_launch(code, "bnn_hosteps_logp launch", lib.bnn_hosteps_error_string)
         self.launches += 1
         return out
 
@@ -289,8 +250,8 @@ class FusedCausalLogpAndGradBnnHosteps(_HostepsKernel):
         grad = torch.empty((n, z_dim), dtype=torch.float32, device=z.device)
         code = lib.bnn_hosteps_logp_and_grad(
             z.data_ptr(), x.data_ptr(), y.data_ptr(), v.data_ptr(), seed.data_ptr(),
-            out.data_ptr(), grad.data_ptr(), n, *args, _stream(z.device))
-        _check(lib, code, "bnn_hosteps_logp_and_grad launch")
+            out.data_ptr(), grad.data_ptr(), n, *args, cuda_stream(z.device))
+        check_launch(code, "bnn_hosteps_logp_and_grad launch", lib.bnn_hosteps_error_string)
         self.launches += 1
         return out, grad
 

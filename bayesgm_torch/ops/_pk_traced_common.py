@@ -1,6 +1,7 @@
-"""Helpers shared by the kernel's plain PyTorch version (port of
-``bayesgm_tpu/ops/_pk_traced_common.py``): the LeakyReLU and the per-row
-Rademacher sign source.
+"""Helpers shared by the kernels' plain PyTorch versions (port of
+``bayesgm_tpu/ops/_pk_traced_common.py``): the LeakyReLU, the per-row loss
+that every log-posterior kernel folds its three chains into, and the flipout
+kernels' per-row Rademacher sign source.
 
 Sign source.  The JAX kernel draws one 32-bit word per (row, col) per
 flipout chain and reads sign matrix ``k`` from bit ``k`` (``r_in`` of layer
@@ -22,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from bayesgm_torch.ops.distributions import softplus_var
 from bayesgm_torch.ops.nn import LEAKY_SLOPE
 
 _MASK = 0xFFFFFFFF
@@ -31,6 +33,42 @@ PHILOX_W0, PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
 
 def _leaky(h):
     return torch.where(h > 0, h, LEAKY_SLOPE * h)
+
+
+def _sigma_sq(fixed, raw):
+    if fixed is not None:
+        return torch.tensor(float(fixed), dtype=torch.float32, device=raw.device) ** 2
+    return softplus_var(raw)
+
+
+def neg_log_posterior_rows(cfg, z, x, y, v, chain):
+    """``(n,)`` CausalBGM negative log-posterior from the three chains:
+    ``chain(ch, inp)`` runs chain ``ch`` (0: g on z, 1: h on (z0, z2), 2: f on
+    (z0, z1, x)) and is called in that order.  Gaussian NLLs of v, x and y
+    with softplus(raw) + 1e-6 variance heads or fixed sigmas (Bernoulli
+    logits for a binary treatment), plus the N(0, I) prior ``sum(z^2) / 2``."""
+    d0, d1, d2, _ = cfg.z_dims
+    z0, z1, z2 = z[:, :d0], z[:, d0:d0 + d1], z[:, d0 + d1:d0 + d1 + d2]
+    g_out = chain(0, z)
+    s_v = _sigma_sq(cfg.sigma_v, g_out[:, cfg.v_dim])
+    loss = torch.sum((v - g_out[:, :cfg.v_dim]) ** 2, dim=1) / (2.0 * s_v) \
+        + cfg.v_dim * torch.log(s_v) / 2.0
+
+    h_out = chain(1, torch.cat([z0, z2], dim=1))
+    if cfg.binary_treatment:
+        lx = h_out[:, 0]
+        loss = loss + torch.clamp_min(lx, 0.0) - lx * x[:, 0] \
+            + torch.log1p(torch.exp(-torch.abs(lx)))
+    else:
+        s_x = _sigma_sq(cfg.sigma_x, h_out[:, 1])
+        loss = loss + torch.sum((x - h_out[:, 0:1]) ** 2, dim=1) / (2.0 * s_x) \
+            + torch.log(s_x) / 2.0
+
+    f_out = chain(2, torch.cat([z0, z1, x], dim=1))
+    s_y = _sigma_sq(cfg.sigma_y, f_out[:, 1])
+    loss = loss + torch.sum((y - f_out[:, 0:1]) ** 2, dim=1) / (2.0 * s_y) \
+        + torch.log(s_y) / 2.0
+    return loss + torch.sum(z * z, dim=1) / 2.0
 
 
 def _mulhilo(a, m: int):

@@ -1,6 +1,6 @@
-"""Host-side helpers for the flipout-BNN kernel (port of
+"""Host-side helpers for the log-posterior kernels (port of
 ``bayesgm_tpu/ops/_pk_util.py``): parameter flattening, layer dims and the
-per-evaluation weight-noise draw."""
+flipout kernels' per-evaluation weight-noise draw."""
 
 from __future__ import annotations
 
@@ -8,6 +8,19 @@ import torch
 
 from bayesgm_torch.ops.distributions import softplus
 from bayesgm_torch.ops.nn import BN_EPS
+
+
+def flatten_mlp_params(net) -> list:
+    """``[w1, b1, w2, b2, ...]`` from a plain ``MLP``."""
+    out = []
+    for w, b in zip(net.w, net.b):
+        out += [w, b]
+    return [t.detach().contiguous() for t in out]
+
+
+def mlp_layer_dims(net) -> list:
+    """``[in, h1, ..., out]`` of a plain ``MLP``."""
+    return list(net.dims)
 
 
 def flatten_flipout_params(net) -> list:

@@ -1,5 +1,6 @@
-"""Adaptive random-walk Metropolis–Hastings on the device, and chain
-diagnostics (port of ``bayesgm_tpu/ops/mcmc.py``).
+"""Adaptive random-walk Metropolis–Hastings and Metropolis-adjusted
+Langevin (MALA) on the device, and chain diagnostics (port of
+``bayesgm_tpu/ops/mcmc.py``).
 
 All ``n`` subjects are independent chains stepped in lockstep along axis 0.
 The chain is a plain Python loop whose state, acceptance window and proposal
@@ -8,16 +9,17 @@ host only enqueues work.  (The JAX package cuts its chain into 500-step
 jitted chunks for the TPU program watchdog; nothing here needs that.)
 
 The adaptation schedule is the reference's: every ``adjustment_interval``
-burn-in steps, ``q_sd`` is multiplied by 0.9 or 1.1 when the windowed
-acceptance rate leaves ``target_rate ± tolerance``.
+burn-in steps, ``q_sd`` (MALA: the step size) is multiplied by 0.9 or 1.1
+when the windowed acceptance rate leaves ``target_rate ± tolerance``.
 
 Randomness comes from one explicit ``torch.Generator``, drawn in a fixed
 order each step: the proposal noise, the target evaluation(s), then the
-accept uniforms.
+accept uniforms (fresh-noise MALA evaluates the current state first).
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -28,6 +30,22 @@ class MHResult(NamedTuple):
     samples: Optional[torch.Tensor]  # collected values, leading axis n_keep
     q_sd: torch.Tensor  # final proposal sd (0-d)
     accept_rate: torch.Tensor  # windowed acceptance rate at the end (0-d)
+
+
+def _record_accept(window, accept, t: int, window_size: int):
+    """Store step ``t``'s acceptance fraction in the ring ``window`` (in
+    place) and return the windowed rate."""
+    window[t % window_size] = accept.to(torch.float32).mean()
+    return window.sum() / float(min(t + 1, window_size))
+
+
+def _adapt(scale, rate, t: int, adaptive: bool, burn_in: int, target_rate: float,
+           tolerance: float, adjustment_interval: int):
+    """The 0.9 / 1.1 scale adaptation on the burn-in steps where it fires."""
+    if adaptive and t < burn_in and t % adjustment_interval == 0 and t > 0:
+        scale = torch.where(rate < target_rate - tolerance, scale * 0.9, scale)
+        scale = torch.where(rate > target_rate + tolerance, scale * 1.1, scale)
+    return scale
 
 
 def _mh_step(carry, generator, log_prob_fn, q_sd_is_adaptive, burn_in,
@@ -55,13 +73,9 @@ def _mh_step(carry, generator, log_prob_fn, q_sd_is_adaptive, burn_in,
     new_state = torch.where(accept[:, None], proposed, state)
     new_logp = torch.where(accept, logp_prop, logp)
 
-    window[t % window_size] = accept.to(torch.float32).mean()
-    rate = window.sum() / float(min(t + 1, window_size))
-
-    if q_sd_is_adaptive and t < burn_in and t % adjustment_interval == 0 and t > 0:
-        q_sd = torch.where(rate < target_rate - tolerance, q_sd * 0.9, q_sd)
-        q_sd = torch.where(rate > target_rate + tolerance, q_sd * 1.1, q_sd)
-
+    rate = _record_accept(window, accept, t, window_size)
+    q_sd = _adapt(q_sd, rate, t, q_sd_is_adaptive, burn_in, target_rate, tolerance,
+                  adjustment_interval)
     return (new_state, new_logp, q_sd, window, t + 1), rate
 
 
@@ -117,6 +131,116 @@ def adaptive_mh(log_prob_fn: Callable, init_state, generator: torch.Generator, *
         samples.append(collect_fn(params, carry[0], generator))
     stacked = torch.stack(samples) if samples else None
     return MHResult(samples=stacked, q_sd=carry[2], accept_rate=rate)
+
+
+# ---------------------------------------------------------------------------
+# Metropolis-adjusted Langevin (MALA)
+# ---------------------------------------------------------------------------
+
+
+def _mala_proposal(state, grad, eps, generator):
+    """``(proposed, drift)``: ``state + eps^2 / 2 * grad + eps * N(0, I)``."""
+    drift = 0.5 * eps**2 * grad
+    noise = eps * torch.randn(state.shape, generator=generator, device=state.device,
+                              dtype=state.dtype)
+    return state + drift + noise, drift
+
+
+def _mala_accept(state, logp, proposed, drift, logp_prop, grad_prop, eps, generator):
+    """The accept mask, with the asymmetric proposal correction
+    ``log q(x | x') - log q(x' | x)``."""
+    fwd = proposed - state - drift
+    bwd = state - proposed - 0.5 * eps**2 * grad_prop
+    log_q_fwd = -torch.sum(fwd**2, dim=-1) / (2.0 * eps**2)
+    log_q_bwd = -torch.sum(bwd**2, dim=-1) / (2.0 * eps**2)
+    log_ratio = torch.clamp_max(logp_prop - logp + log_q_bwd - log_q_fwd, 0.0)
+    u = torch.rand(logp.shape, generator=generator, device=logp.device)
+    return torch.log(u) < log_ratio
+
+
+def _mala_step(carry, generator, value_and_grad_fn, adapt, window_size):
+    """One MALA step for a deterministic target: the accepted state's value
+    and gradient are cached.  ``carry = (state, logp, grad, eps, window, t)``."""
+    state, logp, grad, eps, window, t = carry
+    proposed, drift = _mala_proposal(state, grad, eps, generator)
+    logp_prop, grad_prop = value_and_grad_fn(proposed, generator)
+    accept = _mala_accept(state, logp, proposed, drift, logp_prop, grad_prop, eps, generator)
+    state = torch.where(accept[:, None], proposed, state)
+    logp = torch.where(accept, logp_prop, logp)
+    grad = torch.where(accept[:, None], grad_prop, grad)
+    rate = _record_accept(window, accept, t, window_size)
+    eps = adapt(eps, rate, t)
+    return (state, logp, grad, eps, window, t + 1), rate
+
+
+def _mala_step_fresh(carry, generator, value_and_grad_fn, adapt, window_size):
+    """One MALA step for a STOCHASTIC target (the flipout BNN posterior):
+    the current state and the proposal are both evaluated with fresh noise
+    every step, nothing is cached (two value-and-gradient calls per step).
+    Caching the current value would make the chain stick at lucky noise
+    draws.  ``carry = (state, eps, window, t)``."""
+    state, eps, window, t = carry
+    logp, grad = value_and_grad_fn(state, generator)
+    proposed, drift = _mala_proposal(state, grad, eps, generator)
+    logp_prop, grad_prop = value_and_grad_fn(proposed, generator)
+    accept = _mala_accept(state, logp, proposed, drift, logp_prop, grad_prop, eps, generator)
+    state = torch.where(accept[:, None], proposed, state)
+    rate = _record_accept(window, accept, t, window_size)
+    eps = adapt(eps, rate, t)
+    return (state, eps, window, t + 1), rate
+
+
+def adaptive_mala(log_prob_fn: Callable, init_state, generator: torch.Generator, *,
+                  burn_in: int = 5000, n_keep: int = 3000, step_size: float = 0.1,
+                  target_rate: float = 0.574, tolerance: float = 0.05,
+                  adjustment_interval: int = 50, window_size: int = 100,
+                  adaptive: bool = True, recompute_current: bool = False,
+                  collect: Optional[Callable] = None) -> MHResult:
+    """Metropolis-adjusted Langevin over ``n`` independent chains (rows).
+
+    ``log_prob_fn(state, g) -> (n,)`` must be differentiable in ``state``;
+    the target is row-separable, so one backward of the row sum gives every
+    row's gradient.  Through the model's kernel target
+    (``CausalBGM._make_log_prob(differentiable=True)``) an evaluation is one
+    fused value-and-gradient launch.  The step size adapts toward the
+    MALA-optimal ~0.574 acceptance during burn-in.
+
+    ``recompute_current=True`` re-evaluates BOTH sides of the accept ratio
+    every step (two value-and-gradient calls per step) instead of caching the
+    accepted state's value and gradient: required when the target is
+    stochastic.  ``collect(state, g)`` is the per-kept-step statistic (the raw
+    state by default); ``samples`` stacks it along a leading ``n_keep`` axis
+    (None when ``n_keep == 0``), and ``q_sd`` holds the final step size.
+    """
+
+    def value_and_grad_fn(s, g):
+        with torch.enable_grad():
+            ss = s.detach().requires_grad_(True)
+            logp = log_prob_fn(ss, g)
+            (grad,) = torch.autograd.grad(logp.sum(), ss)
+        return logp.detach(), grad
+
+    collect_fn = (lambda s, g: s) if collect is None else collect
+    adapt = partial(_adapt, adaptive=bool(adaptive), burn_in=burn_in, target_rate=target_rate,
+                    tolerance=tolerance, adjustment_interval=adjustment_interval)
+    dev = init_state.device
+    eps = torch.tensor(step_size, dtype=torch.float32, device=dev)
+    window = torch.zeros((window_size,), dtype=torch.float32, device=dev)
+    if recompute_current:
+        step, carry = _mala_step_fresh, (init_state, eps, window, 0)
+    else:
+        logp0, grad0 = value_and_grad_fn(init_state, generator)
+        step, carry = _mala_step, (init_state, logp0, grad0, eps, window, 0)
+
+    rate = torch.zeros((), dtype=torch.float32, device=dev)
+    for _ in range(burn_in):
+        carry, rate = step(carry, generator, value_and_grad_fn, adapt, window_size)
+    samples = []
+    for _ in range(n_keep):
+        carry, rate = step(carry, generator, value_and_grad_fn, adapt, window_size)
+        samples.append(collect_fn(carry[0], generator))
+    stacked = torch.stack(samples) if samples else None
+    return MHResult(samples=stacked, q_sd=carry[-3], accept_rate=rate)  # carry[-3]: eps
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,13 @@
-"""Flipout Bayesian MLP and the WGAN critic (port of the flipout subset and
-the critic of ``bayesgm_tpu/ops/nn.py``).
+"""Plain and flipout Bayesian MLPs and the WGAN critic (port of the plain
+MLP, the flipout subset and the critic of ``bayesgm_tpu/ops/nn.py``).
 
 Conventions kept from the JAX package for numerical parity:
 
 - LeakyReLU slope 0.2 between hidden layers, linear final layer;
-- dense layers of the critic: Glorot-uniform kernel, zero bias (Keras
-  ``Dense``); the critic's hidden norms are frozen BatchNorm affines and its
-  activation is tanh;
+- dense layers of the plain MLP and of the critic: Glorot-uniform kernel,
+  zero bias (Keras ``Dense``); the critic's hidden norms are frozen BatchNorm
+  affines and its activation is tanh (the plain MLP has no norms, as
+  CausalBGM builds it);
 - the input norm is inference-mode BatchNorm with frozen (0, 1) statistics,
   i.e. the affine ``x * gamma * (1 + BN_EPS)^-1/2 + beta``;
 - mean-field Gaussian kernel posterior ``N(loc, softplus(rho)^2)`` with a
@@ -53,6 +54,38 @@ def _glorot_dense(in_dim: int, out_dim: int, generator):
 
 def dense_apply(w, b, x):
     return x @ w + b
+
+
+class MLP(nn.Module):
+    """Plain MLP ``dims = [in, *hidden, out]``: dense layers ``w[i]``,
+    ``b[i]`` (Glorot-uniform kernel, zero bias), LeakyReLU between them, a
+    linear last layer.  Weights are drawn on the CPU from ``generator``."""
+
+    def __init__(self, input_dim: int, output_dim: int, hidden: Sequence[int],
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        dims = [int(input_dim), *map(int, hidden), int(output_dim)]
+        self.w = nn.ParameterList()
+        self.b = nn.ParameterList()
+        for d_in, d_out in zip(dims[:-1], dims[1:]):
+            w, b = _glorot_dense(d_in, d_out, generator)
+            self.w.append(w)
+            self.b.append(b)
+
+    @property
+    def dims(self) -> list:
+        return [self.w[0].shape[0]] + [w.shape[1] for w in self.w]
+
+    def forward(self, x):
+        return mlp_apply(self, x)
+
+
+def mlp_apply(net: MLP, x):
+    """LeakyReLU MLP with a linear last layer."""
+    n_hidden = len(net.w) - 1
+    for i in range(n_hidden):
+        x = leaky_relu(dense_apply(net.w[i], net.b[i], x))
+    return dense_apply(net.w[-1], net.b[-1], x)
 
 
 class Critic(nn.Module):

@@ -7,7 +7,9 @@ the port the same random numbers.
   stubbed JAX kernel reads;
 - :class:`FlipoutDraws` replaces both packages' ``_fused_flipout_draws``
   with one deterministic numpy stream: call ``i`` of either package gets the
-  same eps and signs for the same layer shapes.
+  same eps and signs for the same layer shapes;
+- :func:`patch_interp_weights` hands both packages the same WGAN-GP
+  interpolation weights.
 """
 
 import numpy as np
@@ -104,3 +106,11 @@ class FlipoutDraws:
         monkeypatch.setattr(tnn, "_fused_flipout_draws", port_draws)
         monkeypatch.setattr(tcb, "_fused_flipout_draws", port_draws)
 
+
+
+def patch_interp_weights(monkeypatch, weights):
+    """Hand both packages the same WGAN-GP interpolation weights, in order."""
+    j_it, t_it = iter(weights), iter(weights)
+    monkeypatch.setattr(jax.random, "uniform",
+                        lambda key, shape=(), *a, **k: jnp.full(shape, next(j_it), jnp.float32))
+    monkeypatch.setattr(tcb, "_interp_weight", lambda generator, device: torch.tensor(next(t_it)))

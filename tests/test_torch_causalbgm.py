@@ -1,6 +1,7 @@
 """The ported model: JAX weights through save_weights / the bridge, predict
-from both packages on the same data, the device contract, and that the port
-(fit, save_weights, predict) never imports JAX."""
+from both packages on the same data, MALA, the device contract, and that the
+port (fit, save_weights, predict by MH and MALA, both kinds of nets) never
+imports JAX."""
 
 import os
 import subprocess
@@ -115,22 +116,63 @@ def test_cuda_device_raises_without_cuda(tmp_path):
         tcb.CausalBGM(_params(tmp_path))  # cuda is the default
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(sampler="mala"),
-                                dict(estimator="dr"), dict(ess_target=100.0)])
+@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(estimator="dr"),
+                                dict(ess_target=100.0)])
 def test_unported_predict_options_raise(tmp_path, kw):
     model = tcb.CausalBGM(_params(tmp_path), random_seed=0, device="cpu")
     with pytest.raises(NotImplementedError):
         model.predict(_data(n=8), x_values=[1.0], burn_in=1, n_mcmc=1, **kw)
 
 
-@pytest.mark.parametrize("kw", [dict(use_bnn=False), dict(save_model=True)])
+@pytest.mark.parametrize("kw", [dict(save_model=True)])
 def test_unported_model_options_raise(tmp_path, kw):
     with pytest.raises(NotImplementedError):
         tcb.CausalBGM(_params(tmp_path, **kw), device="cpu")
 
 
+def test_unknown_sampler_raises(tmp_path):
+    model = tcb.CausalBGM(_params(tmp_path), random_seed=0, device="cpu")
+    with pytest.raises(ValueError, match="sampler"):
+        model.predict(_data(n=8), x_values=[1.0], burn_in=1, n_mcmc=1, sampler="hmc")
+
+
+@pytest.mark.parametrize("binary", [False, True])
+def test_bnn_mala_predict_through_k2_wrapper(tmp_path, binary):
+    """BNN MALA on the kernel path: two K2 evaluations per step (both sides
+    of the accept ratio with fresh noise, none cached), through K2's wrapper
+    (its plain version on the CPU); finite effects, ordered intervals."""
+    model = tcb.CausalBGM(_params(tmp_path, binary_treatment=binary, use_pallas_latent=True),
+                          random_seed=0, device="cpu")
+    calls = []
+    fused = model.kernels["bnn_hosteps_grad"]
+    model.kernels["bnn_hosteps_grad"] = lambda *a: calls.append(a[0].shape[0]) or fused(*a)
+    data = _data(n=24, binary=binary)
+    eff, ci, diag = model.predict(data, x_values=None if binary else [0.5, 1.5], burn_in=10,
+                                  n_mcmc=15, sampler="mala", return_diagnostics=True)
+    assert calls == [24] * 2 * 25 and fused.launches == 0
+    assert eff.shape == ((24,) if binary else (2,)) and np.all(np.isfinite(eff))
+    assert np.all(ci[:, 0] <= ci[:, 1]) and 0.0 < diag["accept_rate"] <= 1.0
+
+
+def test_bnn_mala_predict_matches_jax_within_monte_carlo_error(jax_weights, tmp_path):
+    """BNN MALA (fresh noise on both sides each step) from the same bridged
+    weights lands within Monte-Carlo error of JAX's BNN MALA."""
+    jmodel, path = jax_weights
+    data = _data()
+    kw = dict(x_values=np.linspace(0, 3, 5), alpha=0.05, burn_in=100, n_mcmc=200,
+              sampler="mala", return_diagnostics=True, return_draws=True)
+    adrf_j, _, diag_j, draws_j = jmodel.predict(data, **kw)
+    tmodel = tcb.CausalBGM(_params(tmp_path), random_seed=3, device="cpu").load_weights(path)
+    adrf_t, _, diag_t, draws_t = tmodel.predict(data, **kw)
+    se = lambda draws, diag: draws.std(axis=1) / np.sqrt(diag["ess"])
+    bound = 4.0 * np.sqrt(se(draws_t, diag_t) ** 2 + se(draws_j, diag_j) ** 2)
+    assert np.all(np.abs(adrf_t - adrf_j) <= bound), (adrf_t, adrf_j, bound)
+
+
 @pytest.mark.parametrize("bnn,binary,bs,n", [(True, False, None, 300), (True, True, None, 300),
-                                             (True, False, 50, 300), (True, False, 500, 300)])
+                                             (True, False, 50, 300), (True, False, 500, 300),
+                                             (False, False, None, 300), (False, True, None, 300),
+                                             (False, False, 50, 300)])
 def test_resolve_predict_bs_matches_jax(bnn, binary, bs, n):
     cfg = dict(v_dim=6, z_dims=(1, 1, 1, 2), binary_treatment=binary, use_bnn=bnn,
                kl_weight=1e-4, sigma_v=None, sigma_x=None, sigma_y=None, use_z_rec=1.0,
@@ -171,6 +213,20 @@ def test_port_cpu_predict_never_imports_jax(tmp_path):
         m.save_weights({str(tmp_path / "w.npz")!r})
         adrf, ci = m.predict((x, y, v), x_values=[0.5, 1.0], burn_in=5, n_mcmc=5)
         assert adrf.shape == (2,)
+        adrf, ci = m.predict((x, y, v), x_values=[0.5, 1.0], burn_in=5, n_mcmc=5,
+                             sampler="mala")
+        assert adrf.shape == (2,)
+        p = CausalBGM(dict(v_dim=6, z_dims=[1, 1, 1, 2], binary_treatment=False,
+                           dataset="t", output_dir={str(tmp_path)!r}, save_res=False,
+                           use_bnn=False, g_units=[8], e_units=[8], h_units=[8],
+                           f_units=[8], dz_units=[8], use_pallas_latent=True),
+                      random_seed=0, device="cpu")
+        p.fit((x, y, v), epochs=1, epochs_per_eval=1, batch_size=16, egm_n_iter=3,
+              egm_batches_per_eval=2, verbose=0)
+        for sampler in ("mh", "mala"):
+            adrf, ci = p.predict((x, y, v), x_values=[0.5, 1.0], burn_in=5, n_mcmc=5,
+                                 sampler=sampler)
+            assert adrf.shape == (2,)
         print("JAX_IMPORTED", "jax" in sys.modules)
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

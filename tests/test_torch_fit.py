@@ -31,7 +31,12 @@ from bayesgm_torch.ops import _pk_bnn_hosteps as tk  # noqa: E402
 from bayesgm_torch.ops import _pk_util as tpk  # noqa: E402
 from bayesgm_torch.ops import nn as tnn  # noqa: E402
 from bayesgm_torch.ops import optim as toptim  # noqa: E402
-from _torch_parity import FlipoutDraws, replayed_words, stub_prng  # noqa: E402
+from _torch_parity import (  # noqa: E402
+    FlipoutDraws,
+    patch_interp_weights,
+    replayed_words,
+    stub_prng,
+)
 
 torch.set_num_threads(2)
 
@@ -238,21 +243,13 @@ def test_train_batch_step_matches_jax(monkeypatch, tmp_path, latent):
     np.testing.assert_array_equal(t_table.numpy()[untouched], table[untouched])
 
 
-def _patch_interp_weights(monkeypatch, weights):
-    """Hand both packages the same WGAN-GP interpolation weights, in order."""
-    j_it, t_it = iter(weights), iter(weights)
-    monkeypatch.setattr(jax.random, "uniform",
-                        lambda key, shape=(), *a, **k: jnp.full(shape, next(j_it), jnp.float32))
-    monkeypatch.setattr(tcb, "_interp_weight", lambda generator, device: torch.tensor(next(t_it)))
-
-
 def test_egm_disc_step_matches_jax(monkeypatch, tmp_path):
     """The WGAN-GP critic step (Wasserstein loss + 10 x the gradient
     penalty, a double backward) updates the critic as JAX does."""
     jm, tm = _models(tmp_path)
     z, v = _latents(16), _data(16)[2]
     draws = FlipoutDraws(monkeypatch)
-    _patch_interp_weights(monkeypatch, [0.3])
+    patch_interp_weights(monkeypatch, [0.3])
     j_nets, j_opt, j_losses = jcb._egm_disc_step(jm.cfg, jm.nets, jm._opt_d, *_j(z, v),
                                                  jax.random.PRNGKey(2))
     t_opt, t_losses = tcb._egm_disc_step(tm.cfg, tm.nets, tm._opt_d, *_t(z, v), None)
@@ -305,7 +302,7 @@ def test_egm_iter_draws_its_own_batch_per_step(monkeypatch, tmp_path):
         return torch.as_tensor(idx), torch.as_tensor(z)
 
     monkeypatch.setattr(tcb, "_egm_batch", port_batch)
-    _patch_interp_weights(monkeypatch, [0.25, 0.75])
+    patch_interp_weights(monkeypatch, [0.25, 0.75])
     draws = FlipoutDraws(monkeypatch)
     (j_nets, _, _), j_losses = jcb._egm_iter(jm.cfg, (jm.nets, jm._opt_d, jm._opt_ge),
                                              jax.random.PRNGKey(4), _j(x, y, v), 8)

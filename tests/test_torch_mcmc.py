@@ -1,6 +1,8 @@
-"""The port's adaptive MH and chain diagnostics: an analytic Gaussian target,
-the adaptation schedule against the JAX step, and ESS / split-R̂ against the
-JAX functions on the same draws."""
+"""The port's adaptive MH and MALA and chain diagnostics: analytic Gaussian
+targets, the adaptation schedules against the JAX steps, and ESS / split-R̂
+against the JAX functions on the same draws."""
+
+from functools import partial
 
 import numpy as np
 import pytest
@@ -134,3 +136,83 @@ def test_burn_in_only_returns_no_samples_and_collect_is_used():
                             burn_in=5, n_keep=7, params=params,
                             collect=lambda p, s, g: s.mean(dim=0) + p["shift"])
     assert tuple(res.samples.shape) == (7, 2)
+
+
+# -- MALA ----------------------------------------------------------------------
+
+
+def _std_normal_lp(s, g):
+    return -0.5 * torch.sum(s**2, dim=1)
+
+
+@pytest.mark.parametrize("recompute", [False, True])
+def test_adaptive_mala_recovers_standard_normal(recompute):
+    """As the JAX package's own MALA tests: the cached chain on the
+    deterministic target, and the fresh-noise chain on a noisy unbiased
+    estimate of it, both recover N(0, I)."""
+    gen = torch.Generator().manual_seed(5)
+    if recompute:
+        def lp(s, g):  # unbiased jitter on the log-density, redrawn every call
+            return _std_normal_lp(s, g) + 0.05 * torch.randn(s.shape[0], generator=g)
+    else:
+        lp = _std_normal_lp
+    res = tmcmc.adaptive_mala(lp, torch.zeros((64, 3)), gen, burn_in=300, n_keep=1500,
+                              step_size=0.5, recompute_current=recompute)
+    samples = res.samples.numpy().reshape(-1, 3)
+    np.testing.assert_allclose(samples.mean(axis=0), 0.0, atol=0.1)
+    np.testing.assert_allclose(samples.std(axis=0), 1.0, atol=0.12 if recompute else 0.1)
+    assert (0.3 if recompute else 0.4) < float(res.accept_rate) <= 1.0
+    assert float(res.q_sd) > 0.5  # high acceptance: the step size grew in burn-in
+
+
+@pytest.mark.parametrize("recompute,calls", [(False, 1 + 30), (True, 2 * 30)])
+def test_adaptive_mala_evaluations_per_step(recompute, calls):
+    """The cached chain evaluates the target once up front and once per
+    step, the fresh-noise chain twice per step; collect sees every kept
+    state."""
+    seen = []
+
+    def lp(s, g):
+        seen.append(s.shape)
+        return _std_normal_lp(s, g)
+
+    res = tmcmc.adaptive_mala(lp, torch.zeros((8, 2)), torch.Generator().manual_seed(0),
+                              burn_in=10, n_keep=20, recompute_current=recompute,
+                              collect=lambda s, g: s.mean(dim=0))
+    assert len(seen) == calls and tuple(res.samples.shape) == (20, 2)
+    assert res.q_sd.ndim == 0
+
+
+def test_mala_adaptation_fires_on_the_same_steps_as_jax():
+    """Scripted acceptance (zero gradient, so the proposal is symmetric, and
+    a per-step fraction of rows proposing logp 0 against -inf): the step-size
+    trajectory of the port's cached MALA step equals JAX's step for step."""
+    n, steps = 64, 320
+    fracs = np.random.default_rng(1).uniform(0.3, 0.9, size=steps)
+    fracs[:120] = 0.95
+
+    def scripted(t):
+        k = int(round(fracs[t] * n))
+        return np.where(np.arange(n) < k, 0.0, -np.inf).astype(np.float32)
+
+    statics = dict(burn_in=260, target_rate=0.574, tolerance=0.05, adjustment_interval=50)
+    j_carry = (jnp.zeros((n, 2)), jnp.zeros((n,)), jnp.zeros((n, 2)), jnp.float32(0.1),
+               jnp.zeros((100,), jnp.float32), jnp.int32(0))
+    t_carry = (torch.zeros((n, 2)), torch.zeros(n), torch.zeros((n, 2)), torch.tensor(0.1),
+               torch.zeros(100), 0)
+    adapt = partial(tmcmc._adapt, adaptive=True, **statics)
+    gen = torch.Generator().manual_seed(0)
+    j_eps, t_eps = [], []
+    for t in range(steps):
+        lp_t = scripted(t)
+        j_carry, _ = jmcmc._mala_step(
+            j_carry, jax.random.PRNGKey(t),
+            lambda s, k: (jnp.asarray(lp_t), jnp.zeros_like(s)),
+            adaptive=jnp.asarray(True), window_size=100, **statics)
+        t_carry, _ = tmcmc._mala_step(
+            t_carry, gen, lambda s, g: (torch.as_tensor(lp_t), torch.zeros_like(s)), adapt,
+            100)
+        j_eps.append(float(j_carry[3]))
+        t_eps.append(float(t_carry[3]))
+    np.testing.assert_allclose(t_eps, j_eps, rtol=1e-6)
+    assert len(set(np.round(t_eps, 6))) > 3  # the schedule did fire, both ways

@@ -174,16 +174,20 @@ def test_flipout_mlp_apply_deterministic_limit_and_batched_draws():
 
 
 def test_bridge_nets_from_numpy_keeps_flipout_nets_only():
-    """Flipout nets and the critic come across (the port builds both); a
-    plain MLP, which the port does not build yet, is left out."""
+    """Flipout nets, the critic and plain MLPs come across, each as its own
+    kind (the port builds all three); an entry of no net's shape is left
+    out."""
     keys = jax.random.split(jax.random.PRNGKey(5), 3)
     tree = {"g": jax.tree.map(np.asarray, jnn.init_flipout_mlp(keys[0], 4, 7, [8])),
             "dz": jax.tree.map(np.asarray, jnn.init_critic(keys[1], 4, [8])),
-            "plain": jax.tree.map(np.asarray, jnn.init_mlp(keys[2], 4, 2, [8]))}
+            "plain": jax.tree.map(np.asarray, jnn.init_mlp(keys[2], 4, 2, [8])),
+            "other": {"layers": [{"kernel": np.zeros((4, 2), np.float32)}]}}
     nets = bridge.nets_from_numpy(tree)
-    assert set(nets) == {"g", "dz"}
+    assert set(nets) == {"g", "dz", "plain"}
     assert isinstance(nets["dz"], tnn.Critic) and nets["dz"].dims == [4, 8, 1]
-    assert bridge.nets_to_numpy({"dz": nets["dz"]})["dz"].keys() == tree["dz"].keys()
+    assert isinstance(nets["plain"], tnn.MLP) and nets["plain"].dims == [4, 8, 2]
+    for name in ("dz", "plain"):
+        assert bridge.nets_to_numpy({name: nets[name]})[name].keys() == tree[name].keys()
     g = nets["g"]
     assert g.dims == [4, 8, 7]
     for i, layer in enumerate(tree["g"]["layers"]):
