@@ -16,7 +16,10 @@ continuous or binary treatment, on one device:
 - ``predict``: adaptive MH with the plug-in estimator.  The BNN target is
   K1, :func:`~bayesgm_torch.ops._pk_bnn_hosteps.make_fused_causal_logp_bnn_hosteps`
   (one unpaired launch for the initial state, then one paired
-  ``[proposed; current]`` launch per step); the plain target is K4,
+  ``[proposed; current]`` launch per step; with ``params['mh_window_kernel']``
+  the burn-in runs in windows of 50 steps, each one launch of K5,
+  :func:`~bayesgm_torch.ops._pk_bnn_inkernel.make_fused_mh_steps_bnn`);
+  the plain target is K4,
   :func:`~bayesgm_torch.ops._pk_plain.make_fused_causal_logp` (one launch
   for the initial state, then one per step).  ``sampler="mala"`` runs
   adaptive MALA, each evaluation one K2 (BNN: two per step, fresh noise) or
@@ -48,6 +51,7 @@ from bayesgm_torch.ops._pk_bnn_hosteps import (
     make_fused_causal_logp_and_grad_bnn_hosteps,
     make_fused_causal_logp_bnn_hosteps,
 )
+from bayesgm_torch.ops._pk_bnn_inkernel import make_fused_mh_steps_bnn
 from bayesgm_torch.ops._pk_plain import (
     make_fused_causal_logp,
     make_fused_causal_logp_and_grad,
@@ -109,6 +113,7 @@ DEFAULTS = dict(
 )
 
 NET_NAMES = ("g", "e", "f", "h", "dz")
+MH_WINDOW = 50  # steps per K5 launch in predict's windowed burn-in
 
 
 def _split_z(cfg: CBGMConfig, z):
@@ -542,6 +547,14 @@ class CausalBGM:
         everywhere, which on the CPU are their plain versions; any other
         value raises ``ValueError``).  ``'use_bnn'`` (default True) picks
         flipout-BNN or plain MLP nets for g, e, h and f.
+        ``'mh_window_kernel'`` (default False): with BNN nets, ``predict``'s
+        MH burn-in runs in windows of 50 steps, one K5 launch each, with
+        weight noise drawn per row block in the kernel (see
+        :func:`~bayesgm_torch.ops.mcmc.adaptive_mh`); the kept steps stay
+        per step.  With plain nets, or when ``burn_in`` is not a multiple
+        of 50, the burn-in stays per step, as in the JAX package.  On the
+        CPU the window runs K5's plain version (the JAX package on the CPU
+        ignores the flag and runs per step).
     timestamp : str or None
         Run timestamp (current local time if None).
     random_seed : int or None
@@ -557,8 +570,10 @@ class CausalBGM:
     kernels : dict
         The kernel wrappers, each counting its kernel launches in
         ``launches``.  BNN nets: K1 for the MH target (``"bnn_hosteps"`` for
-        the initial evaluation, ``"bnn_hosteps_paired"`` per step) and K2
-        (``"bnn_hosteps_grad"``) for fit's latent update and MALA.  Plain
+        the initial evaluation, ``"bnn_hosteps_paired"`` per step), K5
+        (``"bnn_mh_window"``) for the windowed burn-in of
+        ``mh_window_kernel``, and K2 (``"bnn_hosteps_grad"``) for fit's
+        latent update and MALA.  Plain
         nets: K4 (``"plain"``) for the MH target and K3 (``"plain_grad"``)
         for fit's latent update and MALA.
     egm_losses, fit_losses : dict
@@ -649,6 +664,7 @@ class CausalBGM:
                 "bnn_hosteps_paired": make_fused_causal_logp_bnn_hosteps(cfg, *dims,
                                                                          paired=True),
                 "bnn_hosteps_grad": make_fused_causal_logp_and_grad_bnn_hosteps(cfg, *dims),
+                "bnn_mh_window": make_fused_mh_steps_bnn(cfg, *dims, n_steps=MH_WINDOW),
             }
         else:
             self.kernels = {"plain": make_fused_causal_logp(cfg, *dims),
@@ -920,7 +936,7 @@ class CausalBGM:
     def _make_param_log_prob(self):
         """Params-mode MH target for :func:`bayesgm_torch.ops.mcmc.adaptive_mh`.
 
-        Returns ``(lp, plp, make_params)``:
+        Returns ``(lp, plp, make_params, make_multi_step)``:
 
         - ``lp(params, z, g) -> (n,)``: the log-posterior through K1, with a
           fresh eps draw and fresh sign seed per call (BNN nets), or through
@@ -932,8 +948,14 @@ class CausalBGM:
           per step).  None for plain nets: their target is deterministic, so
           the chain caches the current state's value;
         - ``make_params(nets, data, paired) -> dict``: flattened kernel
-          weights, the raw nets (for the collector), the data and, when
-          ``paired``, the data stacked twice.
+          weights (the ``(loc, sigma, b)`` flats and their split into
+          weights and sigmas), the raw nets (for the collector), the data
+          and, when ``paired``, the data stacked twice;
+        - ``make_multi_step(K)`` (BNN nets; None for plain nets): builds
+          ``multi_step(params, state, q_sd, g) -> (state, logp, counts)``,
+          K steps of the MH window kernel K5 in one launch on the unpaired
+          data, with a fresh device seed per launch, through the model's one
+          K5 wrapper ``kernels["bnn_mh_window"]``; K must be ``MH_WINDOW``.
         """
         cfg = self.cfg
         if not cfg.use_bnn:
@@ -949,7 +971,7 @@ class CausalBGM:
                 x, y, v = params["data"]
                 return -fused_plain(z, x, y, v, *params["w"])
 
-            return plain_lp, None, make_plain_params
+            return plain_lp, None, make_plain_params, None
         fused = self.kernels["bnn_hosteps"]
         fused_paired = self.kernels["bnn_hosteps_paired"]
         anti = bool(self.params.get("antithetic_eps", False))
@@ -957,9 +979,10 @@ class CausalBGM:
         def make_params(nets, data, paired):
             x, y, v = (torch.as_tensor(np.asarray(a, np.float32), device=self.device)
                        for a in data)
-            ws, sigs = zip(*(split_flipout_flat(flatten_flipout_params(nets[k]))
-                             for k in "ghf"))
-            p = {"nets": nets, "data": (x, y, v), "w": ws, "sigs": sum(sigs, [])}
+            flat = tuple(flatten_flipout_params(nets[k]) for k in "ghf")
+            ws, sigs = zip(*(split_flipout_flat(f) for f in flat))
+            p = {"nets": nets, "data": (x, y, v), "flat": flat, "w": ws,
+                 "sigs": sum(sigs, [])}
             if paired:
                 p["data2"] = tuple(torch.cat([a, a], dim=0) for a in (x, y, v))
             return p
@@ -982,7 +1005,20 @@ class CausalBGM:
                                gw, hw, fw, ps2)
             return -neg[:n], -neg[n:]
 
-        return lp, plp, make_params
+        fused_ms = self.kernels["bnn_mh_window"]
+
+        def make_multi_step(K):
+            if K != MH_WINDOW:
+                raise ValueError(f"the MH window runs {MH_WINDOW} steps per launch, not {K}")
+
+            def multi_step(params, state, q_sd, generator):
+                x, y, v = params["data"]
+                return fused_ms(state, x, y, v, _kernel_seed(generator, state.device), q_sd,
+                                *params["flat"])
+
+            return multi_step
+
+        return lp, plp, make_params, make_multi_step
 
     # -- inference ----------------------------------------------------------
 
@@ -1007,6 +1043,8 @@ class CausalBGM:
         ``sampler="mala"`` runs adaptive MALA (step size 0.1, adapted toward
         0.574 acceptance) on the differentiable target instead; with BNN nets
         both sides of the accept ratio are evaluated afresh every step.
+        ``params['mh_window_kernel']`` runs a BNN MH burn-in in windows of
+        50 steps, one K5 launch each (the class docstring says when).
 
         ``mesh``, ``estimator="dr"`` and ``ess_target`` are not ported yet and
         raise ``NotImplementedError``.
@@ -1041,7 +1079,11 @@ class CausalBGM:
         q0 = 1.0 if adaptive else float(q_sd)
 
         print("MCMC Latent Variable Sampling ...")
-        lp, plp, make_params = self._make_param_log_prob()
+        lp, plp, make_params, make_multi_step = self._make_param_log_prob()
+        # The K-steps-per-launch burn-in (K5), opt-in as in the JAX package.
+        multi_step = (make_multi_step(MH_WINDOW)
+                      if self.params.get("mh_window_kernel", False) and make_multi_step
+                      else None)
         collect_p = _effect_collector_p(cfg, x_values, sample_y)
         collect = _effect_collector(cfg, nets, x_values, sample_y)
 
@@ -1059,7 +1101,7 @@ class CausalBGM:
                     res = mcmc.adaptive_mh(
                         lp, init, self._gen, burn_in=burn_in, n_keep=n_mcmc, q_sd=q0,
                         adaptive=adaptive, recompute_current=cfg.use_bnn, collect=collect_p,
-                        paired_log_prob_fn=plp, params=params)
+                        paired_log_prob_fn=plp, multi_step_fn=multi_step, params=params)
                 rate = float(res.accept_rate)
                 samples = res.samples.cpu().numpy()
             print(f"Final MCMC Acceptance Rate: {rate:.4f}")

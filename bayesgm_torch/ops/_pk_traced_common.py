@@ -17,6 +17,33 @@ alone, not on how rows are tiled, and the CUDA kernel
 The words are carried in int64 tensors masked to 32 bits: torch has no
 unsigned 32-bit arithmetic, and the 32x32-bit products are split into
 16-bit halves so nothing overflows int64.
+
+In-kernel-eps family (K5, K6, K7; ``csrc/bnn_inkernel.cu``).  Every draw
+comes from Philox4x32-10 under the key ``(seed[0], seed[1])``; the top four
+bits of counter word 3 name the domain, so no two domains (nor K1's sign
+words, domain 0) share a counter.  ``ev = 2 * step + side`` numbers the
+evaluations of one launch (side 0 the proposed state, side 1 the current
+one; K6 and K7 make one evaluation, ``ev = 0``), ``layer`` is the layer's
+index within its chain, ``block = row // block_rows``:
+
+==========  ==================================================  ==========
+domain      counter (c0, c1, c2, c3)                            words
+==========  ==================================================  ==========
+signs  (1)  (row, col // 4, ev, 1<<28 | chain<<8 | group)       col % 4
+eps    (2)  (block, pair // 2, ev, 2<<28 | chain<<8 | layer)    see below
+proposal(3) (row, pair // 2, step, 3<<28)                       see below
+accept (4)  (row, 0, step, 4<<28)                               word 0
+==========  ==================================================  ==========
+
+A sign word is read bit-sliced as above.  Normals come in Box-Muller pairs
+as the TPU kernel makes them (``_kernel_normal``): a ``(rows, cols)`` draw
+has ``ch = ceil(cols / 2)`` pairs per row, pair ``p = r * ch + j`` (eps: ``r``
+the layer's input row; proposal: ``p = j`` per chain row) gives ``u1`` and
+``u2`` from words 0 and 1 (even ``p``) or 2 and 3 (odd ``p``) of its
+counter, and ``r * cos(th)`` lands in column ``j``, ``r * sin(th)`` in
+column ``ch + j`` when that is ``< cols``.  A uniform is the word's high 24
+bits times 2^-24.  Eps depends on the block, not the row, so all rows of a
+block share it and every tile of a block regenerates the same values.
 """
 
 from __future__ import annotations
@@ -108,6 +135,80 @@ def philox_sign_words(seed, rows: int, cols: int, chain: int, group: int = 0):
     words = philox4x32_10((r, c, zero + chain, zero + group), (key[0], key[1]))
     words = [w.expand(rows, q) for w in words]
     return torch.stack(words, dim=-1).reshape(rows, 4 * q)[:, :cols]
+
+
+TAG_SIGN, TAG_EPS, TAG_PROPOSAL, TAG_ACCEPT = 1, 2, 3, 4
+TWO_PI = 2.0 * 3.14159265  # the TPU kernel's constant, rounded to float32 where used
+
+
+def _kernel_uniform(words):
+    """(0, 1) float32 uniforms from the high 24 bits of 32-bit words."""
+    return (words >> 8).to(torch.float32) * 2.0**-24
+
+
+def _kernel_normal(u1_words, u2_words, cols: int):
+    """Box-Muller normals from the ``(..., ch)`` pair words: the cos halves,
+    then the sin halves, cut to ``cols`` columns (``u1`` clamped at 1e-7)."""
+    u1 = torch.clamp_min(_kernel_uniform(u1_words), 1e-7)
+    u2 = _kernel_uniform(u2_words)
+    r = torch.sqrt(-2.0 * torch.log(u1))
+    th = torch.tensor(TWO_PI, dtype=torch.float32, device=u2.device) * u2
+    return torch.cat([r * torch.cos(th), r * torch.sin(th)], dim=-1)[..., :cols]
+
+
+class PhiloxDraws:
+    """The in-kernel-eps family's random words for one launch (the counter
+    domains of the module docstring), as int64 tensors of uint32 values.
+    The plain versions take their draws from this object; a test may hand
+    them another with the same methods."""
+
+    def __init__(self, seed):
+        key = seed.to(torch.int64) & _MASK
+        self.key = (key[0], key[1])
+        self.device = seed.device
+
+    def _words(self, c0, c1, c2, c3):
+        zero = torch.zeros((), device=self.device, dtype=torch.int64)
+        out = philox4x32_10((c0, c1, zero + c2, zero + c3), self.key)
+        shape = torch.broadcast_shapes(c0.shape, c1.shape)
+        return [w.expand(shape) for w in out]
+
+    def _pair_words(self, c0, n_pairs: int, c2: int, c3: int):
+        """``(u1, u2)`` words of pairs ``0..n_pairs-1`` for each counter c0."""
+        q = (n_pairs + 1) // 2
+        c1 = torch.arange(q, device=self.device, dtype=torch.int64)[None, :]
+        w0, w1, w2, w3 = self._words(c0[:, None], c1, c2, c3)
+        m = c0.shape[0]
+        u1 = torch.stack([w0, w2], dim=-1).reshape(m, 2 * q)[:, :n_pairs]
+        u2 = torch.stack([w1, w3], dim=-1).reshape(m, 2 * q)[:, :n_pairs]
+        return u1, u2
+
+    def sign_words(self, rows: int, cols: int, chain: int, ev: int, group: int = 0):
+        """``(rows, cols)`` sign words of rows ``0..rows-1`` for evaluation ``ev``."""
+        q = (cols + 3) // 4
+        r = torch.arange(rows, device=self.device, dtype=torch.int64)[:, None]
+        c = torch.arange(q, device=self.device, dtype=torch.int64)[None, :]
+        words = self._words(r, c, ev, (TAG_SIGN << 28) | (chain << 8) | group)
+        return torch.stack(words, dim=-1).reshape(rows, 4 * q)[:, :cols]
+
+    def eps_words(self, n_blocks: int, rows: int, ch: int, chain: int, layer: int, ev: int):
+        """``(u1, u2)`` words, each ``(n_blocks, rows, ch)``, of one layer's
+        ``(rows, 2 * ch)`` weight-noise draw in every block."""
+        blocks = torch.arange(n_blocks, device=self.device, dtype=torch.int64)
+        u1, u2 = self._pair_words(blocks, rows * ch, ev,
+                                  (TAG_EPS << 28) | (chain << 8) | layer)
+        return u1.reshape(n_blocks, rows, ch), u2.reshape(n_blocks, rows, ch)
+
+    def proposal_words(self, rows: int, ch: int, step: int):
+        """``(u1, u2)`` words, each ``(rows, ch)``, of step ``step``'s proposal."""
+        r = torch.arange(rows, device=self.device, dtype=torch.int64)
+        return self._pair_words(r, ch, step, TAG_PROPOSAL << 28)
+
+    def accept_words(self, rows: int, step: int):
+        """``(rows,)`` words of step ``step``'s accept uniforms."""
+        r = torch.arange(rows, device=self.device, dtype=torch.int64)
+        zero = torch.zeros((), device=self.device, dtype=torch.int64)
+        return self._words(r, zero, step, TAG_ACCEPT << 28)[0]
 
 
 def _sign_source(word_fn):

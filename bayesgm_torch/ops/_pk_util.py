@@ -1,6 +1,7 @@
 """Host-side helpers for the log-posterior kernels (port of
-``bayesgm_tpu/ops/_pk_util.py``): parameter flattening, layer dims and the
-flipout kernels' per-evaluation weight-noise draw."""
+``bayesgm_tpu/ops/_pk_util.py``): parameter flattening, layer dims, the
+flipout kernels' per-evaluation weight-noise draw, and the row-block size
+of the in-kernel-eps family."""
 
 from __future__ import annotations
 
@@ -8,6 +9,31 @@ import torch
 
 from bayesgm_torch.ops.distributions import softplus
 from bayesgm_torch.ops.nn import BN_EPS
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def pick_block_rows(row_bytes: int, budget_bytes: int = 4 * 2**20,
+                    lo: int = 256, hi: int = 2048) -> int:
+    """Largest power-of-two row block in ``[lo, hi]`` whose working set
+    (``row_bytes`` per row) fits ``budget_bytes``, the JAX kernels' sizing
+    rule.  For the in-kernel-eps family the block is part of the result: its
+    rows share one weight-noise draw."""
+    block = hi
+    while block > lo and block * row_bytes > budget_bytes:
+        block //= 2
+    return block
+
+
+def bnn_block_rows(cfg, g_dims, h_dims, f_dims) -> int:
+    """The row block :func:`~bayesgm_torch.ops._pk_bnn_inkernel.
+    make_fused_causal_logp_bnn` (K6) picks by default: forward activations
+    plus two live sign matrices per layer."""
+    max_width = max(*g_dims, *h_dims, *f_dims)
+    row_bytes = 4 * (sum(cfg.z_dims) + 2 + 2 * (cfg.v_dim + 1) + 4 * max_width)
+    return pick_block_rows(row_bytes)
 
 
 def flatten_mlp_params(net) -> list:

@@ -79,6 +79,26 @@ def _mh_step(carry, generator, log_prob_fn, q_sd_is_adaptive, burn_in,
     return (new_state, new_logp, q_sd, window, t + 1), rate
 
 
+def _window_burn_in(carry, multi_step, generator, adaptive, burn_in, target_rate, tolerance,
+                    adjustment_interval, window_size):
+    """The burn-in in windows of ``adjustment_interval`` steps, one
+    ``multi_step(state, q_sd, g)`` call each.  Returns ``(carry,
+    rate)``, ``rate`` the last window's last-step acceptance fraction."""
+    state, logp, q_sd, window, t = carry
+    k = adjustment_interval
+    n_real = torch.tensor(float(state.shape[0]), dtype=torch.float32, device=state.device)
+    rate = None
+    while t < burn_in:
+        rate_now = window.sum() / float(min(max(t, 1), window_size))
+        q_sd = _adapt(q_sd, rate_now, t, adaptive, burn_in, target_rate, tolerance, k)
+        state, logp, counts = multi_step(state, q_sd, generator)
+        rates = counts / n_real
+        window[t % window_size:t % window_size + k] = rates
+        t += k
+        rate = rates[-1]
+    return (state, logp, q_sd, window, t), rate
+
+
 def adaptive_mh(log_prob_fn: Callable, init_state, generator: torch.Generator, *,
                 burn_in: int = 5000, n_keep: int = 3000, q_sd: float = 1.0,
                 adaptive: bool = True, target_rate: float = 0.25,
@@ -99,11 +119,19 @@ def adaptive_mh(log_prob_fn: Callable, init_state, generator: torch.Generator, *
     tensors on the device along a leading ``n_keep`` axis (None when
     ``n_keep == 0``).
 
-    ``multi_step_fn`` (the K-steps-per-launch window kernel) and
-    ``early_stop`` (ESS-adaptive chain length) are not ported yet.
+    ``multi_step_fn(params, state, q_sd, g) -> (state, logp, counts)``
+    advances every chain ``adjustment_interval`` steps in one launch (K5,
+    the MH window kernel), ``counts`` the rows accepted at each step.  It
+    runs the burn-in when ``recompute_current`` holds, ``burn_in > 0`` and
+    both ``burn_in`` and ``window_size`` are multiples of
+    ``adjustment_interval``; otherwise the burn-in is per step.  q_sd is
+    frozen within a window: the 0.9 / 1.1 adaptation fires at the start of
+    each window, from the ring's rate over the steps so far (one step later
+    than the per-step check), and the window's per-step rates enter the
+    ring.  The sampling phase stays per step.
+
+    ``early_stop`` (ESS-adaptive chain length) is not ported yet.
     """
-    if multi_step_fn is not None:
-        raise NotImplementedError("multi_step_fn (the MH window kernel) is not ported yet")
     if early_stop is not None:
         raise NotImplementedError("early_stop (ESS-adaptive chain length) is not ported yet")
     collect_fn = (lambda p, s, g: s) if collect is None else collect
@@ -121,9 +149,19 @@ def adaptive_mh(log_prob_fn: Callable, init_state, generator: torch.Generator, *
              torch.zeros((window_size,), dtype=torch.float32, device=dev), 0)
     rate = torch.zeros((), dtype=torch.float32, device=dev)
 
-    for _ in range(burn_in):
-        carry, rate = _mh_step(carry, generator, step_lp,
-                               paired_log_prob_fn=step_plp, **statics)
+    use_window = (multi_step_fn is not None and recompute_current and burn_in > 0
+                  and adjustment_interval > 0 and burn_in % adjustment_interval == 0
+                  and window_size % adjustment_interval == 0)
+    if use_window:
+        carry, rate = _window_burn_in(
+            carry, lambda s, q, g: multi_step_fn(params, s, q, g), generator,
+            adaptive=bool(adaptive), burn_in=burn_in, target_rate=target_rate,
+            tolerance=tolerance, adjustment_interval=adjustment_interval,
+            window_size=window_size)
+    else:
+        for _ in range(burn_in):
+            carry, rate = _mh_step(carry, generator, step_lp,
+                                   paired_log_prob_fn=step_plp, **statics)
     samples = []
     for _ in range(n_keep):
         carry, rate = _mh_step(carry, generator, step_lp,

@@ -8,9 +8,10 @@ non-zero:
 
 1. device   - require CUDA; print the card's name and power limit
               (nvidia-smi) and the torch / CUDA versions;
-2. build    - build K1 and K2 (bayesgm_torch/csrc/bnn_hosteps.cu) and K3 and
-              K4 (bayesgm_torch/csrc/plain.cu) with nvcc, one process per
-              source, started together;
+2. build    - build K1 and K2 (bayesgm_torch/csrc/bnn_hosteps.cu), K3 and
+              K4 (bayesgm_torch/csrc/plain.cu) and K5, K6 and K7
+              (bayesgm_torch/csrc/bnn_inkernel.cu) with nvcc, one process
+              per source, started together;
 3. philox   - the kernel's sign words equal the plain Philox words exactly;
 4. K1       - kernel vs its plain PyTorch version at the flagship width,
               unpaired (N=20000), plus binary treatment and fixed sigmas at
@@ -53,10 +54,39 @@ benchmark: the same n, v_dim, z_dims and units, random weights from seed
               the BNN model of phase 8 (one batch of 20000) K2 launches ==
               2 x 200 (both sides evaluated afresh each step).
 
+The in-kernel-eps family (K5-K7) at the flagship width, on the BNN model:
+
+16. draws   - the kernels' sign words, eps, proposal normals and accept
+              uniforms for two (step, side) pairs vs the plain Philox draws
+              (words and uniforms bit for bit, normals within 1e-6), and
+              the two pairs' draws differ;
+17. K6      - kernel vs its plain version at N=20000, plus binary treatment
+              and fixed sigmas at N=999 (not a multiple of block_rows);
+18. K7      - values and z-gradients vs the plain version (autograd) at N=32
+              and N=20000 (a row's gradient may differ only at a LeakyReLU
+              kink, at most 0.1 % of the rows); K7's value equals K6's bit
+              for bit;
+19. K5      - a 5-step window and the model's own 50-step window (the
+              wrapper predict launches) at N=20000 vs the plain version on
+              the same seed: counts per step within 0.1 % of N, at least
+              99.9 % of the rows in the same final z, logp of those rows
+              within rtol 1e-4 / atol 1e-3; then K5 (50 steps), K6 and K7 vs
+              their plain versions, median of CUDA-event times;
+20. window  - predict with params['mh_window_kernel'] on the model fitted
+              in phase 8 (burn_in=200, n_mcmc=200): K5 launches == 4, paired
+              K1 == 200, unpaired K1 == 1, and over every in-kernel-eps
+              wrapper 4 launches of K5's entry point and none of K6's or
+              K7's; then, from one init at q_sd=1.0,
+              the burn-in acceptance of the window path (sum(counts) /
+              (N x 200)) against the per-step paired path's, within four
+              standard errors from the per-step rates' spread about their
+              50-step window means.
+
 Launch counts are set to 0 just before each driven path and read just
 after; the launches of the comparisons do not count.  The last lines are a
 JSON object with the kernels' numbers (each with its bound: the larger of
-its bytes over 3.35 TB/s and its flops over the 67 TFLOP/s f32 peak), the
+its bytes over 3.35 TB/s and its operations over the 67 TFLOP/s f32 peak,
+the in-kernel-eps kernels' weight noise counted once per logical block), the
 card line, and {"ok": true, "device": {...}}.  Imports nothing of JAX nor of
 the JAX package.
 """
@@ -78,6 +108,10 @@ MALA_BURN_IN, MALA_N_MCMC = 100, 100
 FIT_BATCH, FIT_EPOCHS, EGM_N_ITER = 32, 1, 200
 PLAIN_BS = 10000  # predict's subject batch for plain nets (bs=None)
 HBM_BYTES_PER_S, F32_FLOP_PER_S = 3.35e12, 67e12  # H100 SXM, at the 700 W limit
+# Operations per in-kernel normal: half a pair's share of a Philox call (10
+# rounds x 4 integer multiplies / 2 pairs), the pair's log, sqrt, sin, cos
+# and two products, and the sigma * eps product: (20 + 6) / 2 + 1.
+OPS_PER_NORMAL = 14
 
 
 def flagship_params(output_dir, use_bnn=True):
@@ -122,6 +156,31 @@ def compare(name, got, want, rtol=RTOL, atol=ATOL):
     return max_abs
 
 
+def compare_grad_at_kinks(name, got, want, kinks):
+    """z-gradients of a kernel against its plain version, row by row: a row
+    may fall outside (GRAD_RTOL, GRAD_ATOL) only where ``kinks`` marks a
+    hidden pre-activation within 1e-5 of 0 (LeakyReLU's slope there depends
+    on the last bit), and at most 0.1 % of the rows may.  Returns the
+    maximum absolute error over all rows."""
+    import torch
+
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: shape or non-finite kernel output")
+    err = (got - want).abs()
+    off = (err > GRAD_ATOL + GRAD_RTOL * want.abs()).any(dim=1)
+    n_off, n_kink = int(off.sum()), int((off & kinks).sum())
+    inside = float(err[~off].max()) if bool((~off).any()) else 0.0
+    ok = n_off == n_kink and n_off <= 1e-3 * got.shape[0]
+    print(f"{name}: max_abs_err={float(err.max()):.3e} ({inside:.3e} over the rows within "
+          f"rtol={GRAD_RTOL}, atol={GRAD_ATOL}); rows outside: {n_off}, of them at a LeakyReLU "
+          f"kink (|pre-activation| < 1e-5 in the plain version): {n_kink}; rows with such a "
+          f"kink: {int(kinks.sum())} of {got.shape[0]} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{name}: kernel disagrees with the plain version")
+    return float(err.max())
+
+
 def time_ms(fn, n_warm=3, n_iter=25):
     """Median of per-launch CUDA-event times, after warm-up."""
     import torch
@@ -149,7 +208,7 @@ def main() -> int:
     import numpy as np
 
     from bayesgm_torch import CausalBGM, Sim_Hirano_Imbens_sampler
-    from bayesgm_torch.models.causalbgm import _apply, _loss_v
+    from bayesgm_torch.models.causalbgm import MH_WINDOW, _apply, _loss_v
     from bayesgm_torch.ops._build import load_library
     from bayesgm_torch.ops._pk_bnn_hosteps import (
         logp_and_grad_plain,
@@ -164,7 +223,14 @@ def main() -> int:
         make_fused_causal_logp,
         make_fused_causal_logp_and_grad,
     )
-    from bayesgm_torch.ops._pk_traced_common import philox_sign_words
+    from bayesgm_torch.ops import _pk_bnn_inkernel as ik
+    from bayesgm_torch.ops import mcmc
+    from bayesgm_torch.ops._pk_traced_common import (
+        PhiloxDraws,
+        _kernel_normal,
+        _kernel_uniform,
+        philox_sign_words,
+    )
     from bayesgm_torch.ops._pk_util import (
         flatten_flipout_params,
         flatten_mlp_params,
@@ -185,7 +251,7 @@ def main() -> int:
 
     # 2. build, one nvcc per source, all started together
     with ThreadPoolExecutor() as pool:
-        libs = list(pool.map(load_library, ("bnn_hosteps.cu", "plain.cu")))
+        libs = list(pool.map(load_library, ("bnn_hosteps.cu", "plain.cu", "bnn_inkernel.cu")))
     for lib in libs:
         ptxas = [l.strip() for l in lib.build_log.splitlines() if "registers" in l or "spill" in l]
         print(f"[2 build] {lib.path.name} in {lib.build_s:.1f} s; " + " | ".join(ptxas), flush=True)
@@ -360,9 +426,13 @@ def main() -> int:
 
     def drive_predict(tag, pred_model, want, sampler="mh", burn_in=BURN_IN, n_mcmc=N_MCMC):
         """Predict on ``pred_model``, check the ADRF and the launch counts
-        ``want`` ({kernel name: launches}) and return all the counts."""
+        ``want`` ({kernel name: launches}) and return all the counts: the
+        model's kernels by name, and the in-kernel-eps entry points over
+        every wrapper as ``bnn_inkernel_<entry>``."""
         for k in pred_model.kernels.values():
             k.launches = 0
+        for entry in ik.LAUNCHES:
+            ik.LAUNCHES[entry] = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         adrf, ci, diag = pred_model.predict(data_np, x_values=np.linspace(0, 3, 20),
@@ -371,6 +441,7 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {name: k.launches for name, k in pred_model.kernels.items()}
+        launches.update({f"bnn_inkernel_{entry}": n for entry, n in ik.LAUNCHES.items()})
         rate = diag["accept_rate"]
         print(f"[{tag}] n={N}: wall {wall:.3f} s for {burn_in + n_mcmc} {sampler.upper()} steps "
               f"({1e3 * wall / (burn_in + n_mcmc):.3f} ms/step incl. collector and set-up); "
@@ -466,6 +537,157 @@ def main() -> int:
                   **mala_kw)
     drive_predict("15 MALA BNN", fit_model, {"bnn_hosteps_grad": 2 * mala_steps}, **mala_kw)
 
+    # 16. draws of the in-kernel-eps family: the kernels' against the plain
+    # Philox draws for two (step, side) pairs, and the pairs differ
+    d_cuda, d_plain = ik.DrawsCuda(seed), PhiloxDraws(seed)
+    draw_sets = {}
+    for step, side in ((0, 0), (1, 1)):
+        ev = 2 * step + side
+        got = (d_cuda.sign_words(N, max(dims[0]), 0, ev), d_cuda.eps(3, 64, 201, 0, 5, ev),
+               d_cuda.proposal(N, sum(Z_DIMS), step), d_cuda.accept(N, step))
+        want = (d_plain.sign_words(N, max(dims[0]), 0, ev),
+                _kernel_normal(*d_plain.eps_words(3, 64, 101, 0, 5, ev), 201),
+                _kernel_normal(*d_plain.proposal_words(N, (sum(Z_DIMS) + 1) // 2, step),
+                               sum(Z_DIMS)),
+                _kernel_uniform(d_plain.accept_words(N, step)))
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[3], want[3])):
+            raise AssertionError(f"[16 draws] step {step} side {side}: words or uniforms differ")
+        errs = [float((g - w).abs().max()) for g, w in zip(got[1:3], want[1:3])]
+        print(f"[16 draws] step {step} side {side}: sign words and accept uniforms equal; "
+              f"max |eps - plain| {errs[0]:.3e}, max |proposal - plain| {errs[1]:.3e} "
+              f"(limit 1e-6 + 1e-6 |x|)", flush=True)
+        for name, g, w in zip(("eps", "proposal"), got[1:3], want[1:3]):
+            if not torch.allclose(g, w, rtol=1e-6, atol=1e-6):
+                raise AssertionError(f"[16 draws] {name} at step {step} side {side} disagrees")
+        draw_sets[(step, side)] = got
+    differ = [not torch.equal(a, b) for a, b in zip(*draw_sets.values())]
+    print(f"[16 draws] (0, 0) vs (1, 1) differ: signs {differ[0]}, eps {differ[1]}, "
+          f"proposals {differ[2]}, uniforms {differ[3]}", flush=True)
+    if not all(differ):
+        raise AssertionError("[16 draws] two (step, side) pairs drew the same values")
+
+    # 17. K6 at N on the fitted model, then the variants at a small N
+    iflats = [flatten_flipout_params(fit_model.nets[k]) for k in "ghf"]
+    k6 = ik.make_fused_causal_logp_bnn(cfg, *dims)
+    a6 = (z, x, y, v, seed, *iflats)
+    err6 = [compare(f"[17 K6 N={N} block_rows={k6.block_rows}]", k6(*a6),
+                    ik.logp_plain(cfg, *a6, k6.block_rows))]
+    for label, var_cfg, xs in (
+            ("binary_treatment", cfg._replace(binary_treatment=True), xb),
+            ("fixed sigma_v/x/y", cfg._replace(sigma_v=0.5, sigma_x=0.7, sigma_y=0.3),
+             x[:n_small])):
+        a = (z[:n_small].contiguous(), xs.contiguous(), y[:n_small].contiguous(),
+             v[:n_small].contiguous(), seed, *iflats)
+        err6.append(compare(f"[17 K6 {label} N={n_small}]",
+                            ik.make_fused_causal_logp_bnn(var_cfg, *dims)(*a),
+                            ik.logp_plain(var_cfg, *a, k6.block_rows)))
+
+    # 18. K7: values and z-gradients; its value is K6's at K7's row block
+    k7 = ik.make_fused_causal_logp_and_grad_bnn(cfg, *dims)
+    k6_at_k7 = ik.make_fused_causal_logp_bnn(cfg, *dims, block_rows=k7.block_rows)
+    err7, k7_args = [], {}
+    for n_k in (FIT_BATCH, N):
+        a = (z[:n_k].contiguous(), x[:n_k].contiguous(), y[:n_k].contiguous(),
+             v[:n_k].contiguous(), seed, *iflats)
+        k7_args[n_k] = a
+        (neg_k, grad_k), (neg_p, grad_p) = k7(*a), ik.logp_and_grad_plain(cfg, *a, k7.block_rows)
+        err7.append(compare(f"[18 K7 value N={n_k} block_rows={k7.block_rows}]", neg_k, neg_p))
+        err7.append(compare_grad_at_kinks(f"[18 K7 grad N={n_k}]", grad_k, grad_p,
+                                          ik.kink_rows(cfg, *a, k7.block_rows)))
+        if not torch.equal(neg_k, k6_at_k7(*a)):
+            raise AssertionError(f"[18 K7 N={n_k}]: K7's value differs from K6's")
+    print("[18 K7] value == K6's value bit for bit", flush=True)
+
+    # 19. K5: a 5-step window and the model's own 50-step window against the
+    # plain version, then the timings
+    q_sd = torch.tensor(1.0, device=dev)
+    a5 = (z, x, y, v, seed, q_sd, *iflats)
+    err5, same_share = [], {}
+    k5 = fit_model.kernels["bnn_mh_window"]
+    for k5_check in (ik.make_fused_mh_steps_bnn(cfg, *dims, n_steps=5), k5):
+        n_st, tag = k5_check.n_steps, f"[19 K5 N={N} {k5_check.n_steps} steps]"
+        (z_k, lp_k, c_k), (z_p, lp_p, c_p) = k5_check(*a5), ik.mh_steps_plain(
+            cfg, *a5, n_st, k5_check.block_rows)
+        torch.cuda.synchronize()
+        same = (z_k - z_p).abs().max(dim=1).values <= 1e-5
+        same_share[n_st] = float(same.float().mean())
+        count_gap = float((c_k - c_p).abs().max())
+        err5.append(compare(f"{tag} logp of the rows in the same state", lp_k[same], lp_p[same]))
+        print(f"{tag} block_rows={k5_check.block_rows}: counts kernel {c_k.int().tolist()} "
+              f"plain {c_p.int().tolist()} (max gap {count_gap:.0f}, limit {1e-3 * N:.0f}); "
+              f"rows in the same final z (within 1e-5): {100 * same_share[n_st]:.3f} % "
+              f"(limit 99.9 %)", flush=True)
+        if count_gap > 1e-3 * N or same_share[n_st] < 0.999:
+            raise AssertionError(f"{tag} the window disagrees with its plain version")
+    t_k5 = (time_ms(lambda: k5(*a5), n_warm=1, n_iter=5),  # the check warmed the plain one
+            time_ms(lambda: ik.mh_steps_plain(cfg, *a5, MH_WINDOW, k5.block_rows), 0, 3))
+    t_k6 = (time_ms(lambda: k6(*a6)), time_ms(lambda: ik.logp_plain(cfg, *a6, k6.block_rows)))
+    t_k7 = {n_k: (time_ms(lambda: k7(*a)),
+                  time_ms(lambda: ik.logp_and_grad_plain(cfg, *a, k7.block_rows)))
+            for n_k, a in k7_args.items()}
+    for label, (tk, tp) in ([(f"K5 {MH_WINDOW}-step window N={N}", t_k5), (f"K6 N={N}", t_k6)]
+                            + [(f"K7 N={n_k}", t) for n_k, t in t_k7.items()]):
+        note = "" if tk <= tp else "  (kernel SLOWER than the plain version)"
+        print(f"[19 timing] {label}: kernel {tk:.4f} ms, plain {tp:.4f} ms, "
+              f"plain/kernel {tp / tk:.2f}x{note}", flush=True)
+    print(f"[19 timing] K5 per MH step: {t_k5[0] / MH_WINDOW:.4f} ms", flush=True)
+
+    # 20. predict with the MH window on the fitted BNN model, then the
+    # window's burn-in acceptance against the per-step path's
+    fit_model.params["mh_window_kernel"] = True
+    window_launches = drive_predict(
+        "20 window predict", fit_model,
+        {"bnn_hosteps": 1, "bnn_hosteps_paired": N_MCMC, "bnn_mh_window": BURN_IN // MH_WINDOW,
+         "bnn_inkernel_mh_steps": BURN_IN // MH_WINDOW})
+    fit_model.params["mh_window_kernel"] = False
+    lp, plp, make_params, make_multi_step = fit_model._make_param_log_prob()
+    mh_params = make_params(fit_model.nets, data_np, True)
+    init = torch.randn((N, sum(Z_DIMS)), generator=torch.Generator(device=dev).manual_seed(21),
+                       device=dev)
+    window_fn, counts = make_multi_step(MH_WINDOW), []
+
+    def recording_window(p, state, q, g):
+        out = window_fn(p, state, q, g)
+        counts.append(out[2])
+        return out
+
+    last = [init]
+
+    def step_rate(p, state, g):
+        rate = (state != last[0]).any(dim=1).to(torch.float32).mean()
+        last[0] = state
+        return rate
+
+    mh_kw = dict(q_sd=1.0, adaptive=False, recompute_current=True, paired_log_prob_fn=plp,
+                 params=mh_params)
+    with torch.no_grad():
+        mcmc.adaptive_mh(lp, init, torch.Generator(device=dev).manual_seed(22), burn_in=BURN_IN,
+                         n_keep=0, multi_step_fn=recording_window, **mh_kw)
+        per_step = mcmc.adaptive_mh(lp, init, torch.Generator(device=dev).manual_seed(23),
+                                    burn_in=0, n_keep=BURN_IN, collect=step_rate, **mh_kw)
+    rates = {"window": torch.cat(counts) / N, "per step": per_step.samples}
+
+    def std_err(r):
+        """Standard error of the mean of per-step rates, from their spread
+        about the means of their 50-step windows."""
+        r = r.reshape(-1, MH_WINDOW)
+        resid = r - r.mean(dim=1, keepdim=True)
+        return float(resid.pow(2).sum() / (r.numel() - r.shape[0])) ** 0.5 / r.numel() ** 0.5
+
+    acc = {k: float(r.mean()) for k, r in rates.items()}
+    tol = 4.0 * (std_err(rates["window"]) ** 2 + std_err(rates["per step"]) ** 2) ** 0.5
+    for k, r in rates.items():
+        per_window = r.reshape(-1, MH_WINDOW).mean(dim=1).cpu().numpy()
+        print(f"[20 window] {k} burn-in acceptance {acc[k]:.5f}; per-window rates "
+              f"{np.array2string(per_window, precision=5)}", flush=True)
+    gap = abs(acc["window"] - acc["per step"])
+    print(f"[20 window] |window - per step| = {gap:.5f}, limit {tol:.5f} (4 standard errors) "
+          f"{'ok' if gap <= tol else 'FAIL'}", flush=True)
+    if gap > tol:
+        raise AssertionError("[20 window] the window's burn-in acceptance differs from the "
+                             "per-step path's")
+
     # Bounds at the main path's shapes: K1 paired at 2N, K2 and K3 at the fit
     # batch, K4 at a predict batch.
     bnn_macs, plain_macs = chain_macs(dims), chain_macs(pdims)
@@ -476,6 +698,15 @@ def main() -> int:
     b_k2 = bound(row_bytes(FIT_BATCH, True) + 4 * (bnn_w + bnn_p), FIT_BATCH * 8 * bnn_macs)
     b_k3 = bound(row_bytes(FIT_BATCH, True) + 4 * plain_w, FIT_BATCH * 4 * plain_macs)
     b_k4 = bound(row_bytes(PLAIN_BS, False) + 4 * plain_w, PLAIN_BS * 2 * plain_macs)
+    # K5-K7: each logical block's eps is needed once per evaluation.
+    iflat_w = sum(t.numel() for f in iflats for t in f)
+    eps_ops = lambda n_rows, block: -(-n_rows // block) * bnn_macs * OPS_PER_NORMAL
+    b_k6 = bound(row_bytes(N, False) + 4 * iflat_w,
+                 N * 4 * bnn_macs + eps_ops(N, k6.block_rows))
+    b_k7 = bound(row_bytes(N, True) + 4 * iflat_w, N * 8 * bnn_macs + eps_ops(N, k7.block_rows))
+    b_k5 = bound(row_bytes(N, True) + 4 * (iflat_w + MH_WINDOW),  # z, logp out; counts
+                 2 * MH_WINDOW * (N * 4 * bnn_macs + eps_ops(N, k5.block_rows))
+                 + MH_WINDOW * N * (sum(Z_DIMS) + 1) * OPS_PER_NORMAL)  # proposals, uniforms
     print(json.dumps({"kernels": [{
         "name": "bnn_hosteps",
         "route": "cuda",
@@ -532,6 +763,47 @@ def main() -> int:
         "library_ms": None,
         f"ms_n{N}": t_k4[N][0],
         f"plain_ms_n{N}": t_k4[N][1],
+    }, {
+        "name": "bnn_mh_window",
+        "route": "cuda",
+        "source": "bayesgm_torch/csrc/bnn_inkernel.cu",
+        "replaces": "bayesgm_tpu/ops/_pk_bnn_inkernel.py:206",
+        "launches": window_launches["bnn_mh_window"],
+        "max_abs_err": max(err5),
+        "ms": t_k5[0],
+        "plain_ms": t_k5[1],
+        "bound_ms": b_k5[0],
+        "bound_by": b_k5[1],
+        "library_ms": None,
+        "ms_per_step": t_k5[0] / MH_WINDOW,
+        "rows_same_state": same_share[MH_WINDOW],
+        "rows_same_state_5_steps": same_share[5],
+    }, {
+        "name": "bnn_inkernel_logp",
+        "route": "cuda",
+        "source": "bayesgm_torch/csrc/bnn_inkernel.cu",
+        "replaces": "bayesgm_tpu/ops/_pk_bnn_inkernel.py:123",
+        "launches": window_launches["bnn_inkernel_logp"],  # K5 runs its device code
+        "max_abs_err": max(err6),
+        "ms": t_k6[0],
+        "plain_ms": t_k6[1],
+        "bound_ms": b_k6[0],
+        "bound_by": b_k6[1],
+        "library_ms": None,
+    }, {
+        "name": "bnn_inkernel_grad",
+        "route": "cuda",
+        "source": "bayesgm_torch/csrc/bnn_inkernel.cu",
+        "replaces": "bayesgm_tpu/ops/_pk_bnn_inkernel.py:365",
+        "launches": window_launches["bnn_inkernel_logp_and_grad"],  # no package caller
+        "max_abs_err": max(err7),
+        "ms": t_k7[N][0],
+        "plain_ms": t_k7[N][1],
+        "bound_ms": b_k7[0],
+        "bound_by": b_k7[1],
+        "library_ms": None,
+        f"ms_n{FIT_BATCH}": t_k7[FIT_BATCH][0],
+        f"plain_ms_n{FIT_BATCH}": t_k7[FIT_BATCH][1],
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

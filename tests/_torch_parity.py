@@ -4,7 +4,8 @@ the port the same random numbers.
 - :class:`CounterBits` stands in for the on-core TPU PRNG of the JAX
   kernels (the murmur3 counter stream of tests/test_pallas.py), and
   :func:`replayed_words` hands the port's plain kernels the words the
-  stubbed JAX kernel reads;
+  stubbed JAX kernel reads (:class:`ReplayedDraws` all the draws of the
+  in-kernel-eps kernels);
 - :class:`FlipoutDraws` replaces both packages' ``_fused_flipout_draws``
   with one deterministic numpy stream: call ``i`` of either package gets the
   same eps and signs for the same layer shapes;
@@ -66,6 +67,51 @@ def replayed_words(dims, rows, block_rows):
     return [torch.as_tensor(np.tile(np.asarray(CounterBits.bits_for(i, (block_rows, max(d)))),
                                     (rows // block_rows, 1)).astype(np.int64))
             for i, d in enumerate(dims)]
+
+
+class ReplayedDraws:
+    """The draws the stubbed JAX in-kernel-eps kernels (K5, K6, K7) read, in
+    the port's ``PhiloxDraws`` interface.
+
+    The stub's counter restarts in every row block, so every block reads the
+    same words.  Per block, in order: (K5 only) the proposal's ``u1``, ``u2``
+    of shape (block_rows, ceil(z_dim / 2)); then for each evaluation (K5: the
+    proposed state, then the current one) and each chain g, h, f the chain's
+    sign words (block_rows, max_w), then ``u1``, ``u2`` (in, ceil(out / 2))
+    per layer; then (K5 only) the accept uniforms (block_rows, 1).  The JAX
+    window's loop body is traced once, so every step reads the same draws."""
+
+    def __init__(self, dims, block_rows, mh_window=False):
+        self.block_rows = block_rows
+        per_chain = [1 + 2 * (len(d) - 1) for d in dims]
+        self.chain_off = [0, per_chain[0], per_chain[0] + per_chain[1]]
+        self.per_eval = sum(per_chain)
+        self.base = 2 if mh_window else 0
+
+    def _rows(self, i, rows, cols):
+        """Draw ``i`` of shape (block_rows, cols), replayed over ``rows`` rows."""
+        bits = np.asarray(CounterBits.bits_for(i, (self.block_rows, cols))).astype(np.int64)
+        return torch.as_tensor(np.tile(bits, (-(-rows // self.block_rows), 1))[:rows])
+
+    def _eval_start(self, chain, ev):
+        return self.base + (ev % 2) * self.per_eval + self.chain_off[chain]
+
+    def sign_words(self, rows, cols, chain, ev, group=0):
+        if group:
+            raise ValueError("the replayed words cover at most 16 layers per chain")
+        return self._rows(self._eval_start(chain, ev), rows, cols)
+
+    def eps_words(self, n_blocks, rows, ch, chain, layer, ev):
+        i = self._eval_start(chain, ev) + 1 + 2 * layer
+        return tuple(torch.as_tensor(np.asarray(CounterBits.bits_for(j, (rows, ch)))
+                                     .astype(np.int64)).expand(n_blocks, rows, ch)
+                     for j in (i, i + 1))
+
+    def proposal_words(self, rows, ch, step):
+        return self._rows(0, rows, ch), self._rows(1, rows, ch)
+
+    def accept_words(self, rows, step):
+        return self._rows(self.base + 2 * self.per_eval, rows, 1)[:, 0]
 
 
 def flipout_draw(i, dims, batch):

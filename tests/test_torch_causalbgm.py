@@ -1,7 +1,8 @@
 """The ported model: JAX weights through save_weights / the bridge, predict
-from both packages on the same data, MALA, the device contract, and that the
-port (fit, save_weights, predict by MH and MALA, both kinds of nets) never
-imports JAX."""
+from both packages on the same data (per step and with the MH window
+kernel), MALA, the device contract, and that the port (fit, save_weights,
+predict by MH, windowed MH and MALA, both kinds of nets) never imports
+JAX."""
 
 import os
 import subprocess
@@ -90,6 +91,56 @@ def test_predict_matches_jax_within_monte_carlo_error(jax_weights, tmp_path):
     bound = 4.0 * np.sqrt(se(draws_t, diag_t) ** 2 + se(draws_j, diag_j) ** 2)
     assert np.all(np.abs(adrf_t - adrf_j) <= bound), (adrf_t, adrf_j, bound)
     assert abs(diag_t["accept_rate"] - diag_j["accept_rate"]) <= 0.05
+
+
+def _count_calls(model, name):
+    """Wrap ``model.kernels[name]`` to record the row count of every call."""
+    calls, fused = [], model.kernels[name]
+    model.kernels[name] = lambda *a: calls.append(a[0].shape[0]) or fused(*a)
+    return calls, fused
+
+
+def test_window_predict_matches_jax_within_monte_carlo_error(jax_weights, tmp_path):
+    """params['mh_window_kernel']: the burn-in runs in K5 windows of 50 steps
+    (on the CPU, K5's plain version through its wrapper: burn_in / 50 calls,
+    no kernel launch), the kept steps stay paired K1.  The ADRF lies within
+    Monte-Carlo error of JAX predict on the same bridged weights (JAX on the
+    CPU runs per step), with the tolerance of the per-step predict test."""
+    jmodel, path = jax_weights
+    data = _data()
+    kw = dict(x_values=np.linspace(0, 3, 5), alpha=0.05, burn_in=150, n_mcmc=300, q_sd=1.0,
+              return_diagnostics=True, return_draws=True)
+    adrf_j, _, diag_j, draws_j = jmodel.predict(data, **kw)
+    tmodel = tcb.CausalBGM(_params(tmp_path, mh_window_kernel=True), random_seed=3,
+                           device="cpu").load_weights(path)
+    k5_calls, k5 = _count_calls(tmodel, "bnn_mh_window")
+    k1_calls, _ = _count_calls(tmodel, "bnn_hosteps_paired")
+    adrf_t, ci_t, diag_t, draws_t = tmodel.predict(data, **kw)
+    assert k5_calls == [64] * 3 and k5.launches == 0 and k1_calls == [128] * 300
+    assert np.all(ci_t[:, 0] <= ci_t[:, 1])
+    se = lambda draws, diag: draws.std(axis=1) / np.sqrt(diag["ess"])
+    bound = 4.0 * np.sqrt(se(draws_t, diag_t) ** 2 + se(draws_j, diag_j) ** 2)
+    assert np.all(np.abs(adrf_t - adrf_j) <= bound), (adrf_t, adrf_j, bound)
+
+
+@pytest.mark.parametrize("use_bnn,burn_in", [(True, 30), (False, 50)])
+def test_window_flag_runs_per_step_where_jax_does(tmp_path, use_bnn, burn_in):
+    """burn_in not a multiple of 50, or plain nets (no window kernel): the
+    burn-in stays per step, as in the JAX package."""
+    model = tcb.CausalBGM(_params(tmp_path, mh_window_kernel=True, use_bnn=use_bnn),
+                          random_seed=0, device="cpu")
+    name = "bnn_hosteps_paired" if use_bnn else "plain"
+    calls, _ = _count_calls(model, name)
+    if use_bnn:
+        k5_calls, _ = _count_calls(model, "bnn_mh_window")
+    adrf, ci = model.predict(_data(n=16), x_values=[0.5, 1.5], burn_in=burn_in, n_mcmc=10)
+    assert np.all(np.isfinite(adrf)) and np.all(ci[:, 0] <= ci[:, 1])
+    # paired K1 once per step; plain K4 once up front and once per step
+    assert len(calls) == burn_in + 10 + (0 if use_bnn else 1)
+    if use_bnn:
+        assert k5_calls == []
+    else:
+        assert "bnn_mh_window" not in model.kernels
 
 
 def test_antithetic_eps_predict(tmp_path):
@@ -191,7 +242,8 @@ def test_config_and_summary(tmp_path, capsys):
     assert model.get_config()["params"]["v_dim"] == 6
     model.initialize_nets(print_summary=True)
     assert "g_net:" in capsys.readouterr().out
-    assert set(model.kernels) == {"bnn_hosteps", "bnn_hosteps_paired", "bnn_hosteps_grad"}
+    assert set(model.kernels) == {"bnn_hosteps", "bnn_hosteps_paired", "bnn_hosteps_grad",
+                                  "bnn_mh_window"}
 
 
 def test_port_cpu_predict_never_imports_jax(tmp_path):
@@ -215,6 +267,9 @@ def test_port_cpu_predict_never_imports_jax(tmp_path):
         assert adrf.shape == (2,)
         adrf, ci = m.predict((x, y, v), x_values=[0.5, 1.0], burn_in=5, n_mcmc=5,
                              sampler="mala")
+        assert adrf.shape == (2,)
+        m.params["mh_window_kernel"] = True
+        adrf, ci = m.predict((x, y, v), x_values=[0.5, 1.0], burn_in=50, n_mcmc=5)
         assert adrf.shape == (2,)
         p = CausalBGM(dict(v_dim=6, z_dims=[1, 1, 1, 2], binary_treatment=False,
                            dataset="t", output_dir={str(tmp_path)!r}, save_res=False,

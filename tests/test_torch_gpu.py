@@ -1,6 +1,7 @@
-"""K1 to K4 on the card: the CUDA kernels against their plain PyTorch
-versions, the sign words against the plain Philox words, and predict (MH and
-MALA) and fit through the kernels, with flipout-BNN and with plain nets.
+"""K1 to K7 on the card: the CUDA kernels against their plain PyTorch
+versions, the sign words and the in-kernel draws against the plain Philox
+draws, and predict (MH, windowed MH and MALA) and fit through the kernels,
+with flipout-BNN and with plain nets.
 Every test needs a CUDA device
 and skips without one.  This file imports no JAX, so it also runs on a GPU
 machine that has none:
@@ -15,8 +16,14 @@ torch = pytest.importorskip("torch")
 
 from bayesgm_torch.models.causalbgm import CausalBGM, CBGMConfig  # noqa: E402
 from bayesgm_torch.ops import _pk_bnn_hosteps as tk  # noqa: E402
+from bayesgm_torch.ops import _pk_bnn_inkernel as ik  # noqa: E402
 from bayesgm_torch.ops import _pk_plain as tp  # noqa: E402
-from bayesgm_torch.ops._pk_traced_common import philox_sign_words  # noqa: E402
+from bayesgm_torch.ops._pk_traced_common import (  # noqa: E402
+    PhiloxDraws,
+    _kernel_normal,
+    _kernel_uniform,
+    philox_sign_words,
+)
 from bayesgm_torch.ops._pk_util import (  # noqa: E402
     flatten_flipout_params,
     flatten_mlp_params,
@@ -331,3 +338,152 @@ def test_bnn_mala_on_cuda_goes_through_k2(cuda, tmp_path):
     assert adrf.shape == (3,) and np.all(np.isfinite(adrf)) and np.all(ci[:, 0] <= ci[:, 1])
     assert model.kernels["bnn_hosteps_grad"].launches == 100
     assert model.kernels["bnn_hosteps"].launches == model.kernels["bnn_hosteps_paired"].launches == 0
+
+
+# -- K6, K7 and K5: the in-kernel-eps family --------------------------------
+
+# Box-Muller through logf/sqrtf/sincosf (no fast math) on both sides
+DRAW_TOL = dict(rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("step,side", [(0, 0), (0, 1), (3, 1), (49, 0)])
+def test_inkernel_draws_equal_plain(cuda, step, side):
+    """The kernels' sign words, eps and accept uniforms equal the plain
+    Philox draws bit for bit and the normals to 1e-6; another (step, side)
+    draws other values."""
+    seed = torch.tensor([77, -5], dtype=torch.int32, device=cuda)
+    dc, dp = ik.DrawsCuda(seed), PhiloxDraws(seed)
+    ev = 2 * step + side
+    words = dc.sign_words(1037, 64, 1, ev)
+    assert torch.equal(words, dp.sign_words(1037, 64, 1, ev))
+    eps = dc.eps(3, 64, 201, 0, 5, ev)
+    torch.testing.assert_close(eps, _kernel_normal(*dp.eps_words(3, 64, 101, 0, 5, ev), 201),
+                               **DRAW_TOL)
+    prop = dc.proposal(1037, 11, step)
+    torch.testing.assert_close(prop, _kernel_normal(*dp.proposal_words(1037, 6, step), 11),
+                               **DRAW_TOL)
+    acc = dc.accept(1037, step)
+    assert torch.equal(acc, _kernel_uniform(dp.accept_words(1037, step)))
+    other = 2 * (step + 1) + (1 - side)
+    assert not torch.equal(words, dc.sign_words(1037, 64, 1, other))
+    assert not torch.equal(eps, dc.eps(3, 64, 201, 0, 5, other))
+    assert not torch.equal(prop, dc.proposal(1037, 11, step + 1))
+
+
+def _inkernel_inputs(cfg, n, dev, g_hidden=(24, 40), seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    d0, d1, d2, _ = cfg.z_dims
+    nets = [FlipoutMLP(sum(cfg.z_dims), cfg.v_dim + 1, g_hidden, gen),
+            FlipoutMLP(d0 + d2, 2, [16, 8], gen), FlipoutMLP(d0 + d1 + 1, 2, [16], gen)]
+    flats = [flatten_flipout_params(net.to(dev)) for net in nets]
+    z = torch.randn((n, sum(cfg.z_dims)), generator=gen)
+    x = torch.randn((n, 1), generator=gen)
+    if cfg.binary_treatment:
+        x = (x > 0).to(torch.float32)
+    y = torch.randn((n, 1), generator=gen)
+    v = torch.randn((n, cfg.v_dim), generator=gen)
+    seed_t = torch.tensor([seed + 11, -seed - 3], dtype=torch.int32, device=dev)
+    args = tuple(a.to(dev) for a in (z, x, y, v)) + (seed_t, *flats)
+    return args, [net.dims for net in nets]
+
+
+def _inkernel_case(variant, n, dev):
+    cfg = _cfg(binary_treatment=variant == "binary",
+               **(dict(sigma_v=0.5, sigma_x=0.7, sigma_y=0.3) if variant == "fixed_sigmas" else {}))
+    g_hidden = [8] * 17 if variant == "deep_g" else (24, 40)
+    return (cfg, *_inkernel_inputs(cfg, n, dev, g_hidden=g_hidden))
+
+
+INKERNEL_CASES = [("continuous", 1), ("continuous", 33), ("continuous", 1000), ("binary", 257),
+                  ("fixed_sigmas", 100), ("deep_g", 70)]
+
+
+@pytest.mark.parametrize("variant,n", INKERNEL_CASES)
+def test_k6_kernel_matches_plain(cuda, variant, n):
+    cfg, args, dims = _inkernel_case(variant, n, cuda)
+    fn = ik.make_fused_causal_logp_bnn(cfg, *dims, block_rows=64)  # several blocks
+    got = fn(*args)
+    want = ik.logp_plain(cfg, *args, 64)
+    torch.cuda.synchronize()
+    assert fn.launches == 1 and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("variant,n", INKERNEL_CASES)
+def test_k7_kernel_matches_plain(cuda, variant, n):
+    cfg, args, dims = _inkernel_case(variant, n, cuda)
+    fn = ik.make_fused_causal_logp_and_grad_bnn(cfg, *dims, block_rows=64)
+    neg, grad = fn(*args)
+    want_neg, want_grad = ik.logp_and_grad_plain(cfg, *args, 64)
+    torch.cuda.synchronize()
+    assert fn.launches == 1 and bool(torch.isfinite(grad).all())
+    torch.testing.assert_close(neg, want_neg, rtol=RTOL, atol=ATOL)
+    # a row may differ only where a hidden pre-activation sits at LeakyReLU's kink
+    off = ((grad - want_grad).abs() > GRAD_ATOL + GRAD_RTOL * want_grad.abs()).any(dim=1)
+    assert not bool((off & ~ik.kink_rows(cfg, *args, 64)).any()) and int(off.sum()) <= 1
+    # the value is K6's, bit for bit
+    assert torch.equal(neg, ik.make_fused_causal_logp_bnn(cfg, *dims, block_rows=64)(*args))
+
+
+@pytest.mark.parametrize("variant,n,n_steps", [("continuous", 1000, 5), ("continuous", 45, 3),
+                                               ("binary", 300, 4), ("deep_g", 70, 2),
+                                               ("continuous", 1000, 50)])
+def test_k5_kernel_matches_plain(cuda, variant, n, n_steps):
+    """The window's counts per step within 0.1 % of n (at least 1 row) and
+    at least 99.9 % of the rows in the same final state: an accept decision
+    at the boundary may flip on f32 summation order."""
+    cfg, args, dims = _inkernel_case(variant, n, cuda)
+    q_sd = torch.tensor([0.3], device=cuda)
+    fn = ik.make_fused_mh_steps_bnn(cfg, *dims, n_steps=n_steps, block_rows=64)
+    z_k, lp_k, c_k = fn(*args[:5], q_sd, *args[5:])
+    z_p, lp_p, c_p = ik.mh_steps_plain(cfg, *args[:5], q_sd, *args[5:], n_steps, 64)
+    torch.cuda.synchronize()
+    assert fn.launches == 1 and c_k.shape == (n_steps,)
+    assert float((c_k - c_p).abs().max()) <= max(1.0, 1e-3 * n)
+    same = (z_k - z_p).abs().max(dim=1).values <= 1e-5
+    assert float(same.float().mean()) >= 0.999
+    torch.testing.assert_close(lp_k[same], lp_p[same], rtol=RTOL, atol=ATOL)
+    assert 0 < float(c_k.sum()) < n * n_steps
+
+
+def test_inkernel_kernels_reject_what_they_cannot_take(cuda):
+    cfg = _cfg()
+    args, dims = _inkernel_inputs(cfg, 8, cuda)
+    fn = ik.make_fused_causal_logp_bnn(cfg, *dims, block_rows=64)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        fn(args[0].double(), *args[1:])
+    with pytest.raises(RuntimeError, match="block_rows"):
+        ik.make_fused_causal_logp_bnn(cfg, *dims, block_rows=48)(*args)
+    with pytest.raises(ValueError, match="tensors"):
+        fn(*args[:5], args[5][:-1], *args[6:])
+    k5 = ik.make_fused_mh_steps_bnn(cfg, *dims, n_steps=2, block_rows=64)
+    with pytest.raises(ValueError, match="q_sd"):
+        k5(*args[:5], torch.tensor([0.3, 0.2], device=cuda), *args[5:])
+    wide_cfg = _cfg(v_dim=400)
+    wide_args, wide_dims = _inkernel_inputs(wide_cfg, 8, cuda, g_hidden=(300,))
+    for make in (ik.make_fused_causal_logp_bnn, ik.make_fused_causal_logp_and_grad_bnn):
+        with pytest.raises(RuntimeError, match="shared memory"):
+            make(wide_cfg, *wide_dims, block_rows=64)(*wide_args)
+    with pytest.raises(RuntimeError, match="shared memory"):
+        ik.make_fused_mh_steps_bnn(wide_cfg, *wide_dims, n_steps=2, block_rows=64)(
+            *wide_args[:5], torch.tensor(0.3, device=cuda), *wide_args[5:])
+    assert fn.launches == k5.launches == 0
+
+
+def test_window_predict_on_cuda_goes_through_k5(cuda, tmp_path):
+    """mh_window_kernel: K1 once for the initial state, K5 once per 50
+    burn-in steps, then one paired K1 per kept step."""
+    params = dict(v_dim=12, z_dims=[1, 1, 1, 3], binary_treatment=False, dataset="t",
+                  output_dir=str(tmp_path), save_res=False, g_units=[24, 24], h_units=[8],
+                  f_units=[8], mh_window_kernel=True)
+    model = CausalBGM(params, random_seed=0, device="cuda")
+    rng = np.random.default_rng(0)
+    data = (rng.normal(size=(300, 1)), rng.normal(size=(300, 1)), rng.normal(size=(300, 12)))
+    before = dict(ik.LAUNCHES)
+    adrf, ci = model.predict(data, x_values=[0.0, 1.0, 2.0], burn_in=100, n_mcmc=30)
+    assert adrf.shape == (3,) and np.all(np.isfinite(adrf)) and np.all(ci[:, 0] <= ci[:, 1])
+    assert {k: f.launches for k, f in model.kernels.items()} == {
+        "bnn_hosteps": 1, "bnn_hosteps_paired": 30, "bnn_mh_window": 2, "bnn_hosteps_grad": 0}
+    # K5 through its entry point, K6's and K7's entry points not at all
+    assert {k: n - before[k] for k, n in ik.LAUNCHES.items()} == {
+        "logp": 0, "logp_and_grad": 0, "mh_steps": 2}

@@ -1,6 +1,7 @@
-"""The port's adaptive MH and MALA and chain diagnostics: analytic Gaussian
-targets, the adaptation schedules against the JAX steps, and ESS / split-R̂
-against the JAX functions on the same draws."""
+"""The port's adaptive MH (per step and in windows) and MALA and chain
+diagnostics: analytic Gaussian targets, the adaptation schedules and the
+window's bookkeeping against JAX's, and ESS / split-R̂ against the JAX
+functions on the same draws."""
 
 from functools import partial
 
@@ -119,8 +120,7 @@ def test_diagnostics_equal_jax():
         np.testing.assert_array_equal(got[k], want[k])
 
 
-@pytest.mark.parametrize("kw", [dict(multi_step_fn=lambda *a: None),
-                                dict(early_stop=dict(min_ess=100))])
+@pytest.mark.parametrize("kw", [dict(early_stop=dict(min_ess=100))])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError):
         tmcmc.adaptive_mh(_gauss_lp, torch.zeros((4, 2)), torch.Generator(), burn_in=1,
@@ -136,6 +136,117 @@ def test_burn_in_only_returns_no_samples_and_collect_is_used():
                             burn_in=5, n_keep=7, params=params,
                             collect=lambda p, s, g: s.mean(dim=0) + p["shift"])
     assert tuple(res.samples.shape) == (7, 2)
+
+
+# -- the MH window (multi_step_fn) ----------------------------------------------
+
+
+def _plain_multi_step(lp_fn, K):
+    """Plain stand-in for the K-step MH window kernel (the JAX test's)."""
+    def window(params, state, q_sd, g):
+        counts = torch.zeros(K)
+        for i in range(K):
+            prop = state + q_sd * torch.randn(state.shape, generator=g)
+            lp_p, lp_c = lp_fn(params, prop, g), lp_fn(params, state, g)
+            acc = torch.log(torch.rand(lp_p.shape, generator=g)) < lp_p - lp_c
+            state = torch.where(acc[:, None], prop, state)
+            counts[i] = acc.sum()
+        return state, lp_fn(params, state, g), counts
+    return window
+
+
+def _std_normal_p(p, s, g):
+    return -0.5 * torch.sum(s**2, dim=1)
+
+
+def test_adaptive_mh_multi_step_burn_recovers_target():
+    """Window burn-in + per-step sampling recovers N(0, I) (as the JAX
+    package's test: 64 chains, 500 burn-in steps in windows of 50, 1500 kept)."""
+    gen = torch.Generator().manual_seed(10)
+    res = tmcmc.adaptive_mh(_std_normal_p, torch.zeros((64, 3)), gen, burn_in=500,
+                            n_keep=1500, q_sd=1.0, adaptive=True, recompute_current=True,
+                            params={}, multi_step_fn=_plain_multi_step(_std_normal_p, 50))
+    samples = res.samples.numpy().reshape(-1, 3)
+    np.testing.assert_allclose(samples.mean(axis=0), 0.0, atol=0.12)
+    np.testing.assert_allclose(samples.std(axis=0), 1.0, atol=0.12)
+
+
+def test_adaptive_mh_multi_step_adapts_q_sd():
+    """Adaptation fires between windows: a tight target shrinks q_sd."""
+    lp = lambda p, s, g: -0.5 * torch.sum((s / 0.01) ** 2, dim=1)
+    res = tmcmc.adaptive_mh(lp, torch.zeros((16, 2)), torch.Generator().manual_seed(11),
+                            burn_in=1000, n_keep=50, q_sd=1.0, adaptive=True,
+                            recompute_current=True, params={},
+                            multi_step_fn=_plain_multi_step(lp, 50))
+    assert float(res.q_sd) < 0.5
+
+
+def test_window_bookkeeping_equals_jax(monkeypatch):
+    """Both packages' adaptive_mh drive a window that ignores its key and
+    returns scripted per-step accept counts (window w reads row w of a table,
+    counted in the state): the q_sd each window gets, the final q_sd, the
+    acceptance ring and the returned rate are equal."""
+    n, K, n_windows = 64, 50, 12
+    table = np.random.default_rng(3).integers(0, 40, size=(n_windows, K)).astype(np.float32)
+    table[:3] = 5.0  # low acceptance first, then a mix
+
+    j_q, j_rings = [], []
+    jax_dus = jax.lax.dynamic_update_slice
+
+    def recording_dus(operand, update, idx):
+        out = jax_dus(operand, update, idx)
+        if operand.shape == (100,):
+            jax.debug.callback(lambda r: j_rings.append(np.asarray(r)), out)
+        return out
+
+    def j_window(params, state, q_sd, key):
+        jax.debug.callback(lambda q: j_q.append(float(q)), q_sd)
+        counts = jnp.take(jnp.asarray(table), state[0, 0].astype(jnp.int32), axis=0)
+        return state + 1.0, jnp.zeros(state.shape[0]), counts
+
+    monkeypatch.setattr(jax.lax, "dynamic_update_slice", recording_dus)
+    j_res = jmcmc.adaptive_mh(lambda p, s, k: jnp.zeros(s.shape[0]), jnp.zeros((n, 2)),
+                              jax.random.PRNGKey(0), burn_in=K * n_windows, n_keep=0,
+                              q_sd=1.0, recompute_current=True, params={},
+                              multi_step_fn=j_window)
+    monkeypatch.setattr(jax.lax, "dynamic_update_slice", jax_dus)
+
+    t_q, t_rings = [], []
+    burn = tmcmc._window_burn_in
+
+    def recording_burn(*a, **kw):
+        carry, rate = burn(*a, **kw)
+        t_rings.append(carry[3].clone())
+        return carry, rate
+
+    def t_window(params, state, q_sd, g):
+        t_q.append(float(q_sd))
+        return state + 1.0, torch.zeros(state.shape[0]), torch.as_tensor(table[int(state[0, 0])])
+
+    monkeypatch.setattr(tmcmc, "_window_burn_in", recording_burn)
+    t_res = tmcmc.adaptive_mh(lambda p, s, g: torch.zeros(s.shape[0]), torch.zeros((n, 2)),
+                              torch.Generator().manual_seed(0), burn_in=K * n_windows,
+                              n_keep=0, q_sd=1.0, recompute_current=True, params={},
+                              multi_step_fn=t_window)
+    assert len(t_q) == len(j_q) == n_windows and len(set(t_q)) > 3  # adaptation fired
+    np.testing.assert_array_equal(np.float32(t_q), np.float32(j_q))
+    assert float(t_res.q_sd) == float(j_res.q_sd)
+    np.testing.assert_array_equal(t_rings[-1].numpy(), j_rings[-1])
+    assert float(t_res.accept_rate) == float(j_res.accept_rate) == table[-1, -1] / n
+    assert t_res.samples is None and j_res.samples is None
+
+
+@pytest.mark.parametrize("kw", [dict(burn_in=75), dict(window_size=75),
+                                dict(recompute_current=False)])
+def test_window_only_when_the_cadences_align(kw):
+    """burn_in or window_size not a multiple of adjustment_interval, or a
+    deterministic target: the burn-in runs per step, as in JAX."""
+    calls = []
+    args = dict(burn_in=100, n_keep=3, recompute_current=True, params={})
+    args.update(kw)
+    res = tmcmc.adaptive_mh(_std_normal_p, torch.zeros((8, 2)), torch.Generator().manual_seed(0),
+                            multi_step_fn=lambda *a: calls.append(1), **args)
+    assert calls == [] and tuple(res.samples.shape) == (3, 8, 2)
 
 
 # -- MALA ----------------------------------------------------------------------

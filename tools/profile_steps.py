@@ -15,6 +15,10 @@ random weights from seed 123), it times four units of work:
   n rows, K4 for plain nets over 10000 rows), no collector;
 - an MH kept step: the same plus the 20-point ADRF collector.
 
+For BNN nets it also times an MH burn-in step in windows of 50 steps, one K5
+launch each (``params['mh_window_kernel']``; ``--steps`` must then be a
+multiple of 50), and single launches of K6 and K7 over all n rows.
+
 A training step or an EGM iteration runs ``--warmup`` times, then
 ``--steps`` times under the host clock (synchronized), then ``--steps`` times
 under ``torch.profiler``; an MH unit is one chain of ``--steps`` steps, run
@@ -44,6 +48,11 @@ def _units(model, data, plain, steps):
 
     from bayesgm_torch.models import causalbgm as cb
     from bayesgm_torch.ops import mcmc, optim
+    from bayesgm_torch.ops._pk_bnn_inkernel import (
+        make_fused_causal_logp_and_grad_bnn,
+        make_fused_causal_logp_bnn,
+    )
+    from bayesgm_torch.ops._pk_util import flatten_flipout_params
 
     cfg, dev = model.cfg, model.device
     x, y, v = model._data(data)
@@ -64,23 +73,36 @@ def _units(model, data, plain, steps):
                                                       model._opt_ge, (x, y, v), gen, 32)
 
     rows = 10000 if plain else N
-    lp, plp, make_params = model._make_param_log_prob()
+    lp, plp, make_params, make_multi_step = model._make_param_log_prob()
     params = make_params(model.nets, tuple(a[:rows].cpu().numpy() for a in (x, y, v)),
                          not plain)
     collect_p = cb._effect_collector_p(cfg, X_VALUES, True)
     init = torch.randn((rows, sum(Z_DIMS)), generator=gen, device=dev)
 
-    def mh(n_burn, n_keep):
+    def mh(n_burn, n_keep, multi_step=None):
         def run():
             with torch.no_grad():
                 mcmc.adaptive_mh(lp, init, gen, burn_in=n_burn, n_keep=n_keep, q_sd=1.0,
                                  adaptive=False, recompute_current=not plain,
-                                 collect=collect_p, paired_log_prob_fn=plp, params=params)
+                                 collect=collect_p, paired_log_prob_fn=plp,
+                                 multi_step_fn=multi_step, params=params)
         return run
 
-    return [("training step", train_step, 1), ("EGM iteration", egm_iter, 1),
-            (f"MH burn-in step ({rows} rows)", mh(steps, 0), steps),
-            (f"MH kept step ({rows} rows)", mh(0, steps), steps)]
+    units = [("training step", train_step, 1), ("EGM iteration", egm_iter, 1),
+             (f"MH burn-in step ({rows} rows)", mh(steps, 0), steps)]
+    if not plain:
+        units.append((f"MH burn-in window ({cb.MH_WINDOW} steps, {rows} rows, K5)",
+                      mh(steps, 0, make_multi_step(cb.MH_WINDOW)), steps))
+    units.append((f"MH kept step ({rows} rows)", mh(0, steps), steps))
+    if not plain:
+        dims = [model.nets[k].dims for k in "ghf"]
+        flats = [flatten_flipout_params(model.nets[k]) for k in "ghf"]
+        seed = torch.tensor([1, 2], dtype=torch.int32, device=dev)
+        k6 = make_fused_causal_logp_bnn(cfg, *dims)
+        k7 = make_fused_causal_logp_and_grad_bnn(cfg, *dims)
+        units += [(f"K6 launch ({N} rows)", lambda: k6(init, x, y, v, seed, *flats), 1),
+                  (f"K7 launch ({N} rows)", lambda: k7(init, x, y, v, seed, *flats), 1)]
+    return units
 
 
 def profile(label, fn, calls, per_call, warmup):
@@ -125,6 +147,8 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--warmup", type=int, default=10)
     args = ap.parse_args()
+    if "bnn" in args.nets and args.steps % 50:
+        ap.error("--steps must be a multiple of 50 for the BNN window unit")
 
     import torch
 
