@@ -60,9 +60,34 @@
 // one logical block, so block_rows must be a multiple of 32 (kErrBlockRows).
 // Sharing eps across the tiles of a block (a cluster, or a per-block scratch
 // in device memory), register tiling and pipelined staging are later work.
+//
+// K8 (bnn_inkernel_probe) replaces benchmarks/mxu_probe.py::make_probe_kernel,
+// the probe that times K6's evaluation with one part switched out; its plain
+// version is bayesgm_torch/benchmarks/mxu_probe.py::probe_plain.  The variant
+// is a template argument of K6's device code (tile_neg_logp, build_p), one
+// __global__ instantiation each; K5, K6 and K7 run kBase.  Per layer:
+//     nopert    h @ loc + b: no perturbation product, no signs, no noise
+//     noeps     P = sigma * 0.01, signs kept;   epsref  P = sigma * loc
+//     nosigns   P = sigma * eps, no signs;      noprng  P = sigma * 0.01, no signs
+//     xorsign   base, each sign applied by flipping the float's sign bit
+//     blockdiag base's function as one literal product [h, h r_in] @
+//               [[loc, 0], [0, P]] over 2 in rows, staged in output-column
+//               panels of the block-diagonal weight (zero blocks included),
+//               the 2 out columns kept in shared memory (~206 KB in all at
+//               the flagship width) and recombined with r_out
+//     bf16      base with h, h r_in, loc and P rounded to bf16 (round to
+//               nearest even) and staged as bf16 in shared memory, each
+//               widened back before its f32 FMA: CUDA cores, not tensor
+//               cores, so its time says nothing about a tensor-core product
+// Every variant that draws uses K6's counters, so base, xorsign and
+// blockdiag see the noise K6 sees.  What bounds K8 is what bounds K6; the
+// variants measure how much of K6's time each part costs.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -85,6 +110,40 @@ constexpr int kErrTooManyLayers = -1;
 constexpr int kErrSmem = -2;
 constexpr int kErrShape = -3;
 constexpr int kErrBlockRows = -4;
+
+// K8's variants, in the order of bayesgm_torch/benchmarks/mxu_probe.py's
+// KERNEL_VARIANTS; K5, K6 and K7 are kBase.
+enum Variant { kBase, kNoPert, kNoEps, kEpsRef, kNoSigns, kXorSign, kNoPrng, kBlockDiag, kBf16 };
+
+template <int V>
+struct Probe {
+  static constexpr bool kPert = V != kNoPert;  // the (h r_in) @ P product
+  static constexpr bool kSigns = kPert && V != kNoSigns && V != kNoPrng;  // r_in, r_out
+  static constexpr bool kNormals = V == kBase || V == kNoSigns || V == kXorSign ||
+                                   V == kBlockDiag || V == kBf16;  // eps drawn
+  using T = typename std::conditional<V == kBf16, __nv_bfloat16, float>::type;  // staged operands
+};
+
+template <class T>
+__device__ __forceinline__ T to_op(float x);
+template <>
+__device__ __forceinline__ float to_op<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 to_op<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+__device__ __forceinline__ float from_op(float x) { return x; }
+__device__ __forceinline__ float from_op(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// h times the Rademacher sign in bit `bit` of `word` (set: -1).
+template <int V>
+__device__ __forceinline__ float apply_sign(float h, uint32_t word, int bit) {
+  if constexpr (V == kXorSign) {
+    return __uint_as_float(__float_as_uint(h) ^ (((word >> bit) & 1u) << 31));
+  } else {
+    return ((word >> bit) & 1u) ? -h : h;
+  }
+}
 
 struct Chain {
   int n_layers;
@@ -178,13 +237,30 @@ __device__ __forceinline__ uint4 eps_counter(int blk, int q, uint32_t ev, int ch
                     kTagEps | ((uint32_t)chain << 8) | (uint32_t)layer);
 }
 
-// dst[k * stride + j] = sigma[k, j] * eps[k, j] of one layer's (in, out) draw.
-__device__ void build_p(float* dst, int stride, const float* sig, int in, int out, int blk,
-                        int chain, int layer, uint32_t ev, uint2 key) {
+// put(k, j, eps[k, j]) for each normal of one layer's (in, out) draw.
+template <class Put>
+__device__ void for_each_eps(int in, int out, int blk, int chain, int layer, uint32_t ev,
+                             uint2 key, Put put) {
   const int quads = (in * ((out + 1) >> 1) + 1) >> 1;
   for (int q = threadIdx.x; q < quads; q += blockDim.x)
-    normal_quad(eps_counter(blk, q, ev, chain, layer), key, in, out,
-                [&](int k, int j, float e) { dst[k * stride + j] = sig[k * out + j] * e; });
+    normal_quad(eps_counter(blk, q, ev, chain, layer), key, in, out, put);
+}
+
+// dst[k * stride + j] = P[k, j] of one layer: sigma[k, j] * eps[k, j] of its
+// (in, out) draw, or variant V's stand-in for eps (0.01, or loc).
+template <int V, class T>
+__device__ void build_p(T* dst, int stride, const float* sig, const float* loc, int in, int out,
+                        int blk, int chain, int layer, uint32_t ev, uint2 key) {
+  if constexpr (Probe<V>::kNormals) {
+    for_each_eps(in, out, blk, chain, layer, ev, key, [&](int k, int j, float e) {
+      dst[k * stride + j] = to_op<T>(sig[k * out + j] * e);
+    });
+  } else {
+    for (int idx = threadIdx.x; idx < in * out; idx += blockDim.x) {
+      const int k = idx / out, j = idx - k * out;
+      dst[k * stride + j] = to_op<T>(sig[idx] * (V == kEpsRef ? loc[idx] : 0.01f));
+    }
+  }
 }
 
 // words[r * stride + col] for the tile's rows (0 past the valid rows).
@@ -234,11 +310,13 @@ struct EvalSmem {
   float* sq;
   float* mu0;
   float* raw;
+  float* o2;  // K8 blockdiag: the tile's 2 out product columns, row stride 2 b_max
 };
 
-__host__ __device__ size_t eval_smem_floats(const Params& p) {
+__host__ __device__ size_t eval_smem_floats(const Params& p, bool blockdiag = false) {
   return (size_t)kTileRows * p.words_stride + 3 * (size_t)kTileRows * p.act_stride +
-         2 * (size_t)p.w_max + p.b_max + 4 * kTileRows;
+         2 * (size_t)p.w_max + p.b_max + 4 * kTileRows +
+         (blockdiag ? 2 * (size_t)kTileRows * p.b_max : 0);
 }
 
 __device__ EvalSmem carve_eval(float* smem, const Params& p) {
@@ -254,16 +332,21 @@ __device__ EvalSmem carve_eval(float* smem, const Params& p) {
   s.sq = s.loss + kTileRows;
   s.mu0 = s.sq + kTileRows;
   s.raw = s.mu0 + kTileRows;
+  s.o2 = s.raw + kTileRows;
   return s;
 }
 
 // K6's device code: leaves in s.loss[r] the negative log-posterior of tile
 // row r < n_valid (prior included; 0 for the other rows).  The tile's rows
 // are read from zt (stride z_dim), xt, yt and vt (stride v_dim), in device
-// or shared memory; blk is the rows' logical block, ev the evaluation.
+// or shared memory; blk is the rows' logical block, ev the evaluation.  V is
+// K8's variant (kBase for K5 and K6).
+template <int V>
 __device__ void tile_neg_logp(const Params& p, const EvalSmem& s, const float* zt,
                               const float* xt, const float* yt, const float* vt, int row0,
                               int n_valid, int blk, uint32_t ev, uint2 key) {
+  using T = typename Probe<V>::T;
+  constexpr bool kPert = Probe<V>::kPert, kSigns = Probe<V>::kSigns;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int as = p.act_stride, ws = p.words_stride;
   float* act = s.act;
@@ -284,22 +367,36 @@ __device__ void tile_neg_logp(const Params& p, const EvalSmem& s, const float* z
     for (int i = 0; i < c.n_layers; ++i) {
       const int in = c.dims[i], out = c.dims[i + 1];
       const bool last = i == c.n_layers - 1;
-      if (((2 * i) >> 5) != group) {
-        group = (2 * i) >> 5;
-        fill_words(s.words, ws, row0, n_valid, c.max_w, ch, group, ev, key);
-        __syncthreads();
+      if constexpr (kSigns) {
+        if (((2 * i) >> 5) != group) {
+          group = (2 * i) >> 5;
+          fill_words(s.words, ws, row0, n_valid, c.max_w, ch, group, ev, key);
+          __syncthreads();
+        }
       }
       const int bit_in = (2 * i) & 31, bit_out = (2 * i + 1) & 31;
 
-      // Stage this layer's loc, its P for the block, and the sign-flipped activations.
+      // Stage this layer's loc, its P for the block, and the sign-flipped
+      // activations (bf16: the rounded activations, then the rounded
+      // sign-flipped ones, both in s.sgn).
+      const float* loc = c.loc[i];
       for (int idx = tid; idx < kTileRows * in; idx += blockDim.x) {
         const int r = idx / in, k = idx - r * in;
         const float h = act[r * as + k];
-        s.sgn[r * as + k] = ((s.words[r * ws + k] >> bit_in) & 1u) ? -h : h;
+        if constexpr (V == kBf16) {
+          T* hb = reinterpret_cast<T*>(s.sgn);
+          hb[r * as + k] = to_op<T>(h);
+          hb[kTileRows * as + r * as + k] = to_op<T>(apply_sign<V>(h, s.words[r * ws + k], bit_in));
+        } else if constexpr (kSigns) {
+          s.sgn[r * as + k] = apply_sign<V>(h, s.words[r * ws + k], bit_in);
+        }
       }
-      const float* loc = c.loc[i];
-      for (int idx = tid; idx < in * out; idx += blockDim.x) s.wl[idx] = loc[idx];
-      build_p(s.wp, out, c.sig[i], in, out, blk, ch, i, ev, key);
+      if constexpr (V != kBlockDiag) {
+        T* wl = reinterpret_cast<T*>(s.wl);
+        for (int idx = tid; idx < in * out; idx += blockDim.x) wl[idx] = to_op<T>(loc[idx]);
+        if constexpr (kPert)
+          build_p<V>(reinterpret_cast<T*>(s.wp), out, c.sig[i], loc, in, out, blk, ch, i, ev, key);
+      }
       for (int idx = tid; idx < out; idx += blockDim.x) s.wb[idx] = c.b[i][idx];
       __syncthreads();
 
@@ -307,25 +404,19 @@ __device__ void tile_neg_logp(const Params& p, const EvalSmem& s, const float* z
       float sq_acc[kRowsPerWarp];
 #pragma unroll
       for (int j = 0; j < kRowsPerWarp; ++j) sq_acc[j] = 0.f;
-      for (int col = lane; col < out; col += 32) {
-        float am[kRowsPerWarp], ap[kRowsPerWarp];
-#pragma unroll
-        for (int j = 0; j < kRowsPerWarp; ++j) am[j] = ap[j] = 0.f;
-        for (int k = 0; k < in; ++k) {
-          const float l = s.wl[k * out + col], q = s.wp[k * out + col];
-#pragma unroll
-          for (int j = 0; j < kRowsPerWarp; ++j) {
-            const int r = warp * kRowsPerWarp + j;
-            am[j] = fmaf(act[r * as + k], l, am[j]);
-            ap[j] = fmaf(s.sgn[r * as + k], q, ap[j]);
-          }
-        }
+      // Column col of the warp's rows: am the loc product, ap the
+      // perturbation product before r_out.
+      auto emit = [&](int col, const float* am, const float* ap) {
         const float bc = s.wb[col];
 #pragma unroll
         for (int j = 0; j < kRowsPerWarp; ++j) {
           const int r = warp * kRowsPerWarp + j;
-          const float pert = ((s.words[r * ws + col] >> bit_out) & 1u) ? -ap[j] : ap[j];
-          const float pre = (am[j] + bc) + pert;
+          float pre = am[j] + bc;
+          if constexpr (kSigns) {
+            pre = pre + apply_sign<V>(ap[j], s.words[r * ws + col], bit_out);
+          } else if constexpr (kPert) {
+            pre = pre + ap[j];
+          }
           if (!last) {
             nxt[r * as + col] = pre > 0.f ? pre : kLeakySlope * pre;
           } else if (r < n_valid) {
@@ -337,6 +428,92 @@ __device__ void tile_neg_logp(const Params& p, const EvalSmem& s, const float* z
             if (col == 0) s.mu0[r] = pre;
             if (col == d_mu) s.raw[r] = pre;
           }
+        }
+      };
+
+      if constexpr (V == kBlockDiag) {
+        // [act, sgn] (2 in columns) @ W2 = [[loc, 0], [0, P]] (2 in x 2 out)
+        // into s.o2, W2 staged in panels of pw columns over wl and wp.
+        const int os = 2 * p.b_max;
+        const int pw = min(2 * out, p.w_max / in);  // >= out: at most two panels
+        float* w2 = s.wl;
+        const float* sig = c.sig[i];
+        for (int c0 = 0; c0 < 2 * out; c0 += pw) {
+          const int cw = min(pw, 2 * out - c0);
+          if (c0 > 0) __syncthreads();  // the previous panel's readers are done
+          for (int idx = tid; idx < 2 * in * cw; idx += blockDim.x) {
+            const int k = idx / cw, cc = c0 + (idx - k * cw);
+            if (k < in) {
+              w2[idx] = cc < out ? loc[k * out + cc] : 0.f;
+            } else if (cc < out) {
+              w2[idx] = 0.f;
+            }
+          }
+          if (c0 + cw > out)
+            for_each_eps(in, out, blk, ch, i, ev, key, [&](int k, int j, float e) {
+              const int cc = out + j - c0;
+              if (cc >= 0 && cc < cw) w2[(in + k) * cw + cc] = sig[k * out + j] * e;
+            });
+          __syncthreads();
+          for (int col = c0 + lane; col < c0 + cw; col += 32) {
+            float acc[kRowsPerWarp];
+#pragma unroll
+            for (int j = 0; j < kRowsPerWarp; ++j) acc[j] = 0.f;
+            for (int k = 0; k < in; ++k) {
+              const float w = w2[k * cw + col - c0];
+#pragma unroll
+              for (int j = 0; j < kRowsPerWarp; ++j)
+                acc[j] = fmaf(act[(warp * kRowsPerWarp + j) * as + k], w, acc[j]);
+            }
+            for (int k = 0; k < in; ++k) {
+              const float w = w2[(in + k) * cw + col - c0];
+#pragma unroll
+              for (int j = 0; j < kRowsPerWarp; ++j)
+                acc[j] = fmaf(s.sgn[(warp * kRowsPerWarp + j) * as + k], w, acc[j]);
+            }
+#pragma unroll
+            for (int j = 0; j < kRowsPerWarp; ++j) s.o2[(warp * kRowsPerWarp + j) * os + col] = acc[j];
+          }
+        }
+        __syncwarp();  // a row's o2 columns are written and read by its own warp
+        for (int col = lane; col < out; col += 32) {
+          float am[kRowsPerWarp], ap[kRowsPerWarp];
+#pragma unroll
+          for (int j = 0; j < kRowsPerWarp; ++j) {
+            const int r = warp * kRowsPerWarp + j;
+            am[j] = s.o2[r * os + col];
+            ap[j] = s.o2[r * os + out + col];
+          }
+          emit(col, am, ap);
+        }
+      } else {
+        // bf16: hb holds the rounded activations, then the rounded sign-flipped ones.
+        const T* a_op;
+        const T* s_op;
+        if constexpr (V == kBf16) {
+          a_op = reinterpret_cast<const T*>(s.sgn);
+          s_op = a_op + kTileRows * as;
+        } else {
+          a_op = act;
+          s_op = kSigns ? s.sgn : act;
+        }
+        const T* wl = reinterpret_cast<const T*>(s.wl);
+        const T* wp = reinterpret_cast<const T*>(s.wp);
+        for (int col = lane; col < out; col += 32) {
+          float am[kRowsPerWarp], ap[kRowsPerWarp];
+#pragma unroll
+          for (int j = 0; j < kRowsPerWarp; ++j) am[j] = ap[j] = 0.f;
+          for (int k = 0; k < in; ++k) {
+            const float l = from_op(wl[k * out + col]);
+            const float q = kPert ? from_op(wp[k * out + col]) : 0.f;
+#pragma unroll
+            for (int j = 0; j < kRowsPerWarp; ++j) {
+              const int r = warp * kRowsPerWarp + j;
+              am[j] = fmaf(from_op(a_op[r * as + k]), l, am[j]);
+              if constexpr (kPert) ap[j] = fmaf(from_op(s_op[r * as + k]), q, ap[j]);
+            }
+          }
+          emit(col, am, ap);
         }
       }
       if (last) {
@@ -382,14 +559,16 @@ __device__ void tile_neg_logp(const Params& p, const EvalSmem& s, const float* z
   __syncthreads();
 }
 
-// K6: out[row] = the negative log-posterior, one evaluation (ev = 0).
+// K6 (V = kBase) and K8's variant V: out[row] = the negative log-posterior,
+// one evaluation (ev = 0).
+template <int V>
 __global__ void __launch_bounds__(kThreads) inkernel_logp_kernel(const Params p) {
   extern __shared__ float4 smem4[];
   const EvalSmem s = carve_eval(reinterpret_cast<float*>(smem4), p);
   const int row0 = blockIdx.x * kTileRows;
   const int n_valid = min(kTileRows, p.n_rows - row0);
   const uint2 key = make_uint2((uint32_t)p.seed[0], (uint32_t)p.seed[1]);
-  tile_neg_logp(p, s, p.z + (size_t)row0 * p.z_dim, p.x + row0, p.y + row0,
+  tile_neg_logp<V>(p, s, p.z + (size_t)row0 * p.z_dim, p.x + row0, p.y + row0,
                 p.v + (size_t)row0 * p.v_dim, row0, n_valid, row0 / p.block_rows, 0u, key);
   if ((int)threadIdx.x < n_valid) p.out[row0 + threadIdx.x] = s.loss[threadIdx.x];
 }
@@ -441,9 +620,9 @@ __global__ void __launch_bounds__(kThreads) inkernel_mh_steps_kernel(const Param
                     zp[r * zd + j] = __fadd_rn(zt[r * zd + j], __fmul_rn(q_sd, e));
                   });
     }
-    tile_neg_logp(p, s, zp, xt, yt, vt, row0, n_valid, blk, 2u * step, key);
+    tile_neg_logp<kBase>(p, s, zp, xt, yt, vt, row0, n_valid, blk, 2u * step, key);
     if (tid < kTileRows) lp_prop[tid] = -s.loss[tid];
-    tile_neg_logp(p, s, zt, xt, yt, vt, row0, n_valid, blk, 2u * step + 1u, key);
+    tile_neg_logp<kBase>(p, s, zt, xt, yt, vt, row0, n_valid, blk, 2u * step + 1u, key);
     if (tid < kTileRows) {  // warp 0, all 32 lanes
       const float lp_cur = -s.loss[tid];
       const uint4 w = philox4x32_10(
@@ -537,7 +716,7 @@ __global__ void __launch_bounds__(kThreads) inkernel_grad_kernel(const Params p)
       }
       const float* loc = c.loc[i];
       for (int idx = tid; idx < in * out; idx += blockDim.x) wl[idx] = loc[idx];
-      build_p(wp, out, c.sig[i], in, out, blk, ch, i, 0u, key);
+      build_p<kBase>(wp, out, c.sig[i], loc, in, out, blk, ch, i, 0u, key);
       for (int idx = tid; idx < out; idx += blockDim.x) wb[idx] = c.b[i][idx];
       __syncthreads();
 
@@ -647,7 +826,7 @@ __global__ void __launch_bounds__(kThreads) inkernel_grad_kernel(const Params p)
         const int k = idx / out, j = idx - k * out;
         wl[k * ostr + j] = loc[idx];
       }
-      build_p(wp, ostr, c.sig[i], in, out, blk, ch, i, 0u, key);
+      build_p<kBase>(wp, ostr, c.sig[i], loc, in, out, blk, ch, i, 0u, key);
       __syncthreads();
       for (int k = lane; k < in; k += 32) {
         float g1[kRowsPerWarp], g2[kRowsPerWarp];
@@ -864,7 +1043,35 @@ int bnn_inkernel_logp(const float* z, const float* x, const float* y, const floa
                                 binary, fixed_mask, sigma_v, sigma_x, sigma_y, block_rows,
                                 n_layers, dims, ptrs);
   if (code != 0) return code;
-  return launch(inkernel_logp_kernel, p, sizeof(float) * eval_smem_floats(p), stream);
+  return launch(inkernel_logp_kernel<kBase>, p, sizeof(float) * eval_smem_floats(p), stream);
+}
+
+// K8: variant `variant` (the order of enum Variant) of K6's evaluation;
+// other arguments as for bnn_inkernel_logp.  kErrShape for an unknown variant.
+int bnn_inkernel_probe(int variant, const float* z, const float* x, const float* y,
+                       const float* v, const int* seed, float* out, int n_rows, int z_dim,
+                       int v_dim, int d0, int d1, int d2, int binary, int fixed_mask,
+                       float sigma_v, float sigma_x, float sigma_y, int block_rows,
+                       const int* n_layers, const int* dims, const void* const* ptrs,
+                       void* stream) {
+  Params p;
+  const int code = build_params(p, z, x, y, v, seed, out, n_rows, z_dim, v_dim, d0, d1, d2,
+                                binary, fixed_mask, sigma_v, sigma_x, sigma_y, block_rows,
+                                n_layers, dims, ptrs);
+  if (code != 0) return code;
+  const size_t smem = sizeof(float) * eval_smem_floats(p, variant == kBlockDiag);
+  switch (variant) {
+    case kBase: return launch(inkernel_logp_kernel<kBase>, p, smem, stream);
+    case kNoPert: return launch(inkernel_logp_kernel<kNoPert>, p, smem, stream);
+    case kNoEps: return launch(inkernel_logp_kernel<kNoEps>, p, smem, stream);
+    case kEpsRef: return launch(inkernel_logp_kernel<kEpsRef>, p, smem, stream);
+    case kNoSigns: return launch(inkernel_logp_kernel<kNoSigns>, p, smem, stream);
+    case kXorSign: return launch(inkernel_logp_kernel<kXorSign>, p, smem, stream);
+    case kNoPrng: return launch(inkernel_logp_kernel<kNoPrng>, p, smem, stream);
+    case kBlockDiag: return launch(inkernel_logp_kernel<kBlockDiag>, p, smem, stream);
+    case kBf16: return launch(inkernel_logp_kernel<kBf16>, p, smem, stream);
+    default: return kErrShape;
+  }
 }
 
 // K7: out (n_rows,) = negative log-posterior and grad (n_rows, z_dim) = its
@@ -963,7 +1170,7 @@ const char* bnn_inkernel_error_string(int code) {
   switch (code) {
     case kErrTooManyLayers: return "a chain has 0 or more than 20 layers";
     case kErrSmem: return "the tile's buffers for these widths do not fit in 227 KB of shared memory";
-    case kErrShape: return "a layer width is < 1, a chain's input or output width is wrong, or n_steps < 0";
+    case kErrShape: return "a layer width is < 1, a chain's input or output width is wrong, n_steps < 0, or an unknown probe variant";
     case kErrBlockRows: return "block_rows must be a positive multiple of the kernel's 32-row tile";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }

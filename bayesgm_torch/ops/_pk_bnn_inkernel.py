@@ -22,7 +22,9 @@ for CPU tensors.  The weights come in the flat layout of
 
 Besides each wrapper's own ``launches``, :data:`LAUNCHES` counts the launches
 of each entry point over every wrapper of this module, so a caller that
-holds no wrapper can still see whether a path launched K5, K6 or K7.
+holds no wrapper can still see whether a path launched K5, K6 or K7.  K8,
+the probe's variants of K6's evaluation, has its entry point in the same
+library and its wrapper in ``bayesgm_torch/benchmarks/mxu_probe.py``.
 """
 
 from __future__ import annotations
@@ -57,25 +59,34 @@ def _n_layers(flat) -> int:
     return (len(flat) - 2) // 3
 
 
-def _chain_plain(h, flat, signs, eps, block_rows, pre_acts=None):
+def _chain_plain(h, flat, signs, eps, block_rows, pre_acts=None, rnd=None):
     """One flipout chain on ``(n, in)`` rows with per-block weight noise:
     ``eps(i, rows, cols)`` gives layer ``i``'s ``(n_blocks, rows, cols)``
     draws, and each block's rows go through their own ``P = sigma * eps`` in
     one batched product.  Hidden pre-activations are appended to the list
-    ``pre_acts`` when one is given."""
+    ``pre_acts`` when one is given.
+
+    The probe's variants (``bayesgm_torch.benchmarks.mxu_probe``) switch
+    parts out: ``eps`` may return one ``(rows, cols)`` stand-in shared by all
+    blocks, or be None (no perturbation product); ``signs=None`` applies no
+    signs; ``rnd`` rounds each product's operands (bf16)."""
     n = h.shape[0]
     n_blocks = -(-n // block_rows)
     n_pad = n_blocks * block_rows
     n_layers = _n_layers(flat)
+    rnd = (lambda t: t) if rnd is None else rnd
     h = h * flat[0] + flat[1]
     for i in range(n_layers):
         loc, sig, b = flat[2 + 3 * i], flat[3 + 3 * i], flat[4 + 3 * i]
-        P = sig * eps(i, *loc.shape)
-        hs = h * signs(2 * i, loc.shape[0])
-        if n_pad != n:
-            hs = torch.cat([hs, hs.new_zeros((n_pad - n, hs.shape[1]))])
-        pert = torch.bmm(hs.reshape(n_blocks, block_rows, -1), P).reshape(n_pad, -1)[:n]
-        h = h @ loc + b + pert * signs(2 * i + 1, loc.shape[1])
+        out = rnd(h) @ rnd(loc) + b
+        if eps is not None:
+            P = rnd(sig * eps(i, *loc.shape)).expand(n_blocks, -1, -1)
+            hs = rnd(h if signs is None else h * signs(2 * i, loc.shape[0]))
+            if n_pad != n:
+                hs = torch.cat([hs, hs.new_zeros((n_pad - n, hs.shape[1]))])
+            pert = torch.bmm(hs.reshape(n_blocks, block_rows, -1), P).reshape(n_pad, -1)[:n]
+            out = out + (pert if signs is None else pert * signs(2 * i + 1, loc.shape[1]))
+        h = out
         if i < n_layers - 1:
             if pre_acts is not None:
                 pre_acts.append(h.detach())
@@ -175,12 +186,13 @@ def _lib():
         lib.bnn_inkernel_logp_and_grad.argtypes = [vp] * 7 + common + tail  # ... out grad
         lib.bnn_inkernel_mh_steps.argtypes = ([vp] * 9 + common + [i32]    # ... n_steps
                                               + tail)  # z x y v seed q_sd z_out logp counts
+        lib.bnn_inkernel_probe.argtypes = [i32] + [vp] * 6 + common + tail  # variant, as logp
         lib.bnn_inkernel_sign_words.argtypes = [vp, vp, i32, i32, i32, i32, i32, vp]
         lib.bnn_inkernel_eps.argtypes = [vp, vp, i32, i32, i32, i32, i32, i32, vp]
         lib.bnn_inkernel_proposal.argtypes = [vp, vp, i32, i32, i32, vp]
         lib.bnn_inkernel_accept.argtypes = [vp, vp, i32, i32, vp]
-        for fn in ("logp", "logp_and_grad", "mh_steps", "sign_words", "eps", "proposal",
-                   "accept"):
+        for fn in ("logp", "logp_and_grad", "mh_steps", "probe", "sign_words", "eps",
+                   "proposal", "accept"):
             getattr(lib, f"bnn_inkernel_{fn}").restype = i32
         lib.bnn_inkernel_error_string.argtypes = [i32]
         lib.bnn_inkernel_error_string.restype = ctypes.c_char_p

@@ -9,7 +9,7 @@ non-zero:
 1. device   - require CUDA; print the card's name and power limit
               (nvidia-smi) and the torch / CUDA versions;
 2. build    - build K1 and K2 (bayesgm_torch/csrc/bnn_hosteps.cu), K3 and
-              K4 (bayesgm_torch/csrc/plain.cu) and K5, K6 and K7
+              K4 (bayesgm_torch/csrc/plain.cu) and K5, K6, K7 and K8
               (bayesgm_torch/csrc/bnn_inkernel.cu) with nvcc, one process
               per source, started together;
 3. philox   - the kernel's sign words equal the plain Philox words exactly;
@@ -82,6 +82,21 @@ The in-kernel-eps family (K5-K7) at the flagship width, on the BNN model:
               standard errors from the per-step rates' spread about their
               50-step window means.
 
+K8, the probe (bayesgm_torch/benchmarks/mxu_probe.py), with its own nets
+(gamma_eff 1, beta 0, loc ~ N(0, 1) / sqrt(fan_in), sigma 0.0067, b 0) at
+the flagship paired shape, 2N = 40000 rows, block_rows 512:
+
+21. probe   - run_probe over its ten variants (prod = K6, then K8's nine)
+              with the two-length timing at 10 vs 50 evaluations: each
+              variant's launches == 3 + 4 x 10 + 3 x 50, none of K7's or
+              K5's entry points; then each variant's kernel vs its plain
+              version within rtol 1e-4 / atol 1e-3 (bf16 too), base == prod
+              and xorsign == base bit for bit, blockdiag vs base within the
+              same limits, and the plain versions' times; then the same
+              comparisons with each weight sigma ~ U(0.05, 0.15), where
+              every variant's value must lie over ten limits from nopert's,
+              and bf16's from base's (at sigma 0.0067 too).
+
 Launch counts are set to 0 just before each driven path and read just
 after; the launches of the comparisons do not count.  The last lines are a
 JSON object with the kernels' numbers (each with its bound: the larger of
@@ -105,13 +120,13 @@ GRAD_RTOL, GRAD_ATOL = 1e-3, 1e-3
 N, V_DIM, Z_DIMS = 20000, 200, (1, 1, 1, 7)
 BURN_IN, N_MCMC = 200, 200
 MALA_BURN_IN, MALA_N_MCMC = 100, 100
+PROBE_SHORT, PROBE_LONG = 10, 50  # the probe's two chain lengths (its defaults: 50, 250)
+# The probe's nets again with each weight sigma ~ U(0.05, 0.15) in place of
+# 0.0067: there the perturbation product (with P = sigma * 0.01 in noeps and
+# noprng) moves every variant's value from nopert's by over SEPARATION limits
+PROBE_SIGMA, SEPARATION = (0.05, 0.15), 10.0
 FIT_BATCH, FIT_EPOCHS, EGM_N_ITER = 32, 1, 200
 PLAIN_BS = 10000  # predict's subject batch for plain nets (bs=None)
-HBM_BYTES_PER_S, F32_FLOP_PER_S = 3.35e12, 67e12  # H100 SXM, at the 700 W limit
-# Operations per in-kernel normal: half a pair's share of a Philox call (10
-# rounds x 4 integer multiplies / 2 pairs), the pair's log, sqrt, sin, cos
-# and two products, and the sigma * eps product: (20 + 6) / 2 + 1.
-OPS_PER_NORMAL = 14
 
 
 def flagship_params(output_dir, use_bnn=True):
@@ -121,8 +136,11 @@ def flagship_params(output_dir, use_bnn=True):
 
 
 def bound(n_bytes, flops):
-    """``(bound_ms, bound_by)``: the least time the card could take."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    """``(bound_ms, bound_by)``: the least time the card could take, at the
+    peaks the probe's bounds use."""
+    from bayesgm_torch.benchmarks import mxu_probe as mp
+
+    t_bytes, t_ops = n_bytes / mp.HBM_BYTES_PER_S, flops / mp.F32_FLOP_PER_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
 
 
@@ -208,6 +226,7 @@ def main() -> int:
     import numpy as np
 
     from bayesgm_torch import CausalBGM, Sim_Hirano_Imbens_sampler
+    from bayesgm_torch.benchmarks import mxu_probe as mp
     from bayesgm_torch.models.causalbgm import MH_WINDOW, _apply, _loss_v
     from bayesgm_torch.ops._build import load_library
     from bayesgm_torch.ops._pk_bnn_hosteps import (
@@ -688,6 +707,81 @@ def main() -> int:
         raise AssertionError("[20 window] the window's burn-in acceptance differs from the "
                              "per-step path's")
 
+    # 21. the probe: run_probe at the flagship paired shape with every count
+    # at 0, then each variant's kernel against its plain version on the
+    # probe's own inputs (the same seed)
+    for counts in (mp.LAUNCHES, ik.LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    probe = {r["variant"]: r for r in mp.run_probe(n=N, v_dim=V_DIM, short=PROBE_SHORT,
+                                                  long=PROBE_LONG)}
+    probe_wall = time.perf_counter() - t0
+    probe_launches = dict(mp.LAUNCHES, prod=ik.LAUNCHES["logp"])
+    probe_entries = dict(ik.LAUNCHES)
+    want_launches = 3 + 4 * PROBE_SHORT + 3 * PROBE_LONG
+    for v, r in probe.items():
+        vs_base = probe["base"]["ms_per_eval"] / r["ms_per_eval"]
+        print(f"[21 probe] {v}: {r['ms_per_eval']:.4f} ms per evaluation (reps "
+              f"{', '.join(f'{t:.4f}' for t in r['reps_ms'])}; host "
+              f"{r['host_ms_per_eval']:.4f} ms to enqueue one); base/this {vs_base:.3f}; "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+              f"{100 * r['share_of_bound']:.2f} % of it; launches {probe_launches[v]}", flush=True)
+    print(f"[21 probe] run_probe wall {probe_wall:.3f} s; {probe['base']['card']}", flush=True)
+    checks = {f"{v} launches == {want_launches}": probe_launches[v] == want_launches
+              for v in mp.VARIANTS}
+    checks["no K7 or K5 launch"] = probe_entries["logp_and_grad"] == probe_entries["mh_steps"] == 0
+    for name, ok in checks.items():
+        print(f"[21 probe] {name}: {'ok' if ok else 'FAIL'}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError("[21 probe] launch counts")
+    pcfg, pdims, pdata, pflats = mp.probe_inputs(N, V_DIM, dev)
+    pseed = torch.tensor([3, 17], dtype=torch.int32, device=dev)
+    sgen = torch.Generator(device=dev).manual_seed(31)
+    lo, hi = PROBE_SIGMA
+    wide_flats = [[t if j < 2 or (j - 2) % 3 != 1  # [gamma, beta, (loc, sigma, b) x L]
+                   else lo + (hi - lo) * torch.rand(t.shape, generator=sgen, device=dev)
+                   for j, t in enumerate(f)] for f in pflats]
+
+    def probe_outputs(label, p_flats):
+        """Each variant's kernel against its plain version on the probe's
+        rows with the nets ``p_flats``: ``(args, outputs, max_abs_errs)``."""
+        p_args = (*pdata, pseed, *p_flats)
+        outs, errs = {}, {}
+        for v in mp.VARIANTS:
+            outs[v] = mp.make_probe_kernel(v, pcfg, *pdims)(*p_args)
+            errs[v] = compare(f"[21 K8 {v} N={2 * N} {label}]", outs[v],
+                              mp.probe_plain(v, pcfg, *p_args, mp.BLOCK_ROWS))
+        return p_args, outs, errs
+
+    def separation(got, ref):
+        """max |got - ref| in units of the (RTOL, ATOL) limit about ref."""
+        return float(((got - ref).abs() / (ATOL + RTOL * ref.abs())).max())
+
+    pargs, p_out, p_err = probe_outputs("sigma 0.0067", pflats)
+    p_plain_ms = {v: time_ms(lambda: mp.probe_plain(v, pcfg, *pargs, mp.BLOCK_ROWS), 0, 3)
+                  for v in mp.VARIANTS}
+    for a, b in (("base", "prod"), ("xorsign", "base")):
+        if not torch.equal(p_out[a], p_out[b]):
+            raise AssertionError(f"[21 K8] {a} differs from {b}")
+    print("[21 K8] base == prod and xorsign == base bit for bit", flush=True)
+    compare("[21 K8 blockdiag vs base]", p_out["blockdiag"], p_out["base"])
+    _, w_out, _ = probe_outputs(f"sigma ~ U{PROBE_SIGMA}", wide_flats)
+    # A kernel that skipped bf16's rounding, or a variant's perturbation
+    # product, would land on base's or nopert's value: each is far from it.
+    seps = {"bf16 vs base, sigma 0.0067": separation(p_out["bf16"], p_out["base"]),
+            f"bf16 vs base, sigma ~ U{PROBE_SIGMA}": separation(w_out["bf16"], w_out["base"])}
+    seps.update({f"{v} vs nopert, sigma ~ U{PROBE_SIGMA}": separation(w_out[v], w_out["nopert"])
+                 for v in mp.VARIANTS if v != "nopert"})
+    for name, sep in seps.items():
+        print(f"[21 K8 separation] {name}: max gap {sep:.3e} limits (needs > {SEPARATION}) "
+              f"{'ok' if sep > SEPARATION else 'FAIL'}", flush=True)
+    if min(seps.values()) <= SEPARATION:
+        raise AssertionError("[21 K8] a variant's value is within reach of base's or nopert's")
+    for v in mp.VARIANTS:
+        print(f"[21 timing] {v}: plain {p_plain_ms[v]:.4f} ms", flush=True)
+
     # Bounds at the main path's shapes: K1 paired at 2N, K2 and K3 at the fit
     # batch, K4 at a predict batch.
     bnn_macs, plain_macs = chain_macs(dims), chain_macs(pdims)
@@ -700,13 +794,13 @@ def main() -> int:
     b_k4 = bound(row_bytes(PLAIN_BS, False) + 4 * plain_w, PLAIN_BS * 2 * plain_macs)
     # K5-K7: each logical block's eps is needed once per evaluation.
     iflat_w = sum(t.numel() for f in iflats for t in f)
-    eps_ops = lambda n_rows, block: -(-n_rows // block) * bnn_macs * OPS_PER_NORMAL
+    eps_ops = lambda n_rows, block: -(-n_rows // block) * bnn_macs * mp.OPS_PER_NORMAL
     b_k6 = bound(row_bytes(N, False) + 4 * iflat_w,
                  N * 4 * bnn_macs + eps_ops(N, k6.block_rows))
     b_k7 = bound(row_bytes(N, True) + 4 * iflat_w, N * 8 * bnn_macs + eps_ops(N, k7.block_rows))
     b_k5 = bound(row_bytes(N, True) + 4 * (iflat_w + MH_WINDOW),  # z, logp out; counts
                  2 * MH_WINDOW * (N * 4 * bnn_macs + eps_ops(N, k5.block_rows))
-                 + MH_WINDOW * N * (sum(Z_DIMS) + 1) * OPS_PER_NORMAL)  # proposals, uniforms
+                 + MH_WINDOW * N * (sum(Z_DIMS) + 1) * mp.OPS_PER_NORMAL)  # proposals, uniforms
     print(json.dumps({"kernels": [{
         "name": "bnn_hosteps",
         "route": "cuda",
@@ -783,7 +877,8 @@ def main() -> int:
         "route": "cuda",
         "source": "bayesgm_torch/csrc/bnn_inkernel.cu",
         "replaces": "bayesgm_tpu/ops/_pk_bnn_inkernel.py:123",
-        "launches": window_launches["bnn_inkernel_logp"],  # K5 runs its device code
+        "launches": probe_launches["prod"],  # the probe's prod; K5 runs its device code
+        "launches_window_predict": window_launches["bnn_inkernel_logp"],
         "max_abs_err": max(err6),
         "ms": t_k6[0],
         "plain_ms": t_k6[1],
@@ -804,6 +899,28 @@ def main() -> int:
         "library_ms": None,
         f"ms_n{FIT_BATCH}": t_k7[FIT_BATCH][0],
         f"plain_ms_n{FIT_BATCH}": t_k7[FIT_BATCH][1],
+    }, {
+        "name": "bnn_inkernel_probe",
+        "route": "cuda",
+        "source": "bayesgm_torch/csrc/bnn_inkernel.cu",
+        "replaces": "benchmarks/mxu_probe.py:61",
+        "launches": sum(probe_launches[v] for v in mp.KERNEL_VARIANTS),
+        "max_abs_err": max(p_err[v] for v in mp.KERNEL_VARIANTS),
+        "ms": probe["base"]["ms_per_eval"],
+        "plain_ms": p_plain_ms["base"],
+        "bound_ms": probe["base"]["bound_ms"],
+        "bound_by": probe["base"]["bound_by"],
+        "library_ms": None,
+        "variants": {v: {
+            "launches": probe_launches[v],
+            "max_abs_err": p_err[v],
+            "ms": probe[v]["ms_per_eval"],
+            "plain_ms": p_plain_ms[v],
+            "bound_ms": probe[v]["bound_ms"],
+            "bound_by": probe[v]["bound_by"],
+            "library_ms": None,
+            "speedup_vs_base": probe["base"]["ms_per_eval"] / probe[v]["ms_per_eval"],
+        } for v in mp.VARIANTS},
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

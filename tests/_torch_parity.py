@@ -5,7 +5,8 @@ the port the same random numbers.
   kernels (the murmur3 counter stream of tests/test_pallas.py), and
   :func:`replayed_words` hands the port's plain kernels the words the
   stubbed JAX kernel reads (:class:`ReplayedDraws` all the draws of the
-  in-kernel-eps kernels);
+  in-kernel-eps kernels, :class:`ProbeReplayedDraws` those of each of the
+  JAX probe's variants);
 - :class:`FlipoutDraws` replaces both packages' ``_fused_flipout_draws``
   with one deterministic numpy stream: call ``i`` of either package gets the
   same eps and signs for the same layer shapes;
@@ -81,9 +82,13 @@ class ReplayedDraws:
     per layer; then (K5 only) the accept uniforms (block_rows, 1).  The JAX
     window's loop body is traced once, so every step reads the same draws."""
 
+    chain_bits = True  # each chain starts with its sign-word draw
+    per_layer = 2  # then draws per layer: u1, u2
+
     def __init__(self, dims, block_rows, mh_window=False):
+        self.dims = dims
         self.block_rows = block_rows
-        per_chain = [1 + 2 * (len(d) - 1) for d in dims]
+        per_chain = [int(self.chain_bits) + self.per_layer * (len(d) - 1) for d in dims]
         self.chain_off = [0, per_chain[0], per_chain[0] + per_chain[1]]
         self.per_eval = sum(per_chain)
         self.base = 2 if mh_window else 0
@@ -102,7 +107,7 @@ class ReplayedDraws:
         return self._rows(self._eval_start(chain, ev), rows, cols)
 
     def eps_words(self, n_blocks, rows, ch, chain, layer, ev):
-        i = self._eval_start(chain, ev) + 1 + 2 * layer
+        i = self._eval_start(chain, ev) + int(self.chain_bits) + self.per_layer * layer
         return tuple(torch.as_tensor(np.asarray(CounterBits.bits_for(j, (rows, ch)))
                                      .astype(np.int64)).expand(n_blocks, rows, ch)
                      for j in (i, i + 1))
@@ -112,6 +117,38 @@ class ReplayedDraws:
 
     def accept_words(self, rows, step):
         return self._rows(self.base + 2 * self.per_eval, rows, 1)[:, 0]
+
+
+class ProbeReplayedDraws(ReplayedDraws):
+    """The draws the stubbed JAX probe (``benchmarks/mxu_probe.py``) reads for
+    one variant, per chain in its order: base, bf16 and xorsign read K6's
+    (the chain's sign words, then u1, u2 per layer); noeps and epsref the
+    sign words only; nosigns u1, u2 per layer; blockdiag per layer u1, u2,
+    then r_in's (block_rows, in) and r_out's (block_rows, out) draws, whose
+    low bits become bits 2i and 2i + 1 of the port's sign words; nopert and
+    noprng none."""
+
+    LAYOUT = {"base": (True, 2), "bf16": (True, 2), "xorsign": (True, 2), "noeps": (True, 0),
+              "epsref": (True, 0), "nosigns": (False, 2), "blockdiag": (False, 4),
+              "nopert": (False, 0), "noprng": (False, 0)}
+
+    def __init__(self, variant, dims, block_rows):
+        self.chain_bits, self.per_layer = self.LAYOUT[variant]
+        self.blockdiag = variant == "blockdiag"
+        super().__init__(dims, block_rows)
+
+    def sign_words(self, rows, cols, chain, ev, group=0):
+        if not self.blockdiag:
+            return super().sign_words(rows, cols, chain, ev, group)
+        if group:
+            raise ValueError("the replayed words cover at most 16 layers per chain")
+        start = self._eval_start(chain, ev)
+        words = torch.zeros((rows, cols), dtype=torch.int64)
+        d = self.dims[chain]
+        for i, (n_in, n_out) in enumerate(zip(d[:-1], d[1:])):
+            words[:, :n_in] |= (self._rows(start + 4 * i + 2, rows, n_in) & 1) << (2 * i)
+            words[:, :n_out] |= (self._rows(start + 4 * i + 3, rows, n_out) & 1) << (2 * i + 1)
+        return words
 
 
 def flipout_draw(i, dims, batch):

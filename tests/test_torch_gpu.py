@@ -1,4 +1,4 @@
-"""K1 to K7 on the card: the CUDA kernels against their plain PyTorch
+"""K1 to K8 on the card: the CUDA kernels against their plain PyTorch
 versions, the sign words and the in-kernel draws against the plain Philox
 draws, and predict (MH, windowed MH and MALA) and fit through the kernels,
 with flipout-BNN and with plain nets.
@@ -14,6 +14,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from bayesgm_torch.benchmarks import mxu_probe as mp  # noqa: E402
 from bayesgm_torch.models.causalbgm import CausalBGM, CBGMConfig  # noqa: E402
 from bayesgm_torch.ops import _pk_bnn_hosteps as tk  # noqa: E402
 from bayesgm_torch.ops import _pk_bnn_inkernel as ik  # noqa: E402
@@ -487,3 +488,74 @@ def test_window_predict_on_cuda_goes_through_k5(cuda, tmp_path):
     # K5 through its entry point, K6's and K7's entry points not at all
     assert {k: n - before[k] for k, n in ik.LAUNCHES.items()} == {
         "logp": 0, "logp_and_grad": 0, "mh_steps": 2}
+
+
+# -- K8: the probe's variants of K6's evaluation -----------------------------
+
+
+@pytest.mark.parametrize("variant", mp.VARIANTS)
+@pytest.mark.parametrize("n", [1, 999])
+def test_probe_kernel_matches_plain(cuda, variant, n):
+    """Each variant's kernel against its plain version at N not a multiple
+    of block_rows, and the deep g of word group 1 at 70 rows."""
+    for g_hidden, rows in (((24, 40), n), ([8] * 17, 70)):
+        cfg = _cfg()
+        args, dims = _inkernel_inputs(cfg, rows, cuda, g_hidden=g_hidden)
+        fn = mp.make_probe_kernel(variant, cfg, *dims, block_rows=64)
+        got = fn(*args)
+        want = mp.probe_plain(variant, cfg, *args, 64)
+        torch.cuda.synchronize()
+        assert fn.launches == 1 and bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+def _limits_apart(got, ref):
+    """max |got - ref| in units of the (RTOL, ATOL) limit about ref."""
+    return float(((got - ref).abs() / (ATOL + RTOL * ref.abs())).max())
+
+
+@pytest.mark.parametrize("variant", mp.VARIANTS)
+def test_probe_kernel_matches_plain_where_the_perturbation_counts(cuda, variant):
+    """With each weight sigma ~ U(0.2, 0.4), as in the CPU parity test, the
+    perturbation product moves every variant's value from nopert's by over
+    ten limits (noeps and noprng too, whose P is sigma * 0.01), and bf16's
+    rounding moves it from base's: a kernel that left either out fails."""
+    cfg = _cfg()
+    args, dims = _inkernel_inputs(cfg, 999, cuda)
+    gen = torch.Generator(cuda).manual_seed(3)
+    flats = [[t if j < 2 or (j - 2) % 3 != 1  # [gamma, beta, (loc, sigma, b) x L]
+              else 0.2 + 0.2 * torch.rand(t.shape, generator=gen, device=cuda)
+              for j, t in enumerate(f)] for f in args[5:]]
+    args = (*args[:5], *flats)
+    got = mp.make_probe_kernel(variant, cfg, *dims, block_rows=64)(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, mp.probe_plain(variant, cfg, *args, 64), rtol=RTOL, atol=ATOL)
+    if variant != "nopert":
+        assert _limits_apart(got, mp.probe_plain("nopert", cfg, *args, 64)) > 10
+    if variant == "bf16":
+        assert _limits_apart(got, mp.probe_plain("base", cfg, *args, 64)) > 10
+
+
+def test_probe_base_is_k6_and_xorsign_and_blockdiag_are_base(cuda):
+    cfg = _cfg()
+    args, dims = _inkernel_inputs(cfg, 1000, cuda)
+    before = dict(mp.LAUNCHES)
+    out = {v: mp.make_probe_kernel(v, cfg, *dims, block_rows=64)(*args) for v in mp.VARIANTS}
+    torch.cuda.synchronize()
+    assert torch.equal(out["base"], out["prod"]) and torch.equal(out["xorsign"], out["base"])
+    torch.testing.assert_close(out["blockdiag"], out["base"], rtol=RTOL, atol=ATOL)
+    assert {v: n - before[v] for v, n in mp.LAUNCHES.items()} == {v: 1 for v in mp.KERNEL_VARIANTS}
+
+
+def test_probe_kernel_rejects_what_it_cannot_take(cuda):
+    cfg = _cfg()
+    args, dims = _inkernel_inputs(cfg, 8, cuda)
+    with pytest.raises(RuntimeError, match="block_rows"):
+        mp.make_probe_kernel("nopert", cfg, *dims, block_rows=48)(*args)
+    wide_cfg = _cfg(v_dim=400)
+    wide_args, wide_dims = _inkernel_inputs(wide_cfg, 8, cuda, g_hidden=(300,))
+    for variant in ("base", "blockdiag"):
+        fn = mp.make_probe_kernel(variant, wide_cfg, *wide_dims, block_rows=64)
+        with pytest.raises(RuntimeError, match="shared memory"):
+            fn(*wide_args)
+        assert fn.launches == 0
