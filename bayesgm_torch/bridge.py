@@ -4,9 +4,11 @@
   like ``bayesgm_tpu`` ``CausalBGM.nets`` and returns a ``FlipoutMLP`` per
   flipout-shaped net, a ``Critic`` per critic-shaped net and an ``MLP`` per
   plain net (``use_bnn=False``);
-- :func:`load_npz` reads the ``.npz`` that ``CausalBGM.save_weights`` writes.
-  Its keys are ``jax.tree_util.keystr`` paths such as
-  ``"['nets']['g']['layers'][0]['loc']"``; they are parsed with numpy and
+- :func:`load_npz` reads the ``.npz`` that ``CausalBGM.save_weights`` writes,
+  and a full-state ``ckpt-*.npz`` of the JAX fit loop.  Its keys are
+  ``jax.tree_util.keystr`` paths such as
+  ``"['nets']['g']['layers'][0]['loc']"`` or ``"['opt_d'].m['bn'][0]['beta']"``
+  (a NamedTuple field reads as a dict key); they are parsed with numpy and
   the standard library alone;
 - :func:`nets_to_numpy` and :func:`save_npz` go the other way: they write
   the port's nets under the same keys, so JAX ``CausalBGM.load_weights``
@@ -23,7 +25,9 @@ import torch
 
 from bayesgm_torch.ops.nn import MLP, Critic, FlipoutMLP
 
-_KEY_PART = re.compile(r"\['([^']*)'\]|\[(\d+)\]")
+# keystr parts: ['key'] (dict), [0] (list) and .name (a NamedTuple field,
+# as in the Adam states .m, .v and .t of a JAX full-state checkpoint)
+_KEY_PART = re.compile(r"\['([^']*)'\]|\[(\d+)\]|\.([A-Za-z_]\w*)")
 
 
 def _is_flipout_net(tree) -> bool:
@@ -154,7 +158,10 @@ def _parse_key(key: str) -> list:
     for m in _KEY_PART.finditer(key):
         if m.start() != pos:
             raise ValueError(f"unparseable pytree key {key!r}")
-        parts.append(m.group(1) if m.group(1) is not None else int(m.group(2)))
+        if m.group(2) is not None:
+            parts.append(int(m.group(2)))
+        else:
+            parts.append(m.group(1) if m.group(1) is not None else m.group(3))
         pos = m.end()
     if pos != len(key) or not parts:
         raise ValueError(f"unparseable pytree key {key!r}")

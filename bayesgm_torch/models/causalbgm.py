@@ -36,7 +36,6 @@ from __future__ import annotations
 
 import copy
 import datetime
-import glob
 import os
 import warnings
 from typing import NamedTuple, Optional
@@ -72,6 +71,7 @@ from bayesgm_torch.ops.nn import (
     flipout_mlp_kl,
     mlp_apply,
 )
+from bayesgm_torch.utils import checkpoint as ckpt
 from bayesgm_torch.utils.data_io import save_data
 from bayesgm_torch.utils.device import resolve_device
 
@@ -556,7 +556,10 @@ class CausalBGM:
         CPU the window runs K5's plain version (the JAX package on the CPU
         ignores the flag and runs per step).
     timestamp : str or None
-        Run timestamp (current local time if None).
+        Run timestamp (current local time if None).  When
+        ``{output_dir}/checkpoints/{dataset}/{timestamp}`` holds a JAX
+        ``ckpt-*.npz``, the five nets of the latest one are restored here,
+        as the JAX package does; ``fit`` still refuses to resume from it.
     random_seed : int or None
         Seed of the init and of the model's generators (default 42).
     device : str or torch.device
@@ -638,6 +641,13 @@ class CausalBGM:
         if p["save_res"] and not os.path.exists(self.save_dir):
             os.makedirs(self.save_dir)
 
+        # Restore the nets of the latest checkpoint, as the JAX package does
+        # whatever save_model is; the rest of its state is fit's to resume.
+        latest = ckpt.latest_checkpoint(self.checkpoint_path)
+        if latest is not None:
+            self._copy_nets(bridge.nets_from_numpy(ckpt.read_nets(latest)), latest)
+            print("Latest checkpoint restored!!")
+
     # -- construction -----------------------------------------------------
 
     def _build_nets(self):
@@ -695,7 +705,14 @@ class CausalBGM:
         model.  The values are copied into the model's own parameters, so
         the optimizer states stay attached."""
         bundle = bridge.load_npz(path)
-        nets = bundle["nets"]
+        self._copy_nets(bundle["nets"], path)
+        if "data_z" in bundle:
+            self.data_z = torch.as_tensor(bundle["data_z"], device=self.device)
+        return self
+
+    def _copy_nets(self, nets, path):
+        """Copy the five nets of ``nets`` (read from ``path``) into the
+        model's own parameters; kinds and dims must match this model."""
         for k in NET_NAMES:
             if k not in nets or type(nets[k]) is not type(self.nets[k]):
                 raise ValueError(f"{path}: no {type(self.nets[k]).__name__} {k!r}")
@@ -706,9 +723,6 @@ class CausalBGM:
             for k in NET_NAMES:
                 for dst, src in zip(self.nets[k].parameters(), nets[k].parameters()):
                     dst.copy_(src)
-        if "data_z" in bundle:
-            self.data_z = torch.as_tensor(bundle["data_z"], device=self.device)
-        return self
 
     def initialize_nets(self, print_summary: bool = False):
         """Networks are built eagerly in ``__init__``; optionally print sizes."""
@@ -796,7 +810,7 @@ class CausalBGM:
         ``NotImplementedError``."""
         if mesh is not None:
             raise NotImplementedError("fit(mesh=...) is not ported yet")
-        if glob.glob(os.path.join(self.checkpoint_path, "ckpt-*.npz")):
+        if ckpt.latest_checkpoint(self.checkpoint_path) is not None:
             raise NotImplementedError(
                 f"{self.checkpoint_path} holds a checkpoint; resuming is not ported yet")
         tdata = self._data(data)

@@ -18,9 +18,13 @@ non-zero:
               a small N;
 5. K1 paired- the same at N=40000 (the per-step [proposed; current] stack);
 6. K2       - values and z-gradients vs the plain version (autograd) at the
-              flagship width, N=32 (a fit batch) and N=20000, plus binary
-              treatment and fixed sigmas at a small N;
-7. timing   - K1 and K2 vs their plain versions, median of CUDA-event times;
+              flagship width, N=32 (a fit batch: the cluster form) and
+              N=20000 (one block per 32-row tile), plus binary treatment and
+              fixed sigmas at a small N; K2's value equals K1's bit for bit
+              and a second launch gives the same bits;
+7. timing   - K1 and K2 vs their plain versions, median of CUDA-event times,
+              and their device time per launch from torch.profiler, each
+              with its share of the bound;
 8. fit      - bayesgm_torch.CausalBGM(...).fit on Sim_Hirano_Imbens (n=20000,
               v_dim=200, lr_decay cosine): EGM warm start of 200 iterations,
               then 2 passes of 625 batches; checks the losses, the latent
@@ -216,6 +220,26 @@ def time_ms(fn, n_warm=3, n_iter=25):
     return statistics.median(times)
 
 
+def device_ms(fn, n_warm=3, n_iter=20):
+    """Device time per call of the bnn_hosteps kernels that ``fn`` launches,
+    from torch.profiler's kernel records."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(n_warm):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_iter):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+                   for e in prof.key_averages() if "bnn_hosteps" in e.key)
+    if total_us <= 0:
+        raise AssertionError("torch.profiler recorded no device time for the kernel")
+    return total_us / 1e3 / n_iter
+
+
 def main() -> int:
     import torch
 
@@ -336,7 +360,10 @@ def main() -> int:
         k2_errs.append(compare(f"[6 K2 grad N={n_k2}]", grad_k, grad_p, GRAD_RTOL, GRAD_ATOL))
         if not torch.equal(neg_k, fused(*a)):
             raise AssertionError(f"[6 K2 N={n_k2}]: K2's value differs from K1's")
-    print("[6 K2] value == K1's value bit for bit", flush=True)
+        neg_k2, grad_k2 = fused_g(*a)
+        if not (torch.equal(neg_k2, neg_k) and torch.equal(grad_k2, grad_k)):
+            raise AssertionError(f"[6 K2 N={n_k2}]: two launches differ")
+    print("[6 K2] value == K1's value bit for bit; two launches give the same bits", flush=True)
     for label, var_cfg, xs in (
             ("binary_treatment", cfg._replace(binary_treatment=True), xb),
             ("fixed sigma_v", cfg._replace(sigma_v=0.5), x[:n_small]),
@@ -349,19 +376,31 @@ def main() -> int:
         compare(f"[6 K2 {label} value N={n_small}]", neg_k, neg_p)
         compare(f"[6 K2 {label} grad N={n_small}]", grad_k, grad_p, GRAD_RTOL, GRAD_ATOL)
 
-    # 7. timing
+    # 7. timing, and each time's share of the bound (K1 unpaired at N, paired
+    # at 2N; K2 at the fit batch and at N)
+    bnn_macs = chain_macs(dims)
+    bnn_w = sum(t.numel() for w in ws for t in w)
+    bnn_p = sum(p.numel() for p in ps)  # one eps set of P
+    b_k1u = bound(row_bytes(N, False) + 4 * (bnn_w + bnn_p), N * 4 * bnn_macs)
+    b_k1 = bound(row_bytes(2 * N, False) + 4 * (bnn_w + 2 * bnn_p), 2 * N * 4 * bnn_macs)
+    b_g = {n_k2: bound(row_bytes(n_k2, True) + 4 * (bnn_w + bnn_p), n_k2 * 8 * bnn_macs)
+           for n_k2 in k2_args}
     t_k1 = time_ms(lambda: fused(*args1))
     t_p1 = time_ms(lambda: logp_plain(cfg, *args1))
     t_k2 = time_ms(lambda: fused2(*args2))
     t_p2 = time_ms(lambda: logp_plain(cfg, *args2))
     t_g = {n_k2: (time_ms(lambda: fused_g(*a)), time_ms(lambda: logp_and_grad_plain(cfg, *a)))
            for n_k2, a in k2_args.items()}
-    rows = [("K1 unpaired N=20000", t_k1, t_p1), ("K1 paired N=40000", t_k2, t_p2)]
-    rows += [(f"K2 N={n_k2}", tk, tp) for n_k2, (tk, tp) in t_g.items()]
-    for label, tk, tp in rows:
+    d_k1, d_k2 = device_ms(lambda: fused(*args1)), device_ms(lambda: fused2(*args2))
+    d_g = {n_k2: device_ms(lambda: fused_g(*a)) for n_k2, a in k2_args.items()}
+    rows = [("K1 unpaired N=20000", t_k1, t_p1, d_k1, b_k1u),
+            ("K1 paired N=40000", t_k2, t_p2, d_k2, b_k1)]
+    rows += [(f"K2 N={n_k2}", tk, tp, d_g[n_k2], b_g[n_k2]) for n_k2, (tk, tp) in t_g.items()]
+    for label, tk, tp, td, (b_ms, b_by) in rows:
         note = "" if tk <= tp else "  (kernel SLOWER than the plain version)"
-        print(f"[7 timing] {label}: kernel {tk:.4f} ms, plain {tp:.4f} ms, "
-              f"plain/kernel {tp / tk:.2f}x{note}", flush=True)
+        print(f"[7 timing] {label}: kernel {tk:.4f} ms (device {td:.4f} ms), plain {tp:.4f} ms, "
+              f"plain/kernel {tp / tk:.2f}x; bound {b_ms:.6f} ms ({b_by}), device time at "
+              f"{100 * b_ms / td:.2f} % of it{note}", flush=True)
 
     # 8. fit at the flagship width, from the untrained model of phases 4-7
     def drive_fit(tag, fit_model, grad_name, check_mse_v):
@@ -784,12 +823,9 @@ def main() -> int:
 
     # Bounds at the main path's shapes: K1 paired at 2N, K2 and K3 at the fit
     # batch, K4 at a predict batch.
-    bnn_macs, plain_macs = chain_macs(dims), chain_macs(pdims)
-    bnn_w = sum(t.numel() for w in ws for t in w)
-    bnn_p = sum(p.numel() for p in ps)  # one eps set of P
+    plain_macs = chain_macs(pdims)
     plain_w = sum(t.numel() for f in flats for t in f)
-    b_k1 = bound(row_bytes(2 * N, False) + 4 * (bnn_w + 2 * bnn_p), 2 * N * 4 * bnn_macs)
-    b_k2 = bound(row_bytes(FIT_BATCH, True) + 4 * (bnn_w + bnn_p), FIT_BATCH * 8 * bnn_macs)
+    b_k2 = b_g[FIT_BATCH]
     b_k3 = bound(row_bytes(FIT_BATCH, True) + 4 * plain_w, FIT_BATCH * 4 * plain_macs)
     b_k4 = bound(row_bytes(PLAIN_BS, False) + 4 * plain_w, PLAIN_BS * 2 * plain_macs)
     # K5-K7: each logical block's eps is needed once per evaluation.
@@ -813,8 +849,11 @@ def main() -> int:
         "bound_ms": b_k1[0],
         "bound_by": b_k1[1],
         "library_ms": None,
+        "device_ms": d_k2,
         "ms_unpaired": t_k1,
+        "device_ms_unpaired": d_k1,
         "plain_ms_unpaired": t_p1,
+        "bound_ms_unpaired": b_k1u[0],
     }, {
         "name": "bnn_hosteps_grad",
         "route": "cuda",
@@ -827,8 +866,11 @@ def main() -> int:
         "bound_ms": b_k2[0],
         "bound_by": b_k2[1],
         "library_ms": None,
+        "device_ms": d_g[FIT_BATCH],
         f"ms_n{N}": t_g[N][0],
+        f"device_ms_n{N}": d_g[N],
         f"plain_ms_n{N}": t_g[N][1],
+        f"bound_ms_n{N}": b_g[N][0],
     }, {
         "name": "plain_grad",
         "route": "cuda",

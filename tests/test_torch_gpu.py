@@ -85,9 +85,12 @@ def test_sign_words_equal_plain(cuda, chain, cols, group):
     assert torch.equal(got, want)
 
 
+# Row counts around K1's 64-row tile, and K2's 32-row tile and its switch
+# from the cluster form to one block per tile past 512 rows.
 @pytest.mark.parametrize("variant,n", [
     ("continuous", 1), ("continuous", 33), ("continuous", 1000), ("binary", 257),
-    ("fixed_sigmas", 100), ("deep_g", 70)])
+    ("fixed_sigmas", 100), ("deep_g", 70), ("continuous", 63), ("continuous", 64),
+    ("continuous", 65), ("binary", 1000), ("fixed_sigmas", 1000), ("deep_g", 1000)])
 def test_kernel_matches_plain(cuda, variant, n):
     cfg = _cfg(binary_treatment=variant == "binary",
                **(dict(sigma_v=0.5, sigma_x=0.7, sigma_y=0.3) if variant == "fixed_sigmas" else {}))
@@ -99,9 +102,12 @@ def test_kernel_matches_plain(cuda, variant, n):
     torch.cuda.synchronize()
     assert fn.launches == 1 and bool(torch.isfinite(got).all())
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    # K2's value is K1's, bit for bit
+    neg, _ = tk.make_fused_causal_logp_and_grad_bnn_hosteps(cfg, *dims)(*args)
+    assert torch.equal(neg, got)
 
 
-@pytest.mark.parametrize("n_half", [1, 31, 500])
+@pytest.mark.parametrize("n_half", [1, 31, 500, 33])
 def test_paired_kernel_matches_plain(cuda, n_half):
     cfg = _cfg()
     args, dims = _inputs(cfg, 2 * n_half, cuda, n_sets=2)
@@ -140,7 +146,10 @@ def test_predict_on_cuda_goes_through_the_kernel(cuda, tmp_path):
 
 @pytest.mark.parametrize("variant,n", [
     ("continuous", 1), ("continuous", 32), ("continuous", 999), ("binary", 257),
-    ("fixed_sigmas", 100), ("deep_g", 70)])
+    ("fixed_sigmas", 100), ("deep_g", 70), ("continuous", 31), ("continuous", 33),
+    ("continuous", 512), ("continuous", 513), ("continuous", 20000), ("binary", 31),
+    ("binary", 999), ("fixed_sigmas", 33), ("fixed_sigmas", 999), ("deep_g", 33),
+    ("deep_g", 999)])
 def test_k2_kernel_matches_plain(cuda, variant, n):
     cfg = _cfg(binary_treatment=variant == "binary",
                **(dict(sigma_v=0.5, sigma_x=0.7, sigma_y=0.3) if variant == "fixed_sigmas" else {}))
@@ -153,8 +162,10 @@ def test_k2_kernel_matches_plain(cuda, variant, n):
     assert fn.launches == 1 and bool(torch.isfinite(grad).all())
     torch.testing.assert_close(neg, want_neg, rtol=RTOL, atol=ATOL)
     torch.testing.assert_close(grad, want_grad, rtol=GRAD_RTOL, atol=GRAD_ATOL)
-    # the value is K1's, bit for bit
+    # the value is K1's, bit for bit, and a second launch gives the same bits
     assert torch.equal(neg, tk.make_fused_causal_logp_bnn_hosteps(cfg, *dims)(*args))
+    neg2, grad2 = fn(*args)
+    assert fn.launches == 2 and torch.equal(neg2, neg) and torch.equal(grad2, grad)
 
 
 def test_k2_kernel_rejects_what_it_cannot_take(cuda):

@@ -17,7 +17,10 @@ random weights from seed 123), it times four units of work:
 
 For BNN nets it also times an MH burn-in step in windows of 50 steps, one K5
 launch each (``params['mh_window_kernel']``; ``--steps`` must then be a
-multiple of 50), and single launches of K6 and K7 over all n rows.
+multiple of 50), single launches of K6 and K7 over all n rows, and single
+launches of K1 (n rows, and the paired 2n) and K2 (32 and n rows).  The
+script imports the package from the working directory, so run from the
+root of another checkout it measures that checkout's kernels.
 
 A training step or an EGM iteration runs ``--warmup`` times, then
 ``--steps`` times under the host clock (synchronized), then ``--steps`` times
@@ -52,7 +55,11 @@ def _units(model, data, plain, steps):
         make_fused_causal_logp_and_grad_bnn,
         make_fused_causal_logp_bnn,
     )
-    from bayesgm_torch.ops._pk_util import flatten_flipout_params
+    from bayesgm_torch.ops._pk_util import (
+        flatten_flipout_params,
+        flipout_step_perturbations,
+        split_flipout_flat,
+    )
 
     cfg, dev = model.cfg, model.device
     x, y, v = model._data(data)
@@ -102,6 +109,20 @@ def _units(model, data, plain, steps):
         k7 = make_fused_causal_logp_and_grad_bnn(cfg, *dims)
         units += [(f"K6 launch ({N} rows)", lambda: k6(init, x, y, v, seed, *flats), 1),
                   (f"K7 launch ({N} rows)", lambda: k7(init, x, y, v, seed, *flats), 1)]
+        # K1 and K2 alone at the main path's shapes: MH's paired 2N rows, the
+        # initial unpaired N rows, fit's batch of 32 and MALA's N rows.
+        ws, sigs = zip(*(split_flipout_flat(f) for f in flats))
+        sigs = sum(sigs, [])
+        ps1 = flipout_step_perturbations(sigs, gen)
+        ps2 = flipout_step_perturbations(sigs, gen, n_sets=2)
+        stack = [torch.cat([a, a]) for a in (init, x, y, v)]
+        k1, k1p, k2 = (model.kernels[k] for k in
+                       ("bnn_hosteps", "bnn_hosteps_paired", "bnn_hosteps_grad"))
+        rows32 = [a[:32].contiguous() for a in (init, x, y, v)]
+        units += [(f"K1 launch ({N} rows)", lambda: k1(init, x, y, v, seed, *ws, ps1), 1),
+                  (f"K1 paired launch ({2 * N} rows)", lambda: k1p(*stack, seed, *ws, ps2), 1),
+                  ("K2 launch (32 rows)", lambda: k2(*rows32, seed, *ws, ps1), 1),
+                  (f"K2 launch ({N} rows)", lambda: k2(init, x, y, v, seed, *ws, ps1), 1)]
     return units
 
 
