@@ -36,30 +36,44 @@
 //
 // What bounds them on an H100: the same f32 FMA work as K1 (139,392 flops
 // per row and evaluation at the flagship width), plus generating the weight
-// noise.  Eps depends only on the logical block, but blocks of 512 rows span
-// 16 tiles of 32, and each tile regenerates its block's eps for every layer
-// and every evaluation: ~34,848 normals per tile-evaluation, about one
-// Philox call and one log, sqrt and sincos per two normals.  That redundant
-// work is what K6 costs beyond K1, and K5 pays it 2 * n_steps times.
+// noise.  Eps depends only on the logical block, but a block of 512 rows
+// spans several tiles, and each tile regenerates its block's eps for every
+// layer and every evaluation: ~34,848 normals per tile-evaluation, about
+// one Philox call and one log, sqrt and sincos per two normals.  K5 pays it
+// 2 * n_steps times.
 //
-// What the design does about it: K1's tile (8 warps x 4 rows, 32 rows), its
-// per-layer staging of loc and the last layer folded into the loss, but
-// instead of loading P the tile builds P = sigma * eps for its block in
-// shared memory, layer by layer, from the eps counter (no storage; K7
-// regenerates P again on its way back instead of keeping it).  K7 is K2's
-// design (tape of pre-activations, odd-stride transposed staging, gradient
-// scatter, prior + z) with the same P generation.  K5 keeps a tile's z, x, y
-// and v (32 x 200 f32 = 25.6 KB) and its logp in shared memory for the
-// whole window, so x, y and v are read from device memory once per launch,
-// not 2 * n_steps times; each step draws the proposal, evaluates both sides
-// through K6's device code, draws the accept uniform, updates z and adds the
-// tile's accept count to counts[step] with one atomicAdd.  Shared memory at
-// the flagship width: K6 ~155 KB, K5 ~183 KB (K6's plus 28.8 KB of tile
-// state), K7 ~219 KB, all under the 227 KB a block may use; the launchers
-// return kErrSmem when a shape does not fit.  The tile of 32 rows must lie in
-// one logical block, so block_rows must be a multiple of 32 (kErrBlockRows).
-// Sharing eps across the tiles of a block (a cluster, or a per-block scratch
-// in device memory), register tiling and pipelined staging are later work.
+// What the designs do about it.
+// - K6 and K7 keep their first design, a tile of 8 warps x 4 rows (32
+//   rows): per layer loc is staged in shared memory and P = sigma * eps is
+//   built there for the tile's block from the eps counter (build_p; no
+//   storage, K7 builds it again on its way back), the last layer folds into
+//   the loss (K6), and K7 is K2's one-block design (tape of
+//   pre-activations, odd-stride transposed staging, gradient scatter, prior
+//   + z).  Shared memory at the flagship width: K6 ~155 KB, K7 ~219 KB.
+// - K5's evaluation is its own, not K6's: K1's register-tiled design
+//   (csrc/bnn_hosteps.cu; see "K5" below).  A tile of 64 rows (32 when
+//   block_rows is an odd multiple of 32, so that a tile never straddles two
+//   logical blocks) keeps its z, the proposal and logp in shared memory for
+//   the whole window and reads x, y and v from device memory (20000 x 200
+//   f32 stays in the 50 MB L2 across the window); each step draws the
+//   proposal, evaluates both sides, draws the accept uniform, updates z and
+//   adds the tile's accepts to counts[step] (one atomicAdd per warp).  Each
+//   evaluation walks the layers in panels of at most 64 output columns:
+//   loc and b through a ring of 3 cp.async slots, P = sigma * eps built into
+//   its slot from the eps counter one panel ahead, 4 x 4 micro-tiles of both
+//   products over the tile's rows.  Shared memory at the flagship width:
+//   51 KB of sign words, 4 x 16 KB of activations, 3 x 33 KB of slots, 4 KB
+//   of error slots and 6.5 KB of tile state (~221 KB): one block per SM.
+//   Each tile still draws its block's eps itself, for every panel and
+//   evaluation (8 tiles per block of 512 rows); 313 tiles at 20000 rows
+//   make 2.37 waves on 132 SMs for the whole window.  What is left (NVIDIA
+//   H100, tools/ablate_inkernel.py; PERF.md section 6): ~35.5 ms of device
+//   time per 50-step launch at 20000 rows, ~12 % of its bound; without the
+//   products' inner loop ~23 % less, without P's build ~24 % less (a
+//   constant normal in place of the draws ~16 % less), without the weight
+//   copies ~10 % less, without the proposal and accept work no less.
+// The launchers return kErrSmem when a shape does not fit, and refuse a
+// block_rows that is not a multiple of 32 (kErrBlockRows).
 //
 // K8 (bnn_inkernel_probe) replaces benchmarks/mxu_probe.py::make_probe_kernel,
 // the probe that times K6's evaluation with one part switched out; its plain
@@ -80,7 +94,8 @@
 //               widened back before its f32 FMA: CUDA cores, not tensor
 //               cores, so its time says nothing about a tensor-core product
 // Every variant that draws uses K6's counters, so base, xorsign and
-// blockdiag see the noise K6 sees.  What bounds K8 is what bounds K6; the
+// blockdiag see the noise K6 sees.  The probe dissects K6's design, which
+// was K5's evaluation before K5 took K1's.  What bounds K8 is what bounds K6; the
 // variants measure how much of K6's time each part costs.
 
 #include <cuda_bf16.h>
@@ -180,6 +195,11 @@ struct Params {
   int b_max;         // max over layers of out
   int wt_max;        // K7: max over layers of in * (out | 1)
   int pre_stride;    // K7: max over chains of the summed hidden widths
+  // K5: its tile's rows, its weight panels in the order a tile walks them
+  // (chain << 12 | layer << 6 | panel), the ring's slots and the error slots
+  // per row
+  int k5_rows, n_panels, n_stages, n_slots;
+  uint16_t panel[256];
 };
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
@@ -573,75 +593,719 @@ __global__ void __launch_bounds__(kThreads) inkernel_logp_kernel(const Params p)
   if ((int)threadIdx.x < n_valid) p.out[row0 + threadIdx.x] = s.loss[threadIdx.x];
 }
 
-// K5: n_steps MH steps for the tile's rows, z, x, y, v and logp held in
-// shared memory for the whole window.
-__global__ void __launch_bounds__(kThreads) inkernel_mh_steps_kernel(const Params p) {
+// ---------------------------------------------------------------- K5 ----
+//
+// K5's evaluation is its own (K1's design, csrc/bnn_hosteps.cu), not K6's:
+// 4 x 4 register micro-tiles over a 64-row layout, activations k-major with
+// their sign-flipped copy written by the previous layer's epilogue, sign
+// words column-major, and each layer's loc and b streamed in panels of at
+// most 64 output columns through a ring of cp.async slots, one
+// __syncthreads per panel.  P = sigma * eps of a panel is built from the eps
+// counter into its slot one panel ahead, while the previous panel is in the
+// FMAs; the stream of panels runs on across the window's 2 * n_steps
+// evaluations.  A chain's last layer folds into per-row error slots: one
+// per 16 columns of a 64-column panel (the 4 lanes that share a row quad
+// reduce by shuffles), one per 4 columns of a narrower panel.
+
+constexpr int kK5Rows = 64;      // the row layout of K5's tile
+constexpr int kPanelCols = 64;   // a weight panel: at most 64 output columns
+
+__device__ __forceinline__ float leaky(float v) { return v > 0.f ? v : kLeakySlope * v; }
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ bool aligned16(const void* ptr) {
+  return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0;
+}
+
+// A panel of a layer `out` wide.  A layer of at most 64 columns is one
+// natural panel (local column = column).  A wider layer is cut into panels
+// of 32 Box-Muller pairs (pairs j0 .. j0 + 31 of a row: columns j0 + c take
+// their cosines, columns hc + j0 + c their sines), so that a Philox call's
+// normals land in one panel and none is drawn twice: the panel's first
+// wcos local columns are its cosine columns, the rest its sine columns.
+struct Panel {
+  int ch, layer;
+  bool paired;
+  int hc;          // pairs per row of the layer's draw: ceil(out / 2)
+  int j0;          // paired: the first pair; natural: 0
+  int ncos, nsin;  // pairs of a row in the panel (natural: hc) and those with a sine column
+  int wcos;        // paired: cosine columns padded to a multiple of 4
+  int soff;        // local column of pair j0 + c's sine: c + soff
+  int width;       // local columns, a multiple of 4
+};
+
+__host__ __device__ __forceinline__ Panel panel_geom(int out, int pidx) {
+  Panel q;
+  q.ch = q.layer = 0;
+  q.hc = (out + 1) >> 1;
+  q.paired = out > kPanelCols;
+  if (!q.paired) {
+    q.j0 = 0;
+    q.ncos = q.hc;
+    q.nsin = out - q.hc;
+    q.wcos = (out + 3) & ~3;
+    q.soff = q.hc;
+    q.width = q.wcos;
+  } else {
+    q.j0 = (kPanelCols / 2) * pidx;
+    q.ncos = min(kPanelCols / 2, q.hc - q.j0);
+    q.nsin = max(0, min(kPanelCols / 2, out - q.hc - q.j0));
+    q.wcos = (q.ncos + 3) & ~3;
+    q.soff = q.wcos;
+    q.width = q.wcos + ((q.nsin + 3) & ~3);
+  }
+  return q;
+}
+
+// Panels of a layer `out` wide.
+__host__ __device__ __forceinline__ int panels_of(int out) {
+  return out <= kPanelCols ? 1 : ((out + 1) / 2 + kPanelCols / 2 - 1) / (kPanelCols / 2);
+}
+
+// Error slots a last-layer panel fills per row: one per 16 columns of a
+// 64-wide panel, one per 4 columns of a narrower one.
+__host__ __device__ __forceinline__ int panel_slots(const Panel& q) {
+  return q.width == kPanelCols ? 4 : q.width / 4;
+}
+
+__device__ __forceinline__ Panel panel_at(const Params& p, int pc) {
+  const int code = p.panel[pc];
+  const int ch = code >> 12, layer = (code >> 6) & 63;
+  Panel q = panel_geom(p.chain[ch].dims[layer + 1], code & 63);
+  q.ch = ch;
+  q.layer = layer;
+  return q;
+}
+
+// The layer column of local column c, and whether the panel holds it.
+__device__ __forceinline__ int panel_col(const Panel& q, int c, bool& valid) {
+  if (!q.paired) {
+    valid = c < q.ncos + q.nsin;
+    return c;
+  }
+  if (c < q.wcos) {
+    valid = c < q.ncos;
+    return q.j0 + c;
+  }
+  valid = c - q.wcos < q.nsin;
+  return q.hc + q.j0 + (c - q.wcos);
+}
+
+// The sign words of the tile's rows at evaluation ev, column-major:
+// words[col * kK5Rows + r] (0 past n_valid).
+__device__ void k5_fill_words(uint32_t* words, int row0, int n_valid, int cols, int chain,
+                              int group, uint32_t ev, uint2 key) {
+  const int q = (cols + 3) / 4;
+  const uint32_t c3 = kTagSign | ((uint32_t)chain << 8) | (uint32_t)group;
+  for (int idx = threadIdx.x; idx < kK5Rows * q; idx += blockDim.x) {
+    const int c4 = idx / kK5Rows, r = idx - c4 * kK5Rows;
+    uint4 w = make_uint4(0u, 0u, 0u, 0u);
+    if (r < n_valid)
+      w = philox4x32_10(make_uint4((uint32_t)(row0 + r), (uint32_t)c4, ev, c3), key);
+    const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int col = 4 * c4 + m;
+      if (col < cols) words[col * kK5Rows + r] = ws[m];
+    }
+  }
+}
+
+// A slot holds one panel: loc[k][width], then sigma[k][width] at `half`
+// floats (made P = sigma * eps in place by k5_build_p), then b[width] at
+// 2 * half; columns the panel does not hold are 0.  This copies loc, sigma
+// and b.
+__device__ void k5_copy_panel(const Params& p, int pc, float* slot, int half) {
+  const Panel q = panel_at(p, pc);
+  const Chain& c = p.chain[q.ch];
+  const int in = c.dims[q.layer], out = c.dims[q.layer + 1];
+  const float* loc = c.loc[q.layer];
+  const float* sig = c.sig[q.layer];
+  const float* b = c.b[q.layer];
+  float* ls = slot;
+  float* ss = slot + half;
+  float* bs = slot + 2 * half;
+  const int w = q.width;
+  // (k, column) of a thread's element, stepped by blockDim.x elements
+  // without a division per element
+  if (!q.paired && out % 4 == 0 && aligned16(loc) && aligned16(sig)) {
+    const int w4 = w / 4, dk = blockDim.x / w4, dc = blockDim.x - dk * w4;
+    int k = threadIdx.x / w4, cc = threadIdx.x - k * w4;
+    for (; k < in; k += dk, cc += dc) {
+      if (cc >= w4) {
+        cc -= w4;
+        ++k;
+        if (k >= in) break;
+      }
+      cp_async16(ls + k * w + 4 * cc, loc + (size_t)k * out + 4 * cc);
+      cp_async16(ss + k * w + 4 * cc, sig + (size_t)k * out + 4 * cc);
+    }
+  } else {
+    const int dk = blockDim.x / w, dc = blockDim.x - dk * w;
+    int k = threadIdx.x / w, cc = threadIdx.x - k * w;
+    for (; k < in; k += dk, cc += dc) {
+      if (cc >= w) {
+        cc -= w;
+        ++k;
+        if (k >= in) break;
+      }
+      bool valid;
+      const int col = panel_col(q, cc, valid);
+      if (valid) {
+        cp_async4(ls + k * w + cc, loc + (size_t)k * out + col);
+        cp_async4(ss + k * w + cc, sig + (size_t)k * out + col);
+      } else {
+        ls[k * w + cc] = 0.f;
+        ss[k * w + cc] = 0.f;
+      }
+    }
+  }
+  for (int cc = threadIdx.x; cc < w; cc += blockDim.x) {
+    bool valid;
+    const int col = panel_col(q, cc, valid);
+    if (valid) {
+      cp_async4(bs + cc, b + col);
+    } else {
+      bs[cc] = 0.f;
+    }
+  }
+}
+
+// ps[k * width + c] *= eps of panel pc's column c for logical block blk at
+// evaluation ev, which turns the slot's sigma into P = sigma * eps.  The
+// draw is for_each_eps's: pair (k, j) of the layer's (in, out) draw gives
+// the cosine of column j and the sine of column hc + j.  A thread takes
+// one Philox call of one row's pairs in the panel.
+__device__ void k5_build_p(const Params& p, int pc, float* ps, int blk, uint32_t ev, uint2 key) {
+  const Panel q = panel_at(p, pc);
+  const int w = q.width, hc = q.hc;
+  const int in = p.chain[q.ch].dims[q.layer];
+  const int per_row = ((q.ncos + 1) >> 1) + 1;  // calls that a row's ncos pairs can span
+  for (int idx = threadIdx.x; idx < in * per_row; idx += blockDim.x) {
+    const int k = idx / per_row;
+    const int p_lo = k * hc + q.j0;  // the row's pairs in the panel: p_lo .. p_lo + ncos - 1
+    const int qi = (p_lo >> 1) + (idx - k * per_row);
+    if (2 * qi >= p_lo + q.ncos) continue;
+    const uint4 w4 = philox4x32_10(eps_counter(blk, qi, ev, q.ch, q.layer), key);
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const int c = 2 * qi + m - p_lo;
+      if (c < 0 || c >= q.ncos) continue;
+      float cs, sn;
+      box_muller(m ? w4.z : w4.x, m ? w4.w : w4.y, cs, sn);
+      ps[k * w + c] *= cs;
+      if (c < q.nsin) ps[k * w + q.soff + c] *= sn;
+    }
+  }
+}
+
+// What a panel's epilogue needs besides the accumulators.
+struct K5Epi {
+  const uint32_t* words;  // [col][row]
+  int bit_out;
+  int bit_next;  // r_in bit of the next layer, or -1: write no sign-flipped copy
+  float* nact;   // next layer's activations [col][row], or null on the last layer
+  float* nsgn;
+  float* groups;  // last layer: error slots [row][n_slots]
+  float* mu0;
+  float* raw;
+  int ch, row0, n_valid, d_mu, n_slots, slot0;  // slot0: the panel's first error slot
+};
+
+// Error group of a row over columns tcol .. tcol + 3: the squared
+// differences of the first n of them between targets t and outputs m, an
+// fmaf chain in ascending order (0 when n <= 0).
+__device__ __forceinline__ float sq_core(int n, const float (&t)[4], const float (&m)[4]) {
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (j < n) {
+      const float d = t[j] - m[j];
+      s = fmaf(d, d, s);
+    }
+  }
+  return s;
+}
+
+// A last layer's targets for a micro-tile of NR rows and the nv columns
+// from tcol, loaded before its products so that their latency hides behind
+// them.
+template <int NR>
+__device__ __forceinline__ void k5_targets(const Params& p, const K5Epi& e, int r0, int tcol,
+                                           int nv, float (&tv)[NR][4]) {
+#pragma unroll
+  for (int i = 0; i < NR; ++i) {
+    const int row = e.row0 + r0 + i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float t = 0.f;
+      if (e.nact == nullptr && r0 + i < e.n_valid && j < nv && tcol + j < e.d_mu)
+        t = e.ch == 0 ? p.v[(size_t)row * p.v_dim + tcol + j] : (e.ch == 1 ? p.x[row] : p.y[row]);
+      tv[i][j] = t;
+    }
+  }
+}
+
+// A micro-tile of NR rows r0 .. r0 + NR - 1 and the nv (<= 4) layer columns
+// tcol .. tcol + nv - 1: am, ap are their two products, bias the panel's b
+// there.  On a last layer each row's error over them goes to sq[i] for the
+// caller to reduce.
+template <int NR>
+__device__ __forceinline__ void k5_epilogue(const K5Epi& e, int r0, int tcol, int nv,
+                                            const float* bias, const float (&am)[NR][4],
+                                            const float (&ap)[NR][4], const float (&tv)[NR][4],
+                                            float (&sq)[NR]) {
+  float pre[NR][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    uint32_t w[NR];
+    if (j < nv) {
+      if constexpr (NR == 4) {
+        const uint4 w4 = *reinterpret_cast<const uint4*>(e.words + (tcol + j) * kK5Rows + r0);
+        w[0] = w4.x, w[1] = w4.y, w[2] = w4.z, w[3] = w4.w;
+      } else if constexpr (NR == 2) {
+        const uint2 w2 = *reinterpret_cast<const uint2*>(e.words + (tcol + j) * kK5Rows + r0);
+        w[0] = w2.x, w[1] = w2.y;
+      } else {
+        w[0] = e.words[(tcol + j) * kK5Rows + r0];
+      }
+    }
+    float h[NR], hs[NR];
+#pragma unroll
+    for (int i = 0; i < NR; ++i) {
+      pre[i][j] = 0.f;
+      if (j < nv) {
+        pre[i][j] = (am[i][j] + bias[j]) + apply_sign<kBase>(ap[i][j], w[i], e.bit_out);
+        h[i] = leaky(pre[i][j]);
+        hs[i] = e.bit_next >= 0 ? apply_sign<kBase>(h[i], w[i], e.bit_next) : 0.f;
+      }
+    }
+    if (e.nact != nullptr && j < nv) {
+      float* na = e.nact + (tcol + j) * kK5Rows + r0;
+      float* ns = e.nsgn + (tcol + j) * kK5Rows + r0;
+      if constexpr (NR == 4) {
+        *reinterpret_cast<float4*>(na) = make_float4(h[0], h[1], h[2], h[3]);
+        if (e.bit_next >= 0) *reinterpret_cast<float4*>(ns) = make_float4(hs[0], hs[1], hs[2], hs[3]);
+      } else if constexpr (NR == 2) {
+        *reinterpret_cast<float2*>(na) = make_float2(h[0], h[1]);
+        if (e.bit_next >= 0) *reinterpret_cast<float2*>(ns) = make_float2(hs[0], hs[1]);
+      } else {
+        na[0] = h[0];
+        if (e.bit_next >= 0) ns[0] = hs[0];
+      }
+    }
+  }
+  if (e.nact != nullptr) return;
+  const int n_sq = min(nv, e.d_mu - tcol);
+#pragma unroll
+  for (int i = 0; i < NR; ++i) {
+    sq[i] = sq_core(n_sq, tv[i], pre[i]);
+    const int r = r0 + i;
+    if (r >= e.n_valid) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (j < nv && tcol + j == 0) e.mu0[r] = pre[i][j];
+      if (j < nv && tcol + j == e.d_mu) e.raw[r] = pre[i][j];
+    }
+  }
+}
+
+// One panel of one layer for the tile's 64 rows, from act/sgn [k][row] and
+// the panel's slot: 4 x 4 micro-tiles on a 64-wide panel, 2 x 4 on a
+// 32-wide one, 1 x 4 on the others.
+__device__ __forceinline__ void k5_panel(const Params& p, const K5Epi& e, const Panel& q,
+                                         const float* act, const float* sgn,
+                                         const float* slot, int half) {
+  const int in = p.chain[q.ch].dims[q.layer], w = q.width;
+  const float* ls = slot;
+  const float* ps = slot + half;
+  const float* bs = slot + 2 * half;
+  const int tid = threadIdx.x;
+  if (w == kPanelCols) {
+    // 4 x 4 micro-tiles: warp -> (32-row half warp & 1, 16-column quarter
+    // warp >> 1), lane -> (row quad lane & 7, column quad lane >> 3).
+    const int warp = tid >> 5, lane = tid & 31;
+    const int r0 = 32 * (warp & 1) + 4 * (lane & 7);
+    const int c0 = 16 * (warp >> 1) + 4 * (lane >> 3);
+    bool valid;
+    const int tcol = panel_col(q, c0, valid);
+    int nv = 0;
+    while (nv < 4 && (panel_col(q, c0 + nv, valid), valid)) ++nv;
+    float am[4][4], ap[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) am[i][j] = ap[i][j] = 0.f;
+    float tv[4][4];
+    k5_targets<4>(p, e, r0, tcol, nv, tv);
+#pragma unroll 8
+    for (int k = 0; k < in; ++k) {
+      const float4 a = *reinterpret_cast<const float4*>(act + k * kK5Rows + r0);
+      const float4 s = *reinterpret_cast<const float4*>(sgn + k * kK5Rows + r0);
+      const float4 l = *reinterpret_cast<const float4*>(ls + k * kPanelCols + c0);
+      const float4 g = *reinterpret_cast<const float4*>(ps + k * kPanelCols + c0);
+      const float av[4] = {a.x, a.y, a.z, a.w}, sv[4] = {s.x, s.y, s.z, s.w};
+      const float lv[4] = {l.x, l.y, l.z, l.w}, gv[4] = {g.x, g.y, g.z, g.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          am[i][j] = fmaf(av[i], lv[j], am[i][j]);
+          ap[i][j] = fmaf(sv[i], gv[j], ap[i][j]);
+        }
+    }
+    float sq[4];
+    k5_epilogue<4>(e, r0, tcol, nv, bs + c0, am, ap, tv, sq);
+    if (e.nact == nullptr) {
+      // The 4 lanes of a row quad hold its 16 columns of this warp.
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        sq[i] += __shfl_xor_sync(0xffffffffu, sq[i], 8);
+        sq[i] += __shfl_xor_sync(0xffffffffu, sq[i], 16);
+        if ((lane >> 3) == 0 && r0 + i < e.n_valid)
+          e.groups[(r0 + i) * e.n_slots + e.slot0 + (warp >> 1)] = sq[i];
+      }
+    }
+  } else if (w == kPanelCols / 2) {
+    // 2 x 4 micro-tiles: warp -> column quad, lane -> row pair.
+    const int r0 = 2 * (tid & 31), c0 = 4 * (tid >> 5);
+    bool valid;
+    const int tcol = panel_col(q, c0, valid);
+    int nv = 0;
+    while (nv < 4 && (panel_col(q, c0 + nv, valid), valid)) ++nv;
+    float am[2][4], ap[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) am[i][j] = ap[i][j] = 0.f;
+    float tv[2][4];
+    k5_targets<2>(p, e, r0, tcol, nv, tv);
+#pragma unroll 8
+    for (int k = 0; k < in; ++k) {
+      const float2 a = *reinterpret_cast<const float2*>(act + k * kK5Rows + r0);
+      const float2 s = *reinterpret_cast<const float2*>(sgn + k * kK5Rows + r0);
+      const float4 l = *reinterpret_cast<const float4*>(ls + k * w + c0);
+      const float4 g = *reinterpret_cast<const float4*>(ps + k * w + c0);
+      const float av[2] = {a.x, a.y}, sv[2] = {s.x, s.y};
+      const float lv[4] = {l.x, l.y, l.z, l.w}, gv[4] = {g.x, g.y, g.z, g.w};
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          am[i][j] = fmaf(av[i], lv[j], am[i][j]);
+          ap[i][j] = fmaf(sv[i], gv[j], ap[i][j]);
+        }
+    }
+    float sq[2];
+    k5_epilogue<2>(e, r0, tcol, nv, bs + c0, am, ap, tv, sq);
+    if (e.nact == nullptr) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if (r0 + i < e.n_valid) e.groups[(r0 + i) * e.n_slots + e.slot0 + c0 / 4] = sq[i];
+    }
+  } else {
+    // One row x 4 columns per thread; a warp takes 32 rows of one column quad.
+    const int n_quads = w / 4;
+    for (int t = tid; t < kK5Rows * n_quads; t += blockDim.x) {
+      const int r = t % kK5Rows, c0 = 4 * (t / kK5Rows);
+      bool valid;
+      const int tcol = panel_col(q, c0, valid);
+      int nv = 0;
+      while (nv < 4 && (panel_col(q, c0 + nv, valid), valid)) ++nv;
+      float am[1][4] = {{0.f, 0.f, 0.f, 0.f}}, ap[1][4] = {{0.f, 0.f, 0.f, 0.f}}, tv[1][4];
+      k5_targets<1>(p, e, r, tcol, nv, tv);
+#pragma unroll 4
+      for (int k = 0; k < in; ++k) {
+        const float a = act[k * kK5Rows + r], s = sgn[k * kK5Rows + r];
+        const float4 l = *reinterpret_cast<const float4*>(ls + k * w + c0);
+        const float4 g = *reinterpret_cast<const float4*>(ps + k * w + c0);
+        am[0][0] = fmaf(a, l.x, am[0][0]);
+        am[0][1] = fmaf(a, l.y, am[0][1]);
+        am[0][2] = fmaf(a, l.z, am[0][2]);
+        am[0][3] = fmaf(a, l.w, am[0][3]);
+        ap[0][0] = fmaf(s, g.x, ap[0][0]);
+        ap[0][1] = fmaf(s, g.y, ap[0][1]);
+        ap[0][2] = fmaf(s, g.z, ap[0][2]);
+        ap[0][3] = fmaf(s, g.w, ap[0][3]);
+      }
+      float sq[1];
+      k5_epilogue<1>(e, r, tcol, nv, bs + c0, am, ap, tv, sq);
+      if (e.nact == nullptr && r < e.n_valid) e.groups[r * e.n_slots + e.slot0 + c0 / 4] = sq[0];
+    }
+  }
+}
+
+// sgn[k][r] = act[k][r] with r_in (bit `bit` of the words [k][r]) applied.
+__device__ void k5_stage_sgn(const float* act, float* sgn, const uint32_t* words, int in, int bit) {
+  for (int idx = threadIdx.x; idx < kK5Rows * in; idx += blockDim.x)
+    sgn[idx] = apply_sign<kBase>(act[idx], words[idx], bit);
+}
+
+// K5's shared memory, carved from the dynamic buffer.
+struct K5Smem {
+  uint32_t* words;  // [col][64]
+  float* act_buf;   // act[0], sgn[0], act[1], sgn[1], each [k][64]
+  float* ring;      // n_stages slots
+  float* groups;    // [64][n_slots]
+  float* loss;
+  float* mu0;
+  float* raw;
+  float* zt;        // the current state [64][z_dim]
+  float* zp;        // the proposal [64][z_dim]
+  float* lp_prop;
+  float* logp;
+  int* accepted;
+};
+
+__host__ __device__ size_t k5_smem_floats(const Params& p, int n_stages) {
+  const size_t R = kK5Rows, as = p.act_stride;
+  return R * p.words_stride + 4 * R * as + n_stages * (2 * as * kPanelCols + kPanelCols) +
+         R * p.n_slots + 3 * R + 2 * R * p.z_dim + 3 * R;
+}
+
+// The window's stream of panels, one per ring slot: panel G of the stream is
+// panel G % n_panels of evaluation G / n_panels.  With 3 slots, while panel
+// G is in the FMAs, G + 1 is made P in place and G + 2 is being copied; with
+// 2, panel G is made P after its copy lands (one more barrier).
+struct K5Stream {
+  int G, total, S, NP, half, slot_floats, blk;
+  float* ring;
+  uint2 key;
+
+  __device__ __forceinline__ float* slot(int g) const { return ring + (g % S) * slot_floats; }
+
+  __device__ __forceinline__ void copy(const Params& p, int g) const {
+    if (g < total) k5_copy_panel(p, g % NP, slot(g), half);
+    cp_async_commit();
+  }
+
+  __device__ __forceinline__ void build(const Params& p, int g) const {
+    if (g < total) k5_build_p(p, g % NP, slot(g) + half, blk, (uint32_t)(g / NP), key);
+  }
+
+  // Before the loop: the first panels in flight and, with 3 slots, panel 0 made P.
+  __device__ __forceinline__ void prologue(const Params& p) const {
+    if (total <= 0) return;
+    for (int g = 0; g < S - 1; ++g) copy(p, g);
+    if (S == 3) {
+      cp_async_wait<1>();
+      __syncthreads();
+      build(p, 0);
+    }
+  }
+
+  // Makes panel G ready for the FMAs (after a barrier) and keeps the ring
+  // going; returns its slot.
+  __device__ __forceinline__ const float* next(const Params& p) const {
+    cp_async_wait<0>();
+    __syncthreads();  // G's copies (and, with 3 slots, G + 1's) landed; slot (G - 1) % S is free
+    if (S == 3) {
+      copy(p, G + 2);
+      build(p, G + 1);
+    } else {
+      build(p, G);
+      __syncthreads();
+      copy(p, G + 1);
+    }
+    return slot(G);
+  }
+};
+
+// One evaluation of the tile's rows at the state zsrc (shared, [64][z_dim]):
+// leaves in s.loss[r] the negative log-posterior of row r < n_valid (prior
+// included).  It takes the stream's next n_panels panels; the evaluation is
+// ev = st.G / n_panels.
+__device__ __forceinline__ void k5_eval(const Params& p, const K5Smem& s, const float* zsrc,
+                                        int row0, int n_valid, K5Stream& st) {
+  const int tid = threadIdx.x, as = p.act_stride;
+  const uint32_t ev = (uint32_t)(st.G / st.NP);
+  __syncthreads();  // the previous evaluation's readers are done
+  if (tid < kK5Rows) s.loss[tid] = 0.f;
+  int cur = 0;
+  for (int ch = 0; ch < 3; ++ch) {
+    const Chain& c = p.chain[ch];
+    int group = 0;
+    k5_fill_words(s.words, row0, n_valid, c.max_w, ch, 0, ev, st.key);
+    const int in0 = c.dims[0];
+    float* act = s.act_buf + 2 * cur * kK5Rows * as;
+    for (int idx = tid; idx < kK5Rows * in0; idx += blockDim.x) {
+      const int k = idx / kK5Rows, r = idx - k * kK5Rows;
+      act[idx] = r < n_valid ? tile_input(p, ch, zsrc, p.x + row0, r, k) * c.gamma[k] + c.beta[k]
+                             : 0.f;
+    }
+    __syncthreads();
+    k5_stage_sgn(act, act + kK5Rows * as, s.words, in0, 0);
+
+    K5Epi e;
+    e.words = s.words;
+    e.groups = s.groups;
+    e.mu0 = s.mu0;
+    e.raw = s.raw;
+    e.ch = ch;
+    e.row0 = row0;
+    e.n_valid = n_valid;
+    e.d_mu = ch == 0 ? p.v_dim : 1;
+    e.n_slots = p.n_slots;
+    int n_sl = 0;  // the last layer's error slots
+    for (int i = 0; i < c.n_layers; ++i) {
+      const bool last = i == c.n_layers - 1;
+      const int out = c.dims[i + 1];
+      const float* a = s.act_buf + 2 * cur * kK5Rows * as;
+      float* na = s.act_buf + 2 * (cur ^ 1) * kK5Rows * as;
+      const bool same_group = !last && ((2 * (i + 1)) >> 5) == group;
+      e.bit_out = (2 * i + 1) & 31;
+      e.bit_next = same_group ? (2 * (i + 1)) & 31 : -1;
+      e.nact = last ? nullptr : na;
+      e.nsgn = na + kK5Rows * as;
+      const int n_pan = panels_of(out);
+      for (int j = 0; j < n_pan; ++j, ++st.G) {
+        const float* slot = st.next(p);
+        const Panel q = panel_at(p, st.G % st.NP);
+        e.slot0 = n_sl;
+        k5_panel(p, e, q, a, a + kK5Rows * as, slot, st.half);
+        if (last) n_sl += panel_slots(q);
+      }
+      if (!last) {
+        cur ^= 1;
+        if (!same_group) {
+          __syncthreads();
+          group = (2 * (i + 1)) >> 5;
+          k5_fill_words(s.words, row0, n_valid, c.max_w, ch, group, ev, st.key);
+          __syncthreads();
+          k5_stage_sgn(na, na + kK5Rows * as, s.words, out, (2 * (i + 1)) & 31);
+        }
+      }
+    }
+    __syncthreads();  // the chain's error slots, mu0 and raw are complete
+    if (tid < n_valid) {
+      float sq = 0.f;
+      for (int q = 0; q < n_sl; ++q) sq += s.groups[tid * p.n_slots + q];
+      float l = s.loss[tid];
+      if (ch == 1 && p.binary) {
+        const float lx = s.mu0[tid];
+        const float xr = p.x[row0 + tid];
+        l += fmaxf(lx, 0.f) - lx * xr + log1pf(expf(-fabsf(lx)));
+      } else {
+        const bool fixed = (p.fixed_mask >> ch) & 1;
+        const float sigma = ch == 0 ? p.sigma_v : (ch == 1 ? p.sigma_x : p.sigma_y);
+        const float sv = fixed ? sigma * sigma : softplus(s.raw[tid]) + kEpsF;
+        const float n_dims = ch == 0 ? (float)p.v_dim : 1.f;
+        l += sq / (2.f * sv) + n_dims * logf(sv) / 2.f;
+      }
+      s.loss[tid] = l;
+    }
+    __syncthreads();  // before the next chain refills the words
+  }
+  if (tid < n_valid) {
+    float zz = 0.f;
+    for (int k = 0; k < p.z_dim; ++k) {
+      const float zk = zsrc[tid * p.z_dim + k];
+      zz = fmaf(zk, zk, zz);
+    }
+    s.loss[tid] = s.loss[tid] + zz / 2.f;
+  }
+  __syncthreads();
+}
+
+// K5: n_steps MH steps for the tile's rows (k5_rows of them: 64, or 32 when
+// block_rows is an odd multiple of 32, so that a tile lies in one block), z,
+// the proposal and logp held in shared memory for the whole window; x, y
+// and v are read from device memory (they stay in L2).
+__global__ void __launch_bounds__(kThreads, 1) inkernel_mh_steps_kernel(const Params p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const EvalSmem s = carve_eval(smem, p);
-  const int zd = p.z_dim, vd = p.v_dim;
-  float* zt = smem + eval_smem_floats(p);  // current state
-  float* zp = zt + kTileRows * zd;          // proposal
-  float* vt = zp + kTileRows * zd;
-  float* xt = vt + kTileRows * vd;
-  float* yt = xt + kTileRows;
-  float* lp_prop = yt + kTileRows;
-  float* logp = lp_prop + kTileRows;
-  int* accepted = reinterpret_cast<int*>(logp + kTileRows);
+  const int R = kK5Rows, as = p.act_stride, zd = p.z_dim;
+  K5Smem s;
+  s.words = reinterpret_cast<uint32_t*>(smem);
+  s.act_buf = smem + R * p.words_stride;
+  s.ring = s.act_buf + 4 * R * as;
+  s.groups = s.ring + p.n_stages * (2 * as * kPanelCols + kPanelCols);
+  s.loss = s.groups + R * p.n_slots;
+  s.mu0 = s.loss + R;
+  s.raw = s.mu0 + R;
+  s.zt = s.raw + R;
+  s.zp = s.zt + R * zd;
+  s.lp_prop = s.zp + R * zd;
+  s.logp = s.lp_prop + R;
+  s.accepted = reinterpret_cast<int*>(s.logp + R);
 
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * kTileRows;
-  const int n_valid = min(kTileRows, p.n_rows - row0);
-  const int blk = row0 / p.block_rows;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int row0 = blockIdx.x * p.k5_rows;
+  const int n_valid = min(p.k5_rows, p.n_rows - row0);
   const uint2 key = make_uint2((uint32_t)p.seed[0], (uint32_t)p.seed[1]);
   const float q_sd = *p.q_sd;
+  K5Stream st;
+  st.G = 0;
+  st.total = 2 * p.n_steps * p.n_panels;
+  st.S = p.n_stages;
+  st.NP = p.n_panels;
+  st.half = as * kPanelCols;
+  st.slot_floats = 2 * st.half + kPanelCols;
+  st.blk = row0 / p.block_rows;
+  st.ring = s.ring;
+  st.key = key;
 
-  for (int idx = tid; idx < kTileRows * zd; idx += blockDim.x) {
-    const int r = idx / zd;
-    zt[idx] = r < n_valid ? p.z[(size_t)row0 * zd + idx] : 0.f;
-    zp[idx] = 0.f;
+  for (int idx = tid; idx < R * zd; idx += blockDim.x) {
+    s.zt[idx] = idx / zd < n_valid ? p.z[(size_t)row0 * zd + idx] : 0.f;
+    s.zp[idx] = 0.f;
   }
-  for (int idx = tid; idx < kTileRows * vd; idx += blockDim.x)
-    vt[idx] = idx / vd < n_valid ? p.v[(size_t)row0 * vd + idx] : 0.f;
-  if (tid < kTileRows) {
-    xt[tid] = tid < n_valid ? p.x[row0 + tid] : 0.f;
-    yt[tid] = tid < n_valid ? p.y[row0 + tid] : 0.f;
-    logp[tid] = 0.f;
-  }
+  if (tid < R) s.logp[tid] = 0.f;
+  st.prologue(p);
 
   const int quads = (((zd + 1) >> 1) + 1) >> 1;  // Philox calls per row's proposal
   for (int step = 0; step < p.n_steps; ++step) {
     __syncthreads();
-    for (int idx = tid; idx < kTileRows * quads; idx += blockDim.x) {
+    for (int idx = tid; idx < R * quads; idx += blockDim.x) {
       const int r = idx / quads, q = idx - r * quads;
       if (r >= n_valid) continue;
       normal_quad(make_uint4((uint32_t)(row0 + r), (uint32_t)q, (uint32_t)step, kTagProposal),
                   key, 1, zd, [&](int, int j, float e) {
-                    zp[r * zd + j] = __fadd_rn(zt[r * zd + j], __fmul_rn(q_sd, e));
+                    s.zp[r * zd + j] = __fadd_rn(s.zt[r * zd + j], __fmul_rn(q_sd, e));
                   });
     }
-    tile_neg_logp<kBase>(p, s, zp, xt, yt, vt, row0, n_valid, blk, 2u * step, key);
-    if (tid < kTileRows) lp_prop[tid] = -s.loss[tid];
-    tile_neg_logp<kBase>(p, s, zt, xt, yt, vt, row0, n_valid, blk, 2u * step + 1u, key);
-    if (tid < kTileRows) {  // warp 0, all 32 lanes
+    // The proposed state (ev = 2 * step), then the current one (2 * step + 1).
+    for (int side = 0; side < 2; ++side) {
+      k5_eval(p, s, side == 0 ? s.zp : s.zt, row0, n_valid, st);
+      if (side == 0 && tid < R) s.lp_prop[tid] = -s.loss[tid];
+    }
+    if (tid < R) {  // warps 0 and 1, all lanes
       const float lp_cur = -s.loss[tid];
       const uint4 w = philox4x32_10(
           make_uint4((uint32_t)(row0 + tid), 0u, (uint32_t)step, kTagAccept), key);
       const float u = fmaxf(uniform24(w.x), 1e-30f);
-      const bool acc = tid < n_valid && logf(u) < (lp_prop[tid] - lp_cur);
-      logp[tid] = acc ? lp_prop[tid] : lp_cur;
-      accepted[tid] = acc;
+      const bool acc = tid < n_valid && logf(u) < (s.lp_prop[tid] - lp_cur);
+      s.logp[tid] = acc ? s.lp_prop[tid] : lp_cur;
+      s.accepted[tid] = acc;
       const int cnt = __popc(__ballot_sync(0xffffffffu, acc));
-      if (tid == 0 && cnt) atomicAdd(p.counts + step, (float)cnt);
+      if (lane == 0 && cnt) atomicAdd(p.counts + step, (float)cnt);
     }
     __syncthreads();
-    for (int idx = tid; idx < kTileRows * zd; idx += blockDim.x)
-      if (accepted[idx / zd]) zt[idx] = zp[idx];
+    for (int idx = tid; idx < R * zd; idx += blockDim.x)
+      if (s.accepted[idx / zd]) s.zt[idx] = s.zp[idx];
   }
+  cp_async_wait<0>();
   __syncthreads();
   for (int idx = tid; idx < n_valid * zd; idx += blockDim.x)
-    p.z_out[(size_t)row0 * zd + idx] = zt[idx];
-  if (tid < n_valid) p.out[row0 + tid] = logp[tid];
+    p.z_out[(size_t)row0 * zd + idx] = s.zt[idx];
+  if (tid < n_valid) p.out[row0 + tid] = s.logp[tid];
 }
 
 // K7: the K6 value of each row and its gradient with respect to z, through
@@ -1116,15 +1780,34 @@ int bnn_inkernel_mh_steps(const float* z, const float* x, const float* y, const 
   p.z_out = z_out;
   p.counts = counts;
   p.n_steps = n_steps;
-  const size_t smem = sizeof(float) * (eval_smem_floats(p) +
-                                       kTileRows * (2 * (size_t)z_dim + v_dim + 5));
+  p.k5_rows = block_rows % kK5Rows == 0 ? kK5Rows : kTileRows;  // a tile lies in one block
+  for (int ch = 0; ch < 3; ++ch) {
+    const Chain& c = p.chain[ch];
+    for (int i = 0; i < c.n_layers; ++i) {
+      const int n_pan = panels_of(c.dims[i + 1]);
+      if (n_pan > 63 || p.n_panels + n_pan > 256) return kErrShape;
+      for (int j = 0; j < n_pan; ++j) p.panel[p.n_panels++] = (uint16_t)(ch << 12 | i << 6 | j);
+    }
+    const int out = c.dims[c.n_layers];
+    int n_sl = 0;
+    for (int j = 0; j < panels_of(out); ++j) n_sl += panel_slots(panel_geom(out, j));
+    if (n_sl > p.n_slots) p.n_slots = n_sl;
+  }
+  p.n_stages = sizeof(float) * k5_smem_floats(p, 3) <= (size_t)kMaxSmemBytes ? 3 : 2;
+  const size_t smem = sizeof(float) * k5_smem_floats(p, p.n_stages);
   if (smem > (size_t)kMaxSmemBytes) return kErrSmem;
   if (n_steps > 0) {
     cudaError_t err = cudaMemsetAsync(counts, 0, sizeof(float) * n_steps,
                                       static_cast<cudaStream_t>(stream));
     if (err != cudaSuccess) return (int)err;
   }
-  return launch(inkernel_mh_steps_kernel, p, smem, stream);
+  if (n_rows <= 0) return 0;
+  cudaError_t err = cudaFuncSetAttribute(inkernel_mh_steps_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (n_rows + p.k5_rows - 1) / p.k5_rows;
+  inkernel_mh_steps_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
 }
 
 // out (rows, cols) uint32 = the sign words of `chain`/`group` for rows
@@ -1170,7 +1853,7 @@ const char* bnn_inkernel_error_string(int code) {
   switch (code) {
     case kErrTooManyLayers: return "a chain has 0 or more than 20 layers";
     case kErrSmem: return "the tile's buffers for these widths do not fit in 227 KB of shared memory";
-    case kErrShape: return "a layer width is < 1, a chain's input or output width is wrong, n_steps < 0, or an unknown probe variant";
+    case kErrShape: return "a layer width is < 1 or (K5) over 4030, more than 256 weight panels (K5), a chain's input or output width is wrong, n_steps < 0, or an unknown probe variant";
     case kErrBlockRows: return "block_rows must be a positive multiple of the kernel's 32-row tile";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }

@@ -26,28 +26,61 @@
 // 34,848 multiply-adds per row over ~0.85 KB of row data, ~82 flop/byte, so
 // K4 is bound by operations (at n=10000: 0.70 GFLOP, 10.4 us at the 67 TFLOP/s
 // f32 peak, against 2.5 us for the bytes).  K3 does about twice the work.  At
-// the fit batch of 32 rows K3 is one block on one SM of 132: the serial walk
-// over the staged layers and the launch set its time, not the arithmetic.
+// the fit batch of 32 rows (4.5 MFLOP) K3 is bound by latency: 28 layer
+// passes in series (g 6 + 6, h 4 + 4, f 4 + 4), and on one block the serial
+// walk over the staged layers sets its time, not the arithmetic.
 //
-// What the design does about it: the tile of K1/K2 (csrc/bnn_hosteps.cu)
-// without the flipout terms.  One block of 8 warps takes 32 rows; each warp
-// owns 4 rows and walks the output columns with its 32 lanes, so every staged
-// weight read feeds 4 FMAs and the activation reads are warp broadcasts.
-// Each layer's w and b are staged in shared memory once per tile: all the
-// plain weights of a model (~142 KB at the benchmark width) would fit, but
-// not beside K3's tape.  K4 never writes a chain's last layer out: its
-// columns fold straight into the row's squared error (reduced across the
-// warp) and the variance head.  K3 keeps every hidden pre-activation of the
-// chain and the last layer's whole output in shared memory, holds the
-// cotangent in two ping-pong buffers (the second aliases the forward's
-// activations), and stages each layer's w again for the backward with an odd
-// row stride (out | 1), so the 32 lanes walking the input columns hit 32
-// banks.  K3 computes the value with K4's loops in K4's order, so the two
-// agree bit for bit.  At the benchmark width K4 takes ~69 KB of shared memory
-// per block and K3 ~146 KB; a shape that does not fit returns kErrSmem.
-// Register tiling, more rows per block, wgmma and TMA staging are later work.
+// What the design does about it.
+// - K4, and K3 past kClusterMaxRows rows (plain_logp_kernel,
+//   plain_grad_kernel): one block of 8 warps takes 32 rows; each warp owns
+//   4 rows and walks the output columns with its 32 lanes, so every staged
+//   weight read feeds 4 FMAs and the activation reads are warp broadcasts.  Each layer's w and b are staged in shared memory
+//   once per tile.  K4 never writes a chain's last layer out: its columns
+//   fold straight into the row's squared error (lane-strided fmaf chains,
+//   then a xor butterfly across the warp) and the variance head.  K3's tile
+//   form keeps every hidden pre-activation and the last layer's output in
+//   shared memory, holds the cotangent in two ping-pong buffers and stages
+//   each layer's w again for the backward with an odd row stride (out | 1),
+//   so the 32 lanes walking the input columns hit 32 banks (~146 KB at the
+//   benchmark width).
+// - K3 up to kClusterMaxRows rows (plain_grad_cluster_kernel; the fit batch
+//   of 32 rows is one tile): K2's cluster form (csrc/bnn_hosteps.cu) without
+//   P and the signs, with the three chains in lockstep and a backward built
+//   like the forward.  A 32-row tile is spread over a cluster of 8 CTAs.
+//   CTA c owns a slice of every layer's output columns and one of its input
+//   rows (c * width / 8 up to (c + 1) * width / 8) and copies, once, with
+//   cp.async, its column slice of every layer's w (transposed, [col][k])
+//   and b for the forward and its row slice of w for the backward (~34 KB
+//   for all three chains at the benchmark width).  A chain of L layers
+//   takes 2L + 1 steps, each ending with one cluster.sync: forward layer s
+//   (each output of the CTA's columns written into every CTA's next buffer
+//   through DSMEM, the last layer's too); the rows' loss and the output
+//   cotangent on every CTA, from the tile's v, x and y copied in at the
+//   start; backward layer 2L - s, where each CTA forms the cotangent of its
+//   own inputs, a dot over all the layer's outputs, and writes it into every
+//   CTA's next buffer (the chain input's into CTA 0's dz).  No partial sums
+//   cross CTAs and nothing is added with atomics: two launches give the
+//   same bits.  g, h and f take their steps side by side: 14 cluster
+//   barriers at the benchmark width where one chain after another needs
+//   32.  ~148 KB of shared memory per CTA at the benchmark width.
+// - K3 = K4 bit for bit in both forms: every output is an fmaf chain over
+//   ascending k from 0 plus b, a row's squared error is summed in K4's
+//   lane-strided order and butterfly (sq_warp), and the row's value adds
+//   head_nll for g, h, f and then the prior, as K4 does.
+// A shape whose buffers do not fit in 227 KB returns kErrSmem.
+// What is left (NVIDIA H100, tools/profile_steps.py and
+// tools/ablate_inkernel.py; PERF.md section 6): the cluster form takes
+// ~0.052 ms of device time at 32 rows and up to 384 rows, 0.10 ms at 512
+// (16 clusters no longer run at once); without the backward ~0.04; each of
+// the 14 cluster barriers costs ~0.4 us alone; launch and weight copies
+// ~0.008.  One block per tile takes ~0.12 ms up to 1024 rows (0.13 for the
+// cluster form there) and 0.62 ms at 20000.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -59,6 +92,11 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kMaxSmemBytes = 232448;  // 227 KB, the most one block may use
 constexpr float kLeakySlope = 0.2f;
 constexpr float kEpsF = 1e-6f;
+
+constexpr int kCluster = 8;  // K3's CTAs per row tile in its cluster form
+// K3 takes the cluster form up to this many rows; past it, one block per
+// 32-row tile is faster (tools/ablate_inkernel.py times both forms).
+constexpr int kClusterMaxRows = 512;
 
 // Error codes of the host functions beside cudaError_t (which is >= 0).
 constexpr int kErrTooManyLayers = -1;
@@ -91,6 +129,11 @@ struct Params {
   int wt_max;      // max over layers of in * (out | 1)
   int b_max;       // max over layers of out
   int pre_stride;  // K3: max over chains of the summed hidden widths
+  // K3's cluster form: the largest per-CTA weight slices (floats) over the
+  // 8 CTAs, and per chain the offsets (floats) of its act, pre, full, dz and
+  // loss buffers and act's column stride; then the tile's v, x and y,
+  // sq / s_row / c_var, and the end of the floats
+  int k3_w, k3_off[3][5], k3_as[3], k3_vt, k3_misc, k3_floats;
 };
 
 __device__ __forceinline__ float softplus(float r) {
@@ -144,6 +187,34 @@ __device__ __forceinline__ float prior_half_sq(const Params& p, int row) {
     zz = fmaf(zk, zk, zz);
   }
   return zz / 2.f;
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Lane `lane`'s share of a row's squared error over mu columns lane,
+// lane + 32, ... below d_mu (t(col) the target, m(col) the output), summed by
+// a xor butterfly across the warp: K4's order, which K3 repeats.
+template <class Diff>
+__device__ __forceinline__ float sq_warp(int lane, int d_mu, Diff diff) {
+  float acc = 0.f;
+  for (int col = lane; col < d_mu; col += 32) {
+    const float d = diff(col);
+    acc = fmaf(d, d, acc);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  return acc;
 }
 
 // K4.
@@ -302,21 +373,15 @@ plain_grad_kernel(const Params p) {
     __syncthreads();
 
     // The chain's likelihood term and its output cotangent.  The squared
-    // error is summed as K4 sums it (lane-strided, then a xor butterfly).
+    // error is summed as K4 sums it (sq_warp).
     const int d_mu = ch == 0 ? p.v_dim : 1;
     const int out_last = c.dims[n_layers];
 #pragma unroll
     for (int j = 0; j < kRowsPerWarp; ++j) {
       const int r = warp * kRowsPerWarp + j;
-      float acc = 0.f;
-      if (r < n_valid) {
-        for (int col = lane; col < d_mu; col += 32) {
-          const float d = target(p, ch, row0 + r, col) - cot[r * ws + col];
-          acc = fmaf(d, d, acc);
-        }
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      const float acc = sq_warp(lane, r < n_valid ? d_mu : 0, [&](int col) {
+        return target(p, ch, row0 + r, col) - cot[r * ws + col];
+      });
       if (lane == 0) sq[r] = acc;
     }
     __syncthreads();
@@ -416,6 +481,277 @@ plain_grad_kernel(const Params p) {
   }
 }
 
+// K3's cluster form (see the top of this file): one 32-row tile over a
+// cluster of 8 CTAs, the three chains in lockstep.
+__device__ __forceinline__ int slice_start(int width, int c) { return width * c / kCluster; }
+
+// One chain's buffers in a CTA of the cluster form (offsets in Params).
+struct K3Chain {
+  float* act;   // 2 x [k][row]: forward layer i reads buffer i & 1; then the backward's cotangents
+  float* pre;   // own hidden pre-activations, [layer slice][col][row]
+  float* full;  // the last layer, then its cotangent [col][row]
+  float* dz;    // CTA 0: the chain's input gradient [row][z col]
+  float* loss;  // CTA 0: the chain's likelihood term per row
+  int as;       // act's column stride
+};
+
+__device__ __forceinline__ K3Chain k3_chain(const Params& p, float* smem, int ch) {
+  K3Chain b;
+  b.act = smem + p.k3_off[ch][0];
+  b.pre = smem + p.k3_off[ch][1];
+  b.full = smem + p.k3_off[ch][2];
+  b.dz = smem + p.k3_off[ch][3];
+  b.loss = smem + p.k3_off[ch][4];
+  b.as = p.k3_as[ch];
+  return b;
+}
+
+// sum_k a[k * R + r] * w[k] over k < n, an fmaf chain in ascending k from
+// 0 (w 16-byte aligned, padded to a multiple of 4).
+__device__ __forceinline__ float dot_rows(const float* a, int r, const float* w, int n) {
+  constexpr int R = kTileRows;
+  float acc = 0.f;
+  int k = 0;
+  for (; k + 4 <= n; k += 4) {
+    const float4 l = *reinterpret_cast<const float4*>(w + k);
+    acc = fmaf(a[k * R + r], l.x, acc);
+    acc = fmaf(a[(k + 1) * R + r], l.y, acc);
+    acc = fmaf(a[(k + 2) * R + r], l.z, acc);
+    acc = fmaf(a[(k + 3) * R + r], l.w, acc);
+  }
+  for (; k < n; ++k) acc = fmaf(a[k * R + r], w[k], acc);
+  return acc;
+}
+
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
+plain_grad_cluster_kernel(const Params p) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  cg::cluster_group cluster = cg::this_cluster();
+  constexpr int R = kTileRows;
+  const int rank = (int)cluster.block_rank();
+  float* W = smem;  // own slices: per layer w^T [out col][k] and b, then w [in row][col]
+  float* vt = smem + p.k3_vt;  // the tile's v [row][col], x and y
+  float* xt = vt + R * p.v_dim;
+  float* yt = xt + R;
+  float* sq = smem + p.k3_misc;
+  float* s_row = sq + R;
+  float* c_var = s_row + R;
+  int* woff = reinterpret_cast<int*>(smem + p.k3_floats);  // [ch * kMaxLayers + i]
+  int* boff = woff + 3 * kMaxLayers;
+  int* poff = boff + 3 * kMaxLayers;
+
+  const int tile = blockIdx.x / kCluster;
+  const int row0 = tile * R;
+  const int n_valid = min(R, p.n_rows - row0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  // Resident weights, all chains: this CTA's column slice of every layer
+  // (the forward's) and its row slice (the backward's).
+  if (tid == 0) {
+    int w = 0;
+    for (int ch = 0; ch < 3; ++ch) {
+      const Chain& c = p.chain[ch];
+      int pr = 0;
+      for (int i = 0; i < c.n_layers; ++i) {
+        const int in = c.dims[i], out = c.dims[i + 1];
+        const int ns = slice_start(out, rank + 1) - slice_start(out, rank);
+        const int nk = slice_start(in, rank + 1) - slice_start(in, rank);
+        woff[ch * kMaxLayers + i] = w;
+        w += ((((in + 3) & ~3) + 1) * ns + 3) & ~3;  // 16-byte aligned blocks
+        boff[ch * kMaxLayers + i] = w;
+        w += nk * ((out + 3) & ~3);
+        poff[ch * kMaxLayers + i] = pr;
+        pr += R * ns;
+      }
+    }
+  }
+  __syncthreads();
+  for (int ch = 0; ch < 3; ++ch) {
+    const Chain& c = p.chain[ch];
+    for (int i = 0; i < c.n_layers; ++i) {
+      const int in = c.dims[i], out = c.dims[i + 1], in4 = (in + 3) & ~3, out4 = (out + 3) & ~3;
+      const int j0 = slice_start(out, rank), ns = slice_start(out, rank + 1) - j0;
+      const int k0 = slice_start(in, rank), nk = slice_start(in, rank + 1) - k0;
+      float* wl = W + woff[ch * kMaxLayers + i];
+      float* wb = wl + in4 * ns;
+      float* wr = W + boff[ch * kMaxLayers + i];
+      for (int idx = tid; idx < in4 * ns; idx += blockDim.x) {
+        const int jl = idx / in4, k = idx - jl * in4;
+        if (k < in) {
+          cp_async4(wl + idx, c.w[i] + (size_t)k * out + j0 + jl);
+        } else {
+          wl[idx] = 0.f;
+        }
+      }
+      for (int jl = tid; jl < ns; jl += blockDim.x) cp_async4(wb + jl, c.b[i] + j0 + jl);
+      for (int idx = tid; idx < nk * out4; idx += blockDim.x) {
+        const int kl = idx / out4, j = idx - kl * out4;
+        if (j < out) {
+          cp_async4(wr + idx, c.w[i] + (size_t)(k0 + kl) * out + j);
+        } else {
+          wr[idx] = 0.f;
+        }
+      }
+    }
+  }
+  for (int idx = tid; idx < n_valid * p.v_dim; idx += blockDim.x)
+    cp_async4(vt + idx, p.v + (size_t)row0 * p.v_dim + idx);
+  if (tid < n_valid) {
+    cp_async4(xt + tid, p.x + row0 + tid);
+    cp_async4(yt + tid, p.y + row0 + tid);
+  }
+  if (rank == 0) {
+    for (int ch = 0; ch < 3; ++ch) {
+      float* dz = k3_chain(p, smem, ch).dz;
+      for (int idx = tid; idx < R * p.z_dim; idx += blockDim.x) dz[idx] = 0.f;
+    }
+  }
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  cluster.sync();  // every CTA of the cluster runs before any DSMEM access
+
+  // Chain ch (L layers) walks steps 0 .. 2L, one per pass, each ending with
+  // one cluster barrier: forward layer s (s < L; each output to every CTA's
+  // next buffer, the last layer to every CTA's full), the rows' loss and the
+  // output cotangent in place in full (s = L, every CTA), and backward
+  // layer 2L - s (L < s <= 2L): the CTA's own inputs' cotangent, a dot over
+  // all the layer's outputs with its row slice of w, to every CTA's next
+  // buffer (the chain input's to CTA 0's dz).
+  int n_pass = 0;
+  for (int ch = 0; ch < 3; ++ch) n_pass = max(n_pass, 2 * p.chain[ch].n_layers + 1);
+  for (int ch = 0; ch < 3; ++ch) {
+    const Chain& c = p.chain[ch];
+    const K3Chain b = k3_chain(p, smem, ch);
+    for (int idx = tid; idx < R * c.dims[0]; idx += blockDim.x) {
+      const int k = idx / R, r = idx - k * R;
+      b.act[idx] = r < n_valid ? chain_input(p, ch, row0 + r, k) : 0.f;
+    }
+  }
+  __syncthreads();
+  for (int t = 0; t < n_pass; ++t) {
+    for (int ch = 0; ch < 3; ++ch) {
+      const Chain& c = p.chain[ch];
+      const K3Chain b = k3_chain(p, smem, ch);
+      const int L = c.n_layers;
+      if (t < L) {
+        // Forward layer t: K4's order per output (an fmaf chain over
+        // ascending k, then + b).
+        const int i = t;
+        const int in = c.dims[i], out = c.dims[i + 1];
+        const bool last = i == L - 1;
+        const int j0 = slice_start(out, rank), ns = slice_start(out, rank + 1) - j0;
+        const int in4 = (in + 3) & ~3;
+        const float* wl = W + woff[ch * kMaxLayers + i];
+        const float* wb = wl + in4 * ns;
+        const float* a = b.act + (i & 1) * R * b.as;
+        float* dst = last ? b.full : b.act + ((i + 1) & 1) * R * b.as;
+        float* pr = b.pre + poff[ch * kMaxLayers + i];
+        for (int idx = tid; idx < R * ns; idx += blockDim.x) {
+          const int jl = idx / R, r = idx - jl * R, j = j0 + jl;
+          const float v = dot_rows(a, r, wl + jl * in4, in) + wb[jl];
+          if (!last) pr[idx] = v;
+          const float h = last ? v : leaky(v);
+          for (int cc = 0; cc < kCluster; ++cc) cluster.map_shared_rank(dst, cc)[j * R + r] = h;
+        }
+      } else if (t == L) {
+        // Every CTA: the rows' likelihood terms (kept by CTA 0) and the
+        // output cotangent, in place of the last layer.
+        const int d_mu = ch == 0 ? p.v_dim : 1;
+        const int out_last = c.dims[L];
+        const bool binary_head = ch == 1 && p.binary;
+        float* full = b.full;
+        auto tgt = [&](int r, int col) {
+          return ch == 0 ? vt[r * p.v_dim + col] : (ch == 1 ? xt[r] : yt[r]);
+        };
+        for (int j = 0; j < R / kWarps; ++j) {
+          const int r = warp * (R / kWarps) + j;
+          const float s = sq_warp(lane, r < n_valid ? d_mu : 0,
+                                  [&](int col) { return tgt(r, col) - full[col * R + r]; });
+          if (lane == 0) sq[r] = s;
+        }
+        __syncthreads();
+        if (tid < R) {
+          float s = 1.f, cvar = 0.f;
+          if (tid < n_valid) {
+            const int row = row0 + tid;
+            const float mu = full[tid], raw = full[d_mu * R + tid];
+            b.loss[tid] = head_nll(p, ch, row, sq[tid], mu, raw);
+            if (binary_head) {
+              cvar = sigmoid(mu) - xt[tid];
+            } else {
+              s = head_var(p, ch, raw);
+              const float n_dims = ch == 0 ? (float)p.v_dim : 1.f;
+              if (!sigma_fixed(p, ch))
+                cvar = (-sq[tid] / (2.f * (s * s)) + n_dims / (2.f * s)) * sigmoid(raw);
+            }
+          }
+          s_row[tid] = s;
+          c_var[tid] = cvar;
+        }
+        __syncthreads();
+        for (int idx = tid; idx < R * out_last; idx += blockDim.x) {
+          const int col = idx / R, r = idx - col * R;
+          float cval = 0.f;
+          if (r < n_valid) {
+            if (binary_head) {
+              cval = col == 0 ? c_var[r] : 0.f;
+            } else if (col < d_mu) {
+              cval = -(tgt(r, col) - full[idx]) / s_row[r];
+            } else if (col == d_mu) {
+              cval = c_var[r];
+            }
+          }
+          full[idx] = cval;
+        }
+        __syncthreads();  // sq, s_row and c_var are free for the next chain's loss
+      } else if (t <= 2 * L) {
+        // Backward layer i: the cotangent of the CTA's own inputs k of the
+        // layer, from the whole output cotangent (full, or the buffer
+        // backward layer i + 1 wrote), times leaky'(pre) of layer i - 1.
+        const int i = 2 * L - t;
+        const int in = c.dims[i], out = c.dims[i + 1], out4 = (out + 3) & ~3;
+        const int k0 = slice_start(in, rank), nk = slice_start(in, rank + 1) - k0;
+        const float* wr = W + boff[ch * kMaxLayers + i];
+        const float* cot = i == L - 1 ? b.full : b.act + ((L - 2 - i) & 1) * R * b.as;
+        float* dst = b.act + ((L - 1 - i) & 1) * R * b.as;
+        const float* pr = i > 0 ? b.pre + poff[ch * kMaxLayers + i - 1] : nullptr;
+        for (int idx = tid; idx < R * nk; idx += blockDim.x) {
+          const int kl = idx / R, r = idx - kl * R, k = k0 + kl;
+          const float gk = dot_rows(cot, r, wr + kl * out4, out);
+          if (i > 0) {
+            const float gl = gk * (pr[idx] > 0.f ? 1.f : kLeakySlope);
+            for (int cc = 0; cc < kCluster; ++cc) cluster.map_shared_rank(dst, cc)[k * R + r] = gl;
+          } else if (r < n_valid && !(ch == 2 && k >= p.d0 + p.d1)) {  // f's x column is dropped
+            const int col = ch == 1 && k >= p.d0 ? p.d0 + p.d1 + (k - p.d0) : k;
+            cluster.map_shared_rank(b.dz, 0)[r * p.z_dim + col] = gk;
+          }
+        }
+      }
+    }
+    cluster.sync();
+  }
+
+  if (rank == 0) {
+    const K3Chain g = k3_chain(p, smem, 0), h = k3_chain(p, smem, 1), f = k3_chain(p, smem, 2);
+    if (tid < n_valid) {
+      // K4's order: ((g + h) + f) + prior
+      const float loss = (g.loss[tid] + h.loss[tid]) + f.loss[tid];
+      p.out[row0 + tid] = loss + prior_half_sq(p, row0 + tid);
+    }
+    for (int idx = tid; idx < R * p.z_dim; idx += blockDim.x) {
+      const int r = idx / p.z_dim;
+      if (r < n_valid) {
+        const int g_idx = (row0 + r) * p.z_dim + (idx - r * p.z_dim);
+        p.grad[g_idx] = ((g.dz[idx] + h.dz[idx]) + f.dz[idx]) + p.z[g_idx];
+      }
+    }
+  }
+}
+
+int host_slice(int width, int c) { return width * (c + 1) / kCluster - width * c / kCluster; }
+
 // Fill Params from the C arguments; returns 0 or one of the negative codes above.
 int build_params(Params& p, const float* z, const float* x, const float* y, const float* v,
                  float* out, float* grad, int n_rows, int z_dim, int v_dim, int d0, int d1,
@@ -454,6 +790,43 @@ int build_params(Params& p, const float* z, const float* x, const float* y, cons
   if (p.chain[0].dims[0] != z_dim || p.chain[1].dims[0] != d0 + d2 ||
       p.chain[2].dims[0] != d0 + d1 + 1)
     return kErrShape;
+  // K3's cluster form: per chain the largest slices over the CTAs, and the
+  // layout of its buffers.
+  for (int rank = 0; rank < kCluster; ++rank) {
+    int w = 0;
+    for (int ch = 0; ch < 3; ++ch) {
+      const Chain& c = p.chain[ch];
+      for (int i = 0; i < c.n_layers; ++i) {
+        const int in = c.dims[i], out = c.dims[i + 1];
+        w += ((((in + 3) & ~3) + 1) * host_slice(out, rank) + 3) & ~3;
+        w += host_slice(in, rank) * ((out + 3) & ~3);
+      }
+    }
+    if (w > p.k3_w) p.k3_w = w;
+  }
+  int off = p.k3_w;
+  for (int ch = 0; ch < 3; ++ch) {
+    const Chain& c = p.chain[ch];
+    int as = 1, pre = 0;
+    for (int i = 0; i < c.n_layers; ++i)
+      if (c.dims[i] > as) as = c.dims[i];
+    for (int rank = 0; rank < kCluster; ++rank) {
+      int pr = 0;
+      for (int i = 0; i < c.n_layers - 1; ++i) pr += kTileRows * host_slice(c.dims[i + 1], rank);
+      if (pr > pre) pre = pr;
+    }
+    const int sizes[5] = {2 * kTileRows * as, pre, kTileRows * c.dims[c.n_layers],
+                          kTileRows * z_dim, kTileRows};
+    for (int b = 0; b < 5; ++b) {
+      p.k3_off[ch][b] = off;
+      off += sizes[b];
+    }
+    p.k3_as[ch] = as;
+  }
+  p.k3_vt = off;
+  off += kTileRows * (v_dim + 2);
+  p.k3_misc = off;
+  p.k3_floats = off + 3 * kTileRows;
   p.z = z;
   p.x = x;
   p.y = y;
@@ -474,10 +847,8 @@ int build_params(Params& p, const float* z, const float* x, const float* y, cons
   return 0;
 }
 
-int launch(void (*kernel)(const Params), const Params& p, size_t smem, void* stream) {
-  if (smem > (size_t)kMaxSmemBytes) return kErrSmem;
-  if (p.n_rows <= 0) return 0;
-  const int blocks = (p.n_rows + kTileRows - 1) / kTileRows;
+int launch(void (*kernel)(const Params), const Params& p, int blocks, size_t smem,
+           void* stream) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -504,11 +875,15 @@ int plain_logp(const float* z, const float* x, const float* y, const float* v, f
   if (code != 0) return code;
   const size_t smem = sizeof(float) * (2 * (size_t)kTileRows * p.act_stride +
                                        (size_t)p.w_max + p.b_max + 4 * kTileRows);
-  return launch(plain_logp_kernel, p, smem, stream);
+  if (smem > (size_t)kMaxSmemBytes) return kErrSmem;
+  if (n_rows <= 0) return 0;
+  return launch(plain_logp_kernel, p, (n_rows + kTileRows - 1) / kTileRows, smem, stream);
 }
 
 // K3: out (n_rows,) = negative log-posterior and grad (n_rows, z_dim) = its
-// z-gradient.  Arguments as for plain_logp.
+// z-gradient.  Arguments as for plain_logp.  Up to kClusterMaxRows rows a
+// cluster of 8 CTAs takes each 32-row tile; past it one block does (and the
+// one form whose buffers fit takes every row count).
 int plain_logp_and_grad(const float* z, const float* x, const float* y, const float* v,
                         float* out, float* grad, int n_rows, int z_dim, int v_dim, int d0,
                         int d1, int d2, int binary, int fixed_mask, float sigma_v,
@@ -519,11 +894,22 @@ int plain_logp_and_grad(const float* z, const float* x, const float* y, const fl
                                 binary, fixed_mask, sigma_v, sigma_x, sigma_y, n_layers, dims,
                                 ptrs);
   if (code != 0) return code;
-  const size_t smem = sizeof(float) * ((size_t)kTileRows * (p.pre_stride + 2 * (size_t)p.width) +
-                                       (size_t)p.wt_max + p.b_max +
-                                       (size_t)kTileRows * (z_dim + 4));
-  return launch(plain_grad_kernel, p, smem, stream);
+  const size_t R = kTileRows;
+  const size_t smem_tile = sizeof(float) * (R * (p.pre_stride + 2 * (size_t)p.width) +
+                                            (size_t)p.wt_max + p.b_max + R * (z_dim + 4));
+  const size_t smem_cluster = sizeof(float) * (size_t)p.k3_floats + sizeof(int) * 9 * kMaxLayers;
+  const bool cluster_fits = smem_cluster <= (size_t)kMaxSmemBytes;
+  const bool tile_fits = smem_tile <= (size_t)kMaxSmemBytes;
+  if (!cluster_fits && !tile_fits) return kErrSmem;
+  if (n_rows <= 0) return 0;
+  const int tiles = (n_rows + kTileRows - 1) / kTileRows;
+  if (cluster_fits && (n_rows <= kClusterMaxRows || !tile_fits))
+    return launch(plain_grad_cluster_kernel, p, tiles * kCluster, smem_cluster, stream);
+  return launch(plain_grad_kernel, p, tiles, smem_tile, stream);
 }
+
+// The row count up to which K3 takes its cluster form.
+int plain_grad_cluster_max_rows() { return kClusterMaxRows; }
 
 const char* plain_error_string(int code) {
   switch (code) {

@@ -9,7 +9,10 @@ This module holds each kernel's plain PyTorch version (:func:`logp_plain`,
 :func:`logp_and_grad_plain`) and its wrapper
 (:func:`make_fused_causal_logp`, :func:`make_fused_causal_logp_and_grad`).
 A wrapper launches its CUDA kernel (``csrc/plain.cu``) for CUDA tensors and
-takes the plain version only for CPU tensors.
+takes the plain version only for CPU tensors.  K3 has two forms, chosen by
+the launcher from the row count (:func:`k3_cluster_max_rows`): a cluster of
+8 thread blocks per 32-row tile for fit's small batches, one block per tile
+for large ones; both give K4's value bit for bit.
 """
 
 from __future__ import annotations
@@ -69,10 +72,18 @@ def _lib():
         lib.plain_logp.restype = i32
         lib.plain_logp_and_grad.argtypes = [vp, vp, vp, vp, vp, vp] + common  # ... grad
         lib.plain_logp_and_grad.restype = i32
+        lib.plain_grad_cluster_max_rows.argtypes = []
+        lib.plain_grad_cluster_max_rows.restype = i32
         lib.plain_error_string.argtypes = [i32]
         lib.plain_error_string.restype = ctypes.c_char_p
         lib._bayesgm_argtypes = True
     return lib
+
+
+def k3_cluster_max_rows() -> int:
+    """The row count up to which K3 takes its cluster form (8 CTAs per
+    32-row tile); past it, one block per tile.  Builds the library."""
+    return int(_lib().plain_grad_cluster_max_rows())
 
 
 class _PlainKernel:

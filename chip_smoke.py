@@ -23,8 +23,9 @@ non-zero:
               fixed sigmas at a small N; K2's value equals K1's bit for bit
               and a second launch gives the same bits;
 7. timing   - K1 and K2 vs their plain versions, median of CUDA-event times,
-              and their device time per launch from torch.profiler, each
-              with its share of the bound;
+              and their device time per launch (CUDA events around one
+              launch queued behind a spin kernel, so without the wrapper's
+              host time), each with its share of the bound;
 8. fit      - bayesgm_torch.CausalBGM(...).fit on Sim_Hirano_Imbens (n=20000,
               v_dim=200, lr_decay cosine): EGM warm start of 200 iterations,
               then 2 passes of 625 batches; checks the losses, the latent
@@ -44,11 +45,15 @@ benchmark: the same n, v_dim, z_dims and units, random weights from seed
 
 10. K4      - kernel vs its plain version at N=10000 (a predict batch) and
               N=20000, plus binary treatment and fixed sigmas at N=999;
-11. K3      - values and z-gradients vs the plain version (autograd) at N=32
-              and N=20000, plus the variants at N=999; K3's value equals
-              K4's bit for bit;
+11. K3      - values and z-gradients vs the plain version (autograd) in both
+              of K3's forms: the cluster form at N=32 (a fit batch) and at
+              its last row count (the switch, 512), one block per tile at
+              the switch + 1 and N=20000, plus binary treatment and fixed
+              sigmas at N=32 and N=999; in every case K3's value equals
+              K4's bit for bit and a second launch gives the same bits;
 12. timing  - K4 (N=10000, 20000) and K3 (N=32, 20000) vs their plain
-              versions;
+              versions, with their device time per launch (as phase 7) and
+              its share of the bound;
 13. fit     - the plain model's fit, as phase 8 (EGM 200, 2 passes of 625
               batches): K3 launches == 1250, none of K4;
 14. predict - MH on the fitted plain model, burn_in=200, n_mcmc=200, two
@@ -75,7 +80,8 @@ The in-kernel-eps family (K5-K7) at the flagship width, on the BNN model:
               the same seed: counts per step within 0.1 % of N, at least
               99.9 % of the rows in the same final z, logp of those rows
               within rtol 1e-4 / atol 1e-3; then K5 (50 steps), K6 and K7 vs
-              their plain versions, median of CUDA-event times;
+              their plain versions, median of CUDA-event times, and K5's
+              device time per launch (as phase 7);
 20. window  - predict with params['mh_window_kernel'] on the model fitted
               in phase 8 (burn_in=200, n_mcmc=200): K5 launches == 4, paired
               K1 == 200, unpaired K1 == 1, and over every in-kernel-eps
@@ -131,6 +137,7 @@ PROBE_SHORT, PROBE_LONG = 10, 50  # the probe's two chain lengths (its defaults:
 PROBE_SIGMA, SEPARATION = (0.05, 0.15), 10.0
 FIT_BATCH, FIT_EPOCHS, EGM_N_ITER = 32, 1, 200
 PLAIN_BS = 10000  # predict's subject batch for plain nets (bs=None)
+SPIN_CYCLES = 5_000_000  # ~2.5 ms of spin ahead of a timed call: longer than any wrapper's host time
 
 
 def flagship_params(output_dir, use_bnn=True):
@@ -221,23 +228,26 @@ def time_ms(fn, n_warm=3, n_iter=25):
 
 
 def device_ms(fn, n_warm=3, n_iter=20):
-    """Device time per call of the bnn_hosteps kernels that ``fn`` launches,
-    from torch.profiler's kernel records."""
+    """Device time per call of ``fn``: the median of CUDA-event times around
+    one call queued behind a spin kernel (``torch.cuda._sleep``), so that the
+    card runs the start event, the call's kernels and the end event back to
+    back, without the wrapper's host time between them.  (torch.profiler's
+    records of short sessions came back incomplete: a 0.10 ms kernel read
+    0.06 ms, a 35 ms one not at all.)"""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     for _ in range(n_warm):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_iter):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
-                   for e in prof.key_averages() if "bnn_hosteps" in e.key)
-    if total_us <= 0:
-        raise AssertionError("torch.profiler recorded no device time for the kernel")
-    return total_us / 1e3 / n_iter
+    times = []
+    for _ in range(n_iter):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
 
 
 def main() -> int:
@@ -263,6 +273,7 @@ def main() -> int:
     from bayesgm_torch.ops._pk_plain import logp_and_grad_plain as plain_logp_and_grad
     from bayesgm_torch.ops._pk_plain import logp_plain as plain_logp
     from bayesgm_torch.ops._pk_plain import (
+        k3_cluster_max_rows,
         make_fused_causal_logp,
         make_fused_causal_logp_and_grad,
     )
@@ -556,29 +567,49 @@ def main() -> int:
                                make_fused_causal_logp(var_cfg, *pdims)(*a),
                                plain_logp(var_cfg, *a)))
 
-    # 11. K3: values and z-gradients at the fit batch and at N, then the variants
+    # 11. K3 in both forms: the cluster form up to the switch, one block per
+    # tile past it; the variants in each
+    switch = k3_cluster_max_rows()
     k3_errs, k3_args = [], {n_k: rows(n_k) for n_k in (FIT_BATCH, N)}
-    k3_cases = [(f"N={n_k}", pcfg, a) for n_k, a in k3_args.items()]
-    k3_cases += [(f"{name} N={n_small}", c, rows(n_small, xs)) for name, c, xs in variants]
+    k3_cases = [(f"N={n_k}", pcfg, rows(n_k)) for n_k in (FIT_BATCH, switch, switch + 1, N)]
+    k3_cases += [(f"{name} N={n_v}", c, rows(n_v, xs[:n_v]))
+                 for n_v in (FIT_BATCH, n_small) for name, c, xs in variants]
     for label, var_cfg, a in k3_cases:
-        (neg_k, grad_k) = make_fused_causal_logp_and_grad(var_cfg, *pdims)(*a)
+        k3_var = make_fused_causal_logp_and_grad(var_cfg, *pdims)
+        neg_k, grad_k = k3_var(*a)
         neg_p, grad_p = plain_logp_and_grad(var_cfg, *a)
-        k3_errs.append(compare(f"[11 K3 value {label}]", neg_k, neg_p))
-        k3_errs.append(compare(f"[11 K3 grad {label}]", grad_k, grad_p, GRAD_RTOL, GRAD_ATOL))
+        form = "cluster" if a[0].shape[0] <= switch else "one block per tile"
+        k3_errs.append(compare(f"[11 K3 value {label} ({form})]", neg_k, neg_p))
+        k3_errs.append(compare(f"[11 K3 grad {label} ({form})]", grad_k, grad_p, GRAD_RTOL,
+                               GRAD_ATOL))
         if not torch.equal(neg_k, make_fused_causal_logp(var_cfg, *pdims)(*a)):
             raise AssertionError(f"[11 K3 {label}]: K3's value differs from K4's")
-    print("[11 K3] value == K4's value bit for bit", flush=True)
+        neg_2, grad_2 = k3_var(*a)
+        if not (torch.equal(neg_2, neg_k) and torch.equal(grad_2, grad_k)):
+            raise AssertionError(f"[11 K3 {label}]: two launches differ")
+    print(f"[11 K3] value == K4's value bit for bit in both forms (the cluster form up to "
+          f"{switch} rows); two launches give the same bits", flush=True)
 
-    # 12. timing
+    # 12. timing, device time and each time's share of the bound
+    plain_macs = chain_macs(pdims)
+    plain_w = sum(t.numel() for f in flats for t in f)
+    b_k4 = {n_k: bound(row_bytes(n_k, False) + 4 * plain_w, n_k * 2 * plain_macs)
+            for n_k in k4_args}
+    b_k3 = {n_k: bound(row_bytes(n_k, True) + 4 * plain_w, n_k * 4 * plain_macs)
+            for n_k in k3_args}
     t_k4 = {n_k: (time_ms(lambda: k4(*a)), time_ms(lambda: plain_logp(pcfg, *a)))
             for n_k, a in k4_args.items()}
     t_k3 = {n_k: (time_ms(lambda: k3(*a)), time_ms(lambda: plain_logp_and_grad(pcfg, *a)))
             for n_k, a in k3_args.items()}
-    for label, (tk, tp) in ([(f"K4 N={n_k}", t) for n_k, t in t_k4.items()]
-                            + [(f"K3 N={n_k}", t) for n_k, t in t_k3.items()]):
+    d_k4 = {n_k: device_ms(lambda: k4(*a)) for n_k, a in k4_args.items()}
+    d_k3 = {n_k: device_ms(lambda: k3(*a)) for n_k, a in k3_args.items()}
+    for label, (tk, tp), td, (b_ms, b_by) in (
+            [(f"K4 N={n_k}", t, d_k4[n_k], b_k4[n_k]) for n_k, t in t_k4.items()]
+            + [(f"K3 N={n_k}", t, d_k3[n_k], b_k3[n_k]) for n_k, t in t_k3.items()]):
         note = "" if tk <= tp else "  (kernel SLOWER than the plain version)"
-        print(f"[12 timing] {label}: kernel {tk:.4f} ms, plain {tp:.4f} ms, "
-              f"plain/kernel {tp / tk:.2f}x{note}", flush=True)
+        print(f"[12 timing] {label}: kernel {tk:.4f} ms (device {td:.4f} ms), plain {tp:.4f} ms, "
+              f"plain/kernel {tp / tk:.2f}x; bound {b_ms:.6f} ms ({b_by}), device time at "
+              f"{100 * b_ms / td:.2f} % of it{note}", flush=True)
 
     # 13. fit of the plain model; 14. MH predict on it, two batches of PLAIN_BS,
     # K4 once for each batch's initial state and once per step
@@ -680,6 +711,7 @@ def main() -> int:
             raise AssertionError(f"{tag} the window disagrees with its plain version")
     t_k5 = (time_ms(lambda: k5(*a5), n_warm=1, n_iter=5),  # the check warmed the plain one
             time_ms(lambda: ik.mh_steps_plain(cfg, *a5, MH_WINDOW, k5.block_rows), 0, 3))
+    d_k5 = device_ms(lambda: k5(*a5), n_warm=1, n_iter=5)
     t_k6 = (time_ms(lambda: k6(*a6)), time_ms(lambda: ik.logp_plain(cfg, *a6, k6.block_rows)))
     t_k7 = {n_k: (time_ms(lambda: k7(*a)),
                   time_ms(lambda: ik.logp_and_grad_plain(cfg, *a, k7.block_rows)))
@@ -689,7 +721,8 @@ def main() -> int:
         note = "" if tk <= tp else "  (kernel SLOWER than the plain version)"
         print(f"[19 timing] {label}: kernel {tk:.4f} ms, plain {tp:.4f} ms, "
               f"plain/kernel {tp / tk:.2f}x{note}", flush=True)
-    print(f"[19 timing] K5 per MH step: {t_k5[0] / MH_WINDOW:.4f} ms", flush=True)
+    print(f"[19 timing] K5: device {d_k5:.4f} ms per {MH_WINDOW}-step launch (CUDA events "
+          f"{t_k5[0]:.4f} ms), {d_k5 / MH_WINDOW:.4f} ms of device time per MH step", flush=True)
 
     # 20. predict with the MH window on the fitted BNN model, then the
     # window's burn-in acceptance against the per-step path's
@@ -823,11 +856,7 @@ def main() -> int:
 
     # Bounds at the main path's shapes: K1 paired at 2N, K2 and K3 at the fit
     # batch, K4 at a predict batch.
-    plain_macs = chain_macs(pdims)
-    plain_w = sum(t.numel() for f in flats for t in f)
     b_k2 = b_g[FIT_BATCH]
-    b_k3 = bound(row_bytes(FIT_BATCH, True) + 4 * plain_w, FIT_BATCH * 4 * plain_macs)
-    b_k4 = bound(row_bytes(PLAIN_BS, False) + 4 * plain_w, PLAIN_BS * 2 * plain_macs)
     # K5-K7: each logical block's eps is needed once per evaluation.
     iflat_w = sum(t.numel() for f in iflats for t in f)
     eps_ops = lambda n_rows, block: -(-n_rows // block) * bnn_macs * mp.OPS_PER_NORMAL
@@ -880,11 +909,15 @@ def main() -> int:
         "max_abs_err": max(k3_errs),
         "ms": t_k3[FIT_BATCH][0],
         "plain_ms": t_k3[FIT_BATCH][1],
-        "bound_ms": b_k3[0],
-        "bound_by": b_k3[1],
+        "bound_ms": b_k3[FIT_BATCH][0],
+        "bound_by": b_k3[FIT_BATCH][1],
         "library_ms": None,
+        "device_ms": d_k3[FIT_BATCH],
+        "cluster_max_rows": switch,
         f"ms_n{N}": t_k3[N][0],
+        f"device_ms_n{N}": d_k3[N],
         f"plain_ms_n{N}": t_k3[N][1],
+        f"bound_ms_n{N}": b_k3[N][0],
     }, {
         "name": "plain",
         "route": "cuda",
@@ -894,11 +927,14 @@ def main() -> int:
         "max_abs_err": max(k4_errs),
         "ms": t_k4[PLAIN_BS][0],
         "plain_ms": t_k4[PLAIN_BS][1],
-        "bound_ms": b_k4[0],
-        "bound_by": b_k4[1],
+        "bound_ms": b_k4[PLAIN_BS][0],
+        "bound_by": b_k4[PLAIN_BS][1],
         "library_ms": None,
+        "device_ms": d_k4[PLAIN_BS],
         f"ms_n{N}": t_k4[N][0],
+        f"device_ms_n{N}": d_k4[N],
         f"plain_ms_n{N}": t_k4[N][1],
+        f"bound_ms_n{N}": b_k4[N][0],
     }, {
         "name": "bnn_mh_window",
         "route": "cuda",
@@ -911,7 +947,9 @@ def main() -> int:
         "bound_ms": b_k5[0],
         "bound_by": b_k5[1],
         "library_ms": None,
+        "device_ms": d_k5,
         "ms_per_step": t_k5[0] / MH_WINDOW,
+        "device_ms_per_step": d_k5 / MH_WINDOW,
         "rows_same_state": same_share[MH_WINDOW],
         "rows_same_state_5_steps": same_share[5],
     }, {

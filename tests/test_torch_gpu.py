@@ -281,6 +281,30 @@ def test_k3_kernel_matches_plain(cuda, variant, n):
     assert torch.equal(neg, tp.make_fused_causal_logp(cfg, *dims)(*args))
 
 
+# K3's two forms: the cluster form up to the switch row count, one block per
+# 32-row tile past it ("switch" is read from the library inside the test).
+@pytest.mark.parametrize("variant,n", [
+    ("continuous", 32), ("continuous", 256), ("continuous", "switch"),
+    ("continuous", "switch+1"), ("continuous", 999), ("continuous", 20000), ("binary", 32),
+    ("binary", 999), ("fixed_sigmas", 32), ("fixed_sigmas", 999), ("deep_g", 33),
+    ("deep_g", 999)])
+def test_k3_both_forms_match_plain_and_k4(cuda, variant, n):
+    if isinstance(n, str):
+        n = tp.k3_cluster_max_rows() + (1 if n.endswith("+1") else 0)
+    cfg, args, dims = _plain_case(variant, n, cuda)
+    fn = tp.make_fused_causal_logp_and_grad(cfg, *dims)
+    neg, grad = fn(*args)
+    want_neg, want_grad = tp.logp_and_grad_plain(cfg, *args)
+    torch.cuda.synchronize()
+    assert fn.launches == 1 and bool(torch.isfinite(grad).all())
+    torch.testing.assert_close(neg, want_neg, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(grad, want_grad, rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    # the value is K4's, bit for bit, and a second launch gives the same bits
+    assert torch.equal(neg, tp.make_fused_causal_logp(cfg, *dims)(*args))
+    neg2, grad2 = fn(*args)
+    assert torch.equal(neg2, neg) and torch.equal(grad2, grad)
+
+
 @pytest.mark.parametrize("make", [tp.make_fused_causal_logp, tp.make_fused_causal_logp_and_grad])
 def test_plain_kernels_reject_what_they_cannot_take(cuda, make):
     cfg = _cfg(use_bnn=False)
@@ -400,8 +424,10 @@ def _inkernel_inputs(cfg, n, dev, g_hidden=(24, 40), seed=0):
 
 
 def _inkernel_case(variant, n, dev):
-    cfg = _cfg(binary_treatment=variant == "binary",
-               **(dict(sigma_v=0.5, sigma_x=0.7, sigma_y=0.3) if variant == "fixed_sigmas" else {}))
+    kw = dict(sigma_v=0.5, sigma_x=0.7, sigma_y=0.3) if variant == "fixed_sigmas" else {}
+    if variant == "v31":  # g's last layer 32 wide: K5's 2 x 4 micro-tiles fold it into the loss
+        kw["v_dim"] = 31
+    cfg = _cfg(binary_treatment=variant == "binary", **kw)
     g_hidden = [8] * 17 if variant == "deep_g" else (24, 40)
     return (cfg, *_inkernel_inputs(cfg, n, dev, g_hidden=g_hidden))
 
@@ -437,18 +463,25 @@ def test_k7_kernel_matches_plain(cuda, variant, n):
     assert torch.equal(neg, ik.make_fused_causal_logp_bnn(cfg, *dims, block_rows=64)(*args))
 
 
-@pytest.mark.parametrize("variant,n,n_steps", [("continuous", 1000, 5), ("continuous", 45, 3),
-                                               ("binary", 300, 4), ("deep_g", 70, 2),
-                                               ("continuous", 1000, 50)])
-def test_k5_kernel_matches_plain(cuda, variant, n, n_steps):
+# block_rows 64 (the tests' default), 32 (a 32-row tile), 96 (an odd multiple
+# of 32: 32-row tiles) and 512 (production's size at the flagship width);
+# n = 999 and 45 are not multiples of the tile; v31 makes g's last layer 32
+# wide.
+@pytest.mark.parametrize("variant,n,n_steps,block_rows", [
+    ("continuous", 1000, 5, 64), ("continuous", 45, 3, 64), ("binary", 300, 4, 64),
+    ("deep_g", 70, 2, 64), ("continuous", 1000, 50, 64), ("continuous", 1000, 5, 32),
+    ("continuous", 999, 5, 64), ("continuous", 1000, 5, 512), ("continuous", 1000, 5, 96),
+    ("binary", 999, 3, 32), ("fixed_sigmas", 999, 3, 512), ("deep_g", 999, 2, 512),
+    ("v31", 300, 3, 64)])
+def test_k5_kernel_matches_plain(cuda, variant, n, n_steps, block_rows):
     """The window's counts per step within 0.1 % of n (at least 1 row) and
     at least 99.9 % of the rows in the same final state: an accept decision
     at the boundary may flip on f32 summation order."""
     cfg, args, dims = _inkernel_case(variant, n, cuda)
     q_sd = torch.tensor([0.3], device=cuda)
-    fn = ik.make_fused_mh_steps_bnn(cfg, *dims, n_steps=n_steps, block_rows=64)
+    fn = ik.make_fused_mh_steps_bnn(cfg, *dims, n_steps=n_steps, block_rows=block_rows)
     z_k, lp_k, c_k = fn(*args[:5], q_sd, *args[5:])
-    z_p, lp_p, c_p = ik.mh_steps_plain(cfg, *args[:5], q_sd, *args[5:], n_steps, 64)
+    z_p, lp_p, c_p = ik.mh_steps_plain(cfg, *args[:5], q_sd, *args[5:], n_steps, block_rows)
     torch.cuda.synchronize()
     assert fn.launches == 1 and c_k.shape == (n_steps,)
     assert float((c_k - c_p).abs().max()) <= max(1.0, 1e-3 * n)

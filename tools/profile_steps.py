@@ -18,7 +18,8 @@ random weights from seed 123), it times four units of work:
 For BNN nets it also times an MH burn-in step in windows of 50 steps, one K5
 launch each (``params['mh_window_kernel']``; ``--steps`` must then be a
 multiple of 50), single launches of K6 and K7 over all n rows, and single
-launches of K1 (n rows, and the paired 2n) and K2 (32 and n rows).  The
+launches of K1 (n rows, and the paired 2n) and K2 (32 and n rows); for plain
+nets, single launches of K3 (32 and n rows) and K4 (10000 rows).  The
 script imports the package from the working directory, so run from the
 root of another checkout it measures that checkout's kernels.
 
@@ -57,6 +58,7 @@ def _units(model, data, plain, steps):
     )
     from bayesgm_torch.ops._pk_util import (
         flatten_flipout_params,
+        flatten_mlp_params,
         flipout_step_perturbations,
         split_flipout_flat,
     )
@@ -101,6 +103,17 @@ def _units(model, data, plain, steps):
         units.append((f"MH burn-in window ({cb.MH_WINDOW} steps, {rows} rows, K5)",
                       mh(steps, 0, make_multi_step(cb.MH_WINDOW)), steps))
     units.append((f"MH kept step ({rows} rows)", mh(0, steps), steps))
+    if plain:
+        # K3 and K4 alone at the main path's shapes: fit's batch of 32 and
+        # MALA's N rows; predict's batch of 10000.
+        flats = [flatten_mlp_params(model.nets[k]) for k in "ghf"]
+        k3, k4 = model.kernels["plain_grad"], model.kernels["plain"]
+        full = (model.data_z, x, y, v)
+        rows32 = [a[:32].contiguous() for a in full]
+        batch = [init] + [a[:rows].contiguous() for a in (x, y, v)]
+        units += [("K3 launch (32 rows)", lambda: k3(*rows32, *flats), 1),
+                  (f"K3 launch ({N} rows)", lambda: k3(*full, *flats), 1),
+                  (f"K4 launch ({rows} rows)", lambda: k4(*batch, *flats), 1)]
     if not plain:
         dims = [model.nets[k].dims for k in "ghf"]
         flats = [flatten_flipout_params(model.nets[k]) for k in "ghf"]
