@@ -43,15 +43,33 @@
 // 2 * n_steps times.
 //
 // What the designs do about it.
-// - K6 and K7 keep their first design, a tile of 8 warps x 4 rows (32
-//   rows): per layer loc is staged in shared memory and P = sigma * eps is
-//   built there for the tile's block from the eps counter (build_p; no
-//   storage, K7 builds it again on its way back), the last layer folds into
-//   the loss (K6), and K7 is K2's one-block design (tape of
-//   pre-activations, odd-stride transposed staging, gradient scatter, prior
-//   + z).  Shared memory at the flagship width: K6 ~155 KB, K7 ~219 KB.
-// - K5's evaluation is its own, not K6's: K1's register-tiled design
-//   (csrc/bnn_hosteps.cu; see "K5" below).  A tile of 64 rows (32 when
+// - K7 keeps its first design, a tile of 8 warps x 4 rows (32 rows): per
+//   layer loc is staged in shared memory and P = sigma * eps is built there
+//   for the tile's block from the eps counter (build_p; no storage, built
+//   again on the way back), K2's one-block design (tape of pre-activations,
+//   odd-stride transposed staging, gradient scatter, prior + z); ~219 KB of
+//   shared memory at the flagship width.  K8's variants run K6's first
+//   design (tile_neg_logp, the same 32-row tile without the backward,
+//   ~157 KB) until they move onto K5's evaluation.
+// - K6 (inkernel_logp_eval_kernel) is one evaluation (ev = 0) of K5's:
+//   the tile's z is copied into shared memory and k5_eval runs once over
+//   the stream of one evaluation's panels, in K5's tiles and shared memory
+//   (~221 KB at the flagship width: one block per SM, 313 tiles at 20000
+//   rows in 2.37 rounds).  What is left (NVIDIA H100 80GB HBM3, 700 W;
+//   tools/ablate_inkernel.py, PERF.md section 6): ~0.36 ms of device time
+//   at 20000 rows, block_rows 512 (12 % of its bound); without the
+//   products' inner loop ~24 % less, without P's build ~23 % less (a
+//   constant normal in place of the draws ~15 % less), without the weight
+//   copies ~10 % less.
+// - Summation order.  K6 sums a row's squared error as k5_eval does: an
+//   fmaf chain over each group of 4 columns, a 64-wide panel's 16 columns
+//   of a slot as (g0 + g1) + (g2 + g3), the slots in ascending order.  K7
+//   and K8's variants sum in that order too (k5_order_rows, the slots
+//   formed across the block), so K7's value and K8's base equal K6's bit
+//   for bit; every output is (h @ loc + b) + signed((h r_in) @ P) with
+//   both products fmaf chains over ascending k from 0 in all four.
+// - K5's evaluation is K1's register-tiled design (csrc/bnn_hosteps.cu;
+//   see "K5" below).  A tile of 64 rows (32 when
 //   block_rows is an odd multiple of 32, so that a tile never straddles two
 //   logical blocks) keeps its z, the proposal and logp in shared memory for
 //   the whole window and reads x, y and v from device memory (20000 x 200
@@ -78,8 +96,8 @@
 // K8 (bnn_inkernel_probe) replaces benchmarks/mxu_probe.py::make_probe_kernel,
 // the probe that times K6's evaluation with one part switched out; its plain
 // version is bayesgm_torch/benchmarks/mxu_probe.py::probe_plain.  The variant
-// is a template argument of K6's device code (tile_neg_logp, build_p), one
-// __global__ instantiation each; K5, K6 and K7 run kBase.  Per layer:
+// is a template argument of K6's first design (tile_neg_logp, build_p), one
+// __global__ instantiation each; K7 runs kBase.  Per layer:
 //     nopert    h @ loc + b: no perturbation product, no signs, no noise
 //     noeps     P = sigma * 0.01, signs kept;   epsref  P = sigma * loc
 //     nosigns   P = sigma * eps, no signs;      noprng  P = sigma * 0.01, no signs
@@ -94,9 +112,9 @@
 //               widened back before its f32 FMA: CUDA cores, not tensor
 //               cores, so its time says nothing about a tensor-core product
 // Every variant that draws uses K6's counters, so base, xorsign and
-// blockdiag see the noise K6 sees.  The probe dissects K6's design, which
-// was K5's evaluation before K5 took K1's.  What bounds K8 is what bounds K6; the
-// variants measure how much of K6's time each part costs.
+// blockdiag see the noise K6 sees.  The probe dissects K6's first design
+// (K5's evaluation before K5 took K1's, K6's before it took K5's); the
+// variants measure how much of that design's time each part costs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -317,7 +335,148 @@ __device__ __forceinline__ float tile_input(const Params& p, int ch, const float
   return k < p.d0 + p.d1 ? zt[r * p.z_dim + k] : xt[r];
 }
 
-// One evaluation's shared-memory buffers (K6, and K5 twice per step).
+constexpr int kK5Rows = 64;      // the row layout of K5's and K6's tile
+constexpr int kPanelCols = 64;   // a weight panel: at most 64 output columns
+
+// A panel of a layer `out` wide.  A layer of at most 64 columns is one
+// natural panel (local column = column).  A wider layer is cut into panels
+// of 32 Box-Muller pairs (pairs j0 .. j0 + 31 of a row: columns j0 + c take
+// their cosines, columns hc + j0 + c their sines), so that a Philox call's
+// normals land in one panel and none is drawn twice: the panel's first
+// wcos local columns are its cosine columns, the rest its sine columns.
+struct Panel {
+  int ch, layer;
+  bool paired;
+  int hc;          // pairs per row of the layer's draw: ceil(out / 2)
+  int j0;          // paired: the first pair; natural: 0
+  int ncos, nsin;  // pairs of a row in the panel (natural: hc) and those with a sine column
+  int wcos;        // paired: cosine columns padded to a multiple of 4
+  int soff;        // local column of pair j0 + c's sine: c + soff
+  int width;       // local columns, a multiple of 4
+};
+
+__host__ __device__ __forceinline__ Panel panel_geom(int out, int pidx) {
+  Panel q;
+  q.ch = q.layer = 0;
+  q.hc = (out + 1) >> 1;
+  q.paired = out > kPanelCols;
+  if (!q.paired) {
+    q.j0 = 0;
+    q.ncos = q.hc;
+    q.nsin = out - q.hc;
+    q.wcos = (out + 3) & ~3;
+    q.soff = q.hc;
+    q.width = q.wcos;
+  } else {
+    q.j0 = (kPanelCols / 2) * pidx;
+    q.ncos = min(kPanelCols / 2, q.hc - q.j0);
+    q.nsin = max(0, min(kPanelCols / 2, out - q.hc - q.j0));
+    q.wcos = (q.ncos + 3) & ~3;
+    q.soff = q.wcos;
+    q.width = q.wcos + ((q.nsin + 3) & ~3);
+  }
+  return q;
+}
+
+// Panels of a layer `out` wide.
+__host__ __device__ __forceinline__ int panels_of(int out) {
+  return out <= kPanelCols ? 1 : ((out + 1) / 2 + kPanelCols / 2 - 1) / (kPanelCols / 2);
+}
+
+// Error slots a last-layer panel fills per row: one per 16 columns of a
+// 64-wide panel, one per 4 columns of a narrower one.
+__host__ __device__ __forceinline__ int panel_slots(const Panel& q) {
+  return q.width == kPanelCols ? 4 : q.width / 4;
+}
+
+// The layer column of local column c, and whether the panel holds it.
+__device__ __forceinline__ int panel_col(const Panel& q, int c, bool& valid) {
+  if (!q.paired) {
+    valid = c < q.ncos + q.nsin;
+    return c;
+  }
+  if (c < q.wcos) {
+    valid = c < q.ncos;
+    return q.j0 + c;
+  }
+  valid = c - q.wcos < q.nsin;
+  return q.hc + q.j0 + (c - q.wcos);
+}
+
+// panel_col's column of local column c0 (a multiple of 4) and how many of
+// c0 .. c0 + 3 the panel holds (nv): the group of 4 columns a thread's
+// epilogue takes, without panel_col's walk.
+__device__ __forceinline__ int panel_quad(const Panel& q, int c0, int& nv) {
+  if (!q.paired) {
+    nv = max(0, min(4, q.ncos + q.nsin - c0));
+    return c0;
+  }
+  if (c0 < q.wcos) {
+    nv = max(0, min(4, q.ncos - c0));
+    return q.j0 + c0;
+  }
+  nv = max(0, min(4, q.nsin - (c0 - q.wcos)));
+  return q.hc + q.j0 + (c0 - q.wcos);
+}
+
+// Error slot sl of a row over a last layer `out` wide with d_mu mu columns,
+// d(col) = target - output, as k5_panel forms it: the slots run panel by
+// panel (panel_geom, panel_slots); a group of 4 columns is an fmaf chain in
+// ascending order, and a slot of a 64-wide panel adds its 16 columns' four
+// groups as (g0 + g1) + (g2 + g3) (k5_panel's shuffles).
+template <class D>
+__device__ __forceinline__ float k5_slot_sq(int out, int d_mu, int sl, D d) {
+  auto group = [&](const Panel& q, int c0) {
+    int nv;
+    const int tcol = panel_quad(q, c0, nv);
+    const int n = min(nv, d_mu - tcol);
+    float g = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (j < n) {
+        const float dj = d(tcol + j);
+        g = fmaf(dj, dj, g);
+      }
+    }
+    return g;
+  };
+  for (int pi = 0;; ++pi) {
+    const Panel q = panel_geom(out, pi);
+    const int ns = panel_slots(q);
+    if (sl < ns) {
+      if (q.width != kPanelCols) return group(q, 4 * sl);
+      return (group(q, 16 * sl) + group(q, 16 * sl + 4)) +
+             (group(q, 16 * sl + 8) + group(q, 16 * sl + 12));
+    }
+    sl -= ns;
+  }
+}
+
+// The squared errors sq[r] of the tile's `rows` rows over a last layer `out`
+// wide in K6's order (k5_eval: a row's error slots added in ascending order
+// from 0; 0 for rows from n_valid on), d(r, col) = target - output.  K7 and
+// K8's variants repeat K6's order here: the block's threads form every
+// row's slots into slots[r * n_slots + sl] (r fastest), then thread r adds
+// its row's.  Call from every thread; the barrier between is inside.
+template <class D>
+__device__ __forceinline__ void k5_order_rows(int out, int d_mu, int rows, int n_valid, int n_slots, float* slots,
+                              float* sq, D d) {
+  int n_sl = 0;
+  for (int pi = 0; pi < panels_of(out); ++pi) n_sl += panel_slots(panel_geom(out, pi));
+  for (int idx = threadIdx.x; idx < rows * n_sl; idx += blockDim.x) {
+    const int sl = idx / rows, r = idx - sl * rows;
+    slots[r * n_slots + sl] =
+        r < n_valid ? k5_slot_sq(out, d_mu, sl, [&](int col) { return d(r, col); }) : 0.f;
+  }
+  __syncthreads();
+  if ((int)threadIdx.x < rows) {
+    float acc = 0.f;
+    for (int sl = 0; sl < n_sl; ++sl) acc += slots[threadIdx.x * n_slots + sl];
+    sq[threadIdx.x] = acc;
+  }
+}
+
+// One evaluation's shared-memory buffers in K6's first design (K8's variants).
 struct EvalSmem {
   uint32_t* words;
   float* act;
@@ -330,12 +489,15 @@ struct EvalSmem {
   float* sq;
   float* mu0;
   float* raw;
+  float* slots;  // a last layer's error slots [row][n_slots] (k5_order_rows)
   float* o2;  // K8 blockdiag: the tile's 2 out product columns, row stride 2 b_max
+  float* dq;  // a last layer's target - output [row][col], row stride ds: over the words
+  int ds;
 };
 
 __host__ __device__ size_t eval_smem_floats(const Params& p, bool blockdiag = false) {
   return (size_t)kTileRows * p.words_stride + 3 * (size_t)kTileRows * p.act_stride +
-         2 * (size_t)p.w_max + p.b_max + 4 * kTileRows +
+         2 * (size_t)p.w_max + p.b_max + 4 * kTileRows + (size_t)kTileRows * p.n_slots +
          (blockdiag ? 2 * (size_t)kTileRows * p.b_max : 0);
 }
 
@@ -352,15 +514,18 @@ __device__ EvalSmem carve_eval(float* smem, const Params& p) {
   s.sq = s.loss + kTileRows;
   s.mu0 = s.sq + kTileRows;
   s.raw = s.mu0 + kTileRows;
-  s.o2 = s.raw + kTileRows;
+  s.slots = s.raw + kTileRows;
+  s.o2 = s.slots + kTileRows * p.n_slots;
+  s.dq = reinterpret_cast<float*>(s.words);
+  s.ds = p.words_stride;
   return s;
 }
 
-// K6's device code: leaves in s.loss[r] the negative log-posterior of tile
-// row r < n_valid (prior included; 0 for the other rows).  The tile's rows
-// are read from zt (stride z_dim), xt, yt and vt (stride v_dim), in device
-// or shared memory; blk is the rows' logical block, ev the evaluation.  V is
-// K8's variant (kBase for K5 and K6).
+// K6's first design, K8's variants' device code: leaves in s.loss[r] the
+// negative log-posterior of tile row r < n_valid (prior included; 0 for the
+// other rows).  The tile's rows are read from zt (stride z_dim), xt, yt and
+// vt (stride v_dim), in device or shared memory; blk is the rows' logical
+// block, ev the evaluation.  V is K8's variant; kBase equals K6 bit for bit.
 template <int V>
 __device__ void tile_neg_logp(const Params& p, const EvalSmem& s, const float* zt,
                               const float* xt, const float* yt, const float* vt, int row0,
@@ -421,11 +586,10 @@ __device__ void tile_neg_logp(const Params& p, const EvalSmem& s, const float* z
       __syncthreads();
 
       const int d_mu = ch == 0 ? p.v_dim : 1;
-      float sq_acc[kRowsPerWarp];
-#pragma unroll
-      for (int j = 0; j < kRowsPerWarp; ++j) sq_acc[j] = 0.f;
       // Column col of the warp's rows: am the loc product, ap the
-      // perturbation product before r_out.
+      // perturbation product before r_out.  On the last layer each row's
+      // target - output goes to s.dq, over the sign word of the same row and
+      // column, which this lane has just read and nothing reads again.
       auto emit = [&](int col, const float* am, const float* ap) {
         const float bc = s.wb[col];
 #pragma unroll
@@ -442,8 +606,7 @@ __device__ void tile_neg_logp(const Params& p, const EvalSmem& s, const float* z
           } else if (r < n_valid) {
             if (col < d_mu) {
               const float t = ch == 0 ? vt[r * p.v_dim + col] : (ch == 1 ? xt[r] : yt[r]);
-              const float d = t - pre;
-              sq_acc[j] = fmaf(d, d, sq_acc[j]);
+              s.dq[r * s.ds + col] = t - pre;
             }
             if (col == 0) s.mu0[r] = pre;
             if (col == d_mu) s.raw[r] = pre;
@@ -536,23 +699,18 @@ __device__ void tile_neg_logp(const Params& p, const EvalSmem& s, const float* z
           emit(col, am, ap);
         }
       }
-      if (last) {
-#pragma unroll
-        for (int j = 0; j < kRowsPerWarp; ++j) {
-          float a = sq_acc[j];
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1) a += __shfl_xor_sync(0xffffffffu, a, off);
-          if (lane == 0) s.sq[warp * kRowsPerWarp + j] = a;
-        }
-      }
       __syncthreads();
       float* t = act;
       act = nxt;
       nxt = t;
     }
 
-    // Fold this chain's likelihood term into the row's loss.
+    // Fold this chain's likelihood term into the row's loss, its squared
+    // error summed in K6's order (k5_order_rows).
+    k5_order_rows(c.dims[c.n_layers], ch == 0 ? p.v_dim : 1, kTileRows, n_valid, p.n_slots,
+                  s.slots, s.sq, [&](int r, int col) { return s.dq[r * s.ds + col]; });
     if (tid < n_valid) {
+      const float sq = s.sq[tid];
       float l = s.loss[tid];
       if (ch == 1 && p.binary) {
         const float lx = s.mu0[tid];
@@ -562,7 +720,7 @@ __device__ void tile_neg_logp(const Params& p, const EvalSmem& s, const float* z
         const float sigma = ch == 0 ? p.sigma_v : (ch == 1 ? p.sigma_x : p.sigma_y);
         const float sv = fixed ? sigma * sigma : softplus(s.raw[tid]) + kEpsF;
         const float n_dims = ch == 0 ? (float)p.v_dim : 1.f;
-        l += s.sq[tid] / (2.f * sv) + n_dims * logf(sv) / 2.f;
+        l += sq / (2.f * sv) + n_dims * logf(sv) / 2.f;
       }
       s.loss[tid] = l;
     }
@@ -579,8 +737,8 @@ __device__ void tile_neg_logp(const Params& p, const EvalSmem& s, const float* z
   __syncthreads();
 }
 
-// K6 (V = kBase) and K8's variant V: out[row] = the negative log-posterior,
-// one evaluation (ev = 0).
+// K8's variant V: out[row] = the negative log-posterior, one evaluation
+// (ev = 0).
 template <int V>
 __global__ void __launch_bounds__(kThreads) inkernel_logp_kernel(const Params p) {
   extern __shared__ float4 smem4[];
@@ -595,7 +753,7 @@ __global__ void __launch_bounds__(kThreads) inkernel_logp_kernel(const Params p)
 
 // ---------------------------------------------------------------- K5 ----
 //
-// K5's evaluation is its own (K1's design, csrc/bnn_hosteps.cu), not K6's:
+// K5's evaluation, which K6 runs once (K1's design, csrc/bnn_hosteps.cu):
 // 4 x 4 register micro-tiles over a 64-row layout, activations k-major with
 // their sign-flipped copy written by the previous layer's epilogue, sign
 // words column-major, and each layer's loc and b streamed in panels of at
@@ -606,9 +764,6 @@ __global__ void __launch_bounds__(kThreads) inkernel_logp_kernel(const Params p)
 // evaluations.  A chain's last layer folds into per-row error slots: one
 // per 16 columns of a 64-column panel (the 4 lanes that share a row quad
 // reduce by shuffles), one per 4 columns of a narrower panel.
-
-constexpr int kK5Rows = 64;      // the row layout of K5's tile
-constexpr int kPanelCols = 64;   // a weight panel: at most 64 output columns
 
 __device__ __forceinline__ float leaky(float v) { return v > 0.f ? v : kLeakySlope * v; }
 
@@ -635,57 +790,6 @@ __device__ __forceinline__ bool aligned16(const void* ptr) {
   return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0;
 }
 
-// A panel of a layer `out` wide.  A layer of at most 64 columns is one
-// natural panel (local column = column).  A wider layer is cut into panels
-// of 32 Box-Muller pairs (pairs j0 .. j0 + 31 of a row: columns j0 + c take
-// their cosines, columns hc + j0 + c their sines), so that a Philox call's
-// normals land in one panel and none is drawn twice: the panel's first
-// wcos local columns are its cosine columns, the rest its sine columns.
-struct Panel {
-  int ch, layer;
-  bool paired;
-  int hc;          // pairs per row of the layer's draw: ceil(out / 2)
-  int j0;          // paired: the first pair; natural: 0
-  int ncos, nsin;  // pairs of a row in the panel (natural: hc) and those with a sine column
-  int wcos;        // paired: cosine columns padded to a multiple of 4
-  int soff;        // local column of pair j0 + c's sine: c + soff
-  int width;       // local columns, a multiple of 4
-};
-
-__host__ __device__ __forceinline__ Panel panel_geom(int out, int pidx) {
-  Panel q;
-  q.ch = q.layer = 0;
-  q.hc = (out + 1) >> 1;
-  q.paired = out > kPanelCols;
-  if (!q.paired) {
-    q.j0 = 0;
-    q.ncos = q.hc;
-    q.nsin = out - q.hc;
-    q.wcos = (out + 3) & ~3;
-    q.soff = q.hc;
-    q.width = q.wcos;
-  } else {
-    q.j0 = (kPanelCols / 2) * pidx;
-    q.ncos = min(kPanelCols / 2, q.hc - q.j0);
-    q.nsin = max(0, min(kPanelCols / 2, out - q.hc - q.j0));
-    q.wcos = (q.ncos + 3) & ~3;
-    q.soff = q.wcos;
-    q.width = q.wcos + ((q.nsin + 3) & ~3);
-  }
-  return q;
-}
-
-// Panels of a layer `out` wide.
-__host__ __device__ __forceinline__ int panels_of(int out) {
-  return out <= kPanelCols ? 1 : ((out + 1) / 2 + kPanelCols / 2 - 1) / (kPanelCols / 2);
-}
-
-// Error slots a last-layer panel fills per row: one per 16 columns of a
-// 64-wide panel, one per 4 columns of a narrower one.
-__host__ __device__ __forceinline__ int panel_slots(const Panel& q) {
-  return q.width == kPanelCols ? 4 : q.width / 4;
-}
-
 __device__ __forceinline__ Panel panel_at(const Params& p, int pc) {
   const int code = p.panel[pc];
   const int ch = code >> 12, layer = (code >> 6) & 63;
@@ -693,20 +797,6 @@ __device__ __forceinline__ Panel panel_at(const Params& p, int pc) {
   q.ch = ch;
   q.layer = layer;
   return q;
-}
-
-// The layer column of local column c, and whether the panel holds it.
-__device__ __forceinline__ int panel_col(const Panel& q, int c, bool& valid) {
-  if (!q.paired) {
-    valid = c < q.ncos + q.nsin;
-    return c;
-  }
-  if (c < q.wcos) {
-    valid = c < q.ncos;
-    return q.j0 + c;
-  }
-  valid = c - q.wcos < q.nsin;
-  return q.hc + q.j0 + (c - q.wcos);
 }
 
 // The sign words of the tile's rows at evaluation ev, column-major:
@@ -945,10 +1035,8 @@ __device__ __forceinline__ void k5_panel(const Params& p, const K5Epi& e, const 
     const int warp = tid >> 5, lane = tid & 31;
     const int r0 = 32 * (warp & 1) + 4 * (lane & 7);
     const int c0 = 16 * (warp >> 1) + 4 * (lane >> 3);
-    bool valid;
-    const int tcol = panel_col(q, c0, valid);
-    int nv = 0;
-    while (nv < 4 && (panel_col(q, c0 + nv, valid), valid)) ++nv;
+    int nv;
+    const int tcol = panel_quad(q, c0, nv);
     float am[4][4], ap[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -987,10 +1075,8 @@ __device__ __forceinline__ void k5_panel(const Params& p, const K5Epi& e, const 
   } else if (w == kPanelCols / 2) {
     // 2 x 4 micro-tiles: warp -> column quad, lane -> row pair.
     const int r0 = 2 * (tid & 31), c0 = 4 * (tid >> 5);
-    bool valid;
-    const int tcol = panel_col(q, c0, valid);
-    int nv = 0;
-    while (nv < 4 && (panel_col(q, c0 + nv, valid), valid)) ++nv;
+    int nv;
+    const int tcol = panel_quad(q, c0, nv);
     float am[2][4], ap[2][4];
 #pragma unroll
     for (int i = 0; i < 2; ++i)
@@ -1026,10 +1112,8 @@ __device__ __forceinline__ void k5_panel(const Params& p, const K5Epi& e, const 
     const int n_quads = w / 4;
     for (int t = tid; t < kK5Rows * n_quads; t += blockDim.x) {
       const int r = t % kK5Rows, c0 = 4 * (t / kK5Rows);
-      bool valid;
-      const int tcol = panel_col(q, c0, valid);
-      int nv = 0;
-      while (nv < 4 && (panel_col(q, c0 + nv, valid), valid)) ++nv;
+      int nv;
+      const int tcol = panel_quad(q, c0, nv);
       float am[1][4] = {{0.f, 0.f, 0.f, 0.f}}, ap[1][4] = {{0.f, 0.f, 0.f, 0.f}}, tv[1][4];
       k5_targets<1>(p, e, r, tcol, nv, tv);
 #pragma unroll 4
@@ -1081,6 +1165,24 @@ __host__ __device__ size_t k5_smem_floats(const Params& p, int n_stages) {
          R * p.n_slots + 3 * R + 2 * R * p.z_dim + 3 * R;
 }
 
+__device__ K5Smem k5_carve(float* smem, const Params& p) {
+  const int R = kK5Rows, as = p.act_stride, zd = p.z_dim;
+  K5Smem s;
+  s.words = reinterpret_cast<uint32_t*>(smem);
+  s.act_buf = smem + R * p.words_stride;
+  s.ring = s.act_buf + 4 * R * as;
+  s.groups = s.ring + p.n_stages * (2 * as * kPanelCols + kPanelCols);
+  s.loss = s.groups + R * p.n_slots;
+  s.mu0 = s.loss + R;
+  s.raw = s.mu0 + R;
+  s.zt = s.raw + R;
+  s.zp = s.zt + R * zd;
+  s.lp_prop = s.zp + R * zd;
+  s.logp = s.lp_prop + R;
+  s.accepted = reinterpret_cast<int*>(s.logp + R);
+  return s;
+}
+
 // The window's stream of panels, one per ring slot: panel G of the stream is
 // panel G % n_panels of evaluation G / n_panels.  With 3 slots, while panel
 // G is in the FMAs, G + 1 is made P in place and G + 2 is being copied; with
@@ -1128,6 +1230,22 @@ struct K5Stream {
     return slot(G);
   }
 };
+
+// The stream of n_evals evaluations' panels for the tile at row0.
+__device__ __forceinline__ K5Stream k5_stream(const Params& p, const K5Smem& s, int n_evals,
+                                              int row0, uint2 key) {
+  K5Stream st;
+  st.G = 0;
+  st.total = n_evals * p.n_panels;
+  st.S = p.n_stages;
+  st.NP = p.n_panels;
+  st.half = p.act_stride * kPanelCols;
+  st.slot_floats = 2 * st.half + kPanelCols;
+  st.blk = row0 / p.block_rows;
+  st.ring = s.ring;
+  st.key = key;
+  return st;
+}
 
 // One evaluation of the tile's rows at the state zsrc (shared, [64][z_dim]):
 // leaves in s.loss[r] the negative log-posterior of row r < n_valid (prior
@@ -1231,37 +1349,15 @@ __device__ __forceinline__ void k5_eval(const Params& p, const K5Smem& s, const 
 // and v are read from device memory (they stay in L2).
 __global__ void __launch_bounds__(kThreads, 1) inkernel_mh_steps_kernel(const Params p) {
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int R = kK5Rows, as = p.act_stride, zd = p.z_dim;
-  K5Smem s;
-  s.words = reinterpret_cast<uint32_t*>(smem);
-  s.act_buf = smem + R * p.words_stride;
-  s.ring = s.act_buf + 4 * R * as;
-  s.groups = s.ring + p.n_stages * (2 * as * kPanelCols + kPanelCols);
-  s.loss = s.groups + R * p.n_slots;
-  s.mu0 = s.loss + R;
-  s.raw = s.mu0 + R;
-  s.zt = s.raw + R;
-  s.zp = s.zt + R * zd;
-  s.lp_prop = s.zp + R * zd;
-  s.logp = s.lp_prop + R;
-  s.accepted = reinterpret_cast<int*>(s.logp + R);
+  const int R = kK5Rows, zd = p.z_dim;
+  const K5Smem s = k5_carve(reinterpret_cast<float*>(smem4), p);
 
   const int tid = threadIdx.x, lane = tid & 31;
   const int row0 = blockIdx.x * p.k5_rows;
   const int n_valid = min(p.k5_rows, p.n_rows - row0);
   const uint2 key = make_uint2((uint32_t)p.seed[0], (uint32_t)p.seed[1]);
   const float q_sd = *p.q_sd;
-  K5Stream st;
-  st.G = 0;
-  st.total = 2 * p.n_steps * p.n_panels;
-  st.S = p.n_stages;
-  st.NP = p.n_panels;
-  st.half = as * kPanelCols;
-  st.slot_floats = 2 * st.half + kPanelCols;
-  st.blk = row0 / p.block_rows;
-  st.ring = s.ring;
-  st.key = key;
+  K5Stream st = k5_stream(p, s, 2 * p.n_steps, row0, key);
 
   for (int idx = tid; idx < R * zd; idx += blockDim.x) {
     s.zt[idx] = idx / zd < n_valid ? p.z[(size_t)row0 * zd + idx] : 0.f;
@@ -1306,6 +1402,26 @@ __global__ void __launch_bounds__(kThreads, 1) inkernel_mh_steps_kernel(const Pa
   for (int idx = tid; idx < n_valid * zd; idx += blockDim.x)
     p.z_out[(size_t)row0 * zd + idx] = s.zt[idx];
   if (tid < n_valid) p.out[row0 + tid] = s.logp[tid];
+}
+
+// K6: out[row] = the negative log-posterior, one evaluation (ev = 0) of
+// K5's (k5_eval) for the tile's k5_rows rows (64, or 32 when block_rows is
+// an odd multiple of 32), their z copied into shared memory first.
+__global__ void __launch_bounds__(kThreads, 1) inkernel_logp_eval_kernel(const Params p) {
+  extern __shared__ float4 smem4[];
+  const int R = kK5Rows, zd = p.z_dim;
+  const K5Smem s = k5_carve(reinterpret_cast<float*>(smem4), p);
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.x * p.k5_rows;
+  const int n_valid = min(p.k5_rows, p.n_rows - row0);
+  const uint2 key = make_uint2((uint32_t)p.seed[0], (uint32_t)p.seed[1]);
+  K5Stream st = k5_stream(p, s, 1, row0, key);
+  for (int idx = tid; idx < R * zd; idx += blockDim.x)
+    s.zt[idx] = idx / zd < n_valid ? p.z[(size_t)row0 * zd + idx] : 0.f;
+  st.prologue(p);
+  k5_eval(p, s, s.zt, row0, n_valid, st);
+  cp_async_wait<0>();
+  if (tid < n_valid) p.out[row0 + tid] = s.loss[tid];
 }
 
 // K7: the K6 value of each row and its gradient with respect to z, through
@@ -1410,27 +1526,24 @@ __global__ void __launch_bounds__(kThreads) inkernel_grad_kernel(const Params p)
     }
     __syncthreads();
 
-    // The chain's likelihood term and its output cotangent.  The squared
-    // error is summed as K6 sums it (lane-strided, then a xor butterfly).
+    // The chain's likelihood term and its output cotangent.  The mu
+    // columns of cot become target - output in place (not a binary
+    // treatment's logit, whose loss does not use them); the squared error
+    // is summed from them as K6 sums it (k5_order_rows; its slots in uni,
+    // which the forward is done with).
     const int d_mu = ch == 0 ? p.v_dim : 1;
     const int out_last = c.dims[n_layers];
-#pragma unroll
-    for (int j = 0; j < kRowsPerWarp; ++j) {
-      const int r = warp * kRowsPerWarp + j;
-      float acc = 0.f;
-      if (r < n_valid) {
-        const int row = row0 + r;
-        for (int col = lane; col < d_mu; col += 32) {
-          const float t = ch == 0 ? p.v[(size_t)row * p.v_dim + col] : (ch == 1 ? p.x[row] : p.y[row]);
-          const float d = t - cot[r * ws + col];
-          acc = fmaf(d, d, acc);
-        }
+    const bool binary_head = ch == 1 && p.binary;
+    if (!binary_head) {
+      for (int idx = tid; idx < n_valid * d_mu; idx += blockDim.x) {
+        const int r = idx / d_mu, col = idx - r * d_mu, row = row0 + r;
+        const float t = ch == 0 ? p.v[(size_t)row * p.v_dim + col] : (ch == 1 ? p.x[row] : p.y[row]);
+        cot[r * ws + col] = t - cot[r * ws + col];
       }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-      if (lane == 0) sq[r] = acc;
+      __syncthreads();
     }
-    __syncthreads();
+    k5_order_rows(out_last, d_mu, kTileRows, n_valid, p.n_slots, uni, sq,
+                  [&](int r, int col) { return cot[r * ws + col]; });
     if (tid < kTileRows) {
       float sv = 1.f, cv = 0.f;
       if (tid < n_valid) {
@@ -1455,7 +1568,6 @@ __global__ void __launch_bounds__(kThreads) inkernel_grad_kernel(const Params p)
       c_var[tid] = cv;
     }
     __syncthreads();
-    const bool binary_head = ch == 1 && p.binary;
     for (int idx = tid; idx < kTileRows * out_last; idx += blockDim.x) {
       const int r = idx / out_last, col = idx - r * out_last;
       float cval = 0.f;
@@ -1463,9 +1575,7 @@ __global__ void __launch_bounds__(kThreads) inkernel_grad_kernel(const Params p)
         if (binary_head) {
           cval = col == 0 ? c_var[r] : 0.f;
         } else if (col < d_mu) {
-          const int row = row0 + r;
-          const float t = ch == 0 ? p.v[(size_t)row * p.v_dim + col] : (ch == 1 ? p.x[row] : p.y[row]);
-          cval = -(t - cot[r * ws + col]) / s_row[r];
+          cval = -cot[r * ws + col] / s_row[r];  // cot holds target - output
         } else if (col == d_mu) {
           cval = c_var[r];
         }
@@ -1654,6 +1764,12 @@ int build_params(Params& p, const float* z, const float* x, const float* y, cons
       p.chain[2].dims[0] != d0 + d1 + 1)
     return kErrShape;
   if (block_rows < kTileRows || block_rows % kTileRows != 0) return kErrBlockRows;
+  for (int ch = 0; ch < 3; ++ch) {  // a last layer's error slots per row, the most over chains
+    const int out = p.chain[ch].dims[p.chain[ch].n_layers];
+    int n_sl = 0;
+    for (int j = 0; j < panels_of(out); ++j) n_sl += panel_slots(panel_geom(out, j));
+    if (n_sl > p.n_slots) p.n_slots = n_sl;
+  }
   p.z = z;
   p.x = x;
   p.y = y;
@@ -1689,6 +1805,36 @@ int launch(Kernel kernel, const Params& p, size_t smem, void* stream) {
 
 int grid_1d(long long n) { return (int)((n + 255) / 256); }
 
+// K5's and K6's evaluation: the tile's rows, the weight panels in the order
+// a tile walks them, the error slots per row and the ring's slots (3, or 2
+// where 3 do not fit).  Returns 0, kErrShape or kErrSmem; *smem gets the
+// bytes of shared memory.
+int k5_setup(Params& p, size_t* smem) {
+  p.k5_rows = p.block_rows % kK5Rows == 0 ? kK5Rows : kTileRows;  // a tile lies in one block
+  for (int ch = 0; ch < 3; ++ch) {
+    const Chain& c = p.chain[ch];
+    for (int i = 0; i < c.n_layers; ++i) {
+      const int n_pan = panels_of(c.dims[i + 1]);
+      if (n_pan > 63 || p.n_panels + n_pan > 256) return kErrShape;
+      for (int j = 0; j < n_pan; ++j) p.panel[p.n_panels++] = (uint16_t)(ch << 12 | i << 6 | j);
+    }
+  }
+  p.n_stages = sizeof(float) * k5_smem_floats(p, 3) <= (size_t)kMaxSmemBytes ? 3 : 2;
+  *smem = sizeof(float) * k5_smem_floats(p, p.n_stages);
+  return *smem > (size_t)kMaxSmemBytes ? kErrSmem : 0;
+}
+
+// Launch a kernel over K5's tiles.
+int launch_k5(void (*kernel)(const Params), const Params& p, size_t smem, void* stream) {
+  if (p.n_rows <= 0) return 0;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (p.n_rows + p.k5_rows - 1) / p.k5_rows;
+  kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1707,7 +1853,10 @@ int bnn_inkernel_logp(const float* z, const float* x, const float* y, const floa
                                 binary, fixed_mask, sigma_v, sigma_x, sigma_y, block_rows,
                                 n_layers, dims, ptrs);
   if (code != 0) return code;
-  return launch(inkernel_logp_kernel<kBase>, p, sizeof(float) * eval_smem_floats(p), stream);
+  size_t smem;
+  const int setup = k5_setup(p, &smem);
+  if (setup != 0) return setup;
+  return launch_k5(inkernel_logp_eval_kernel, p, smem, stream);
 }
 
 // K8: variant `variant` (the order of enum Variant) of K6's evaluation;
@@ -1780,34 +1929,15 @@ int bnn_inkernel_mh_steps(const float* z, const float* x, const float* y, const 
   p.z_out = z_out;
   p.counts = counts;
   p.n_steps = n_steps;
-  p.k5_rows = block_rows % kK5Rows == 0 ? kK5Rows : kTileRows;  // a tile lies in one block
-  for (int ch = 0; ch < 3; ++ch) {
-    const Chain& c = p.chain[ch];
-    for (int i = 0; i < c.n_layers; ++i) {
-      const int n_pan = panels_of(c.dims[i + 1]);
-      if (n_pan > 63 || p.n_panels + n_pan > 256) return kErrShape;
-      for (int j = 0; j < n_pan; ++j) p.panel[p.n_panels++] = (uint16_t)(ch << 12 | i << 6 | j);
-    }
-    const int out = c.dims[c.n_layers];
-    int n_sl = 0;
-    for (int j = 0; j < panels_of(out); ++j) n_sl += panel_slots(panel_geom(out, j));
-    if (n_sl > p.n_slots) p.n_slots = n_sl;
-  }
-  p.n_stages = sizeof(float) * k5_smem_floats(p, 3) <= (size_t)kMaxSmemBytes ? 3 : 2;
-  const size_t smem = sizeof(float) * k5_smem_floats(p, p.n_stages);
-  if (smem > (size_t)kMaxSmemBytes) return kErrSmem;
+  size_t smem;
+  const int setup = k5_setup(p, &smem);
+  if (setup != 0) return setup;
   if (n_steps > 0) {
     cudaError_t err = cudaMemsetAsync(counts, 0, sizeof(float) * n_steps,
                                       static_cast<cudaStream_t>(stream));
     if (err != cudaSuccess) return (int)err;
   }
-  if (n_rows <= 0) return 0;
-  cudaError_t err = cudaFuncSetAttribute(inkernel_mh_steps_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (n_rows + p.k5_rows - 1) / p.k5_rows;
-  inkernel_mh_steps_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+  return launch_k5(inkernel_mh_steps_kernel, p, smem, stream);
 }
 
 // out (rows, cols) uint32 = the sign words of `chain`/`group` for rows
@@ -1853,7 +1983,7 @@ const char* bnn_inkernel_error_string(int code) {
   switch (code) {
     case kErrTooManyLayers: return "a chain has 0 or more than 20 layers";
     case kErrSmem: return "the tile's buffers for these widths do not fit in 227 KB of shared memory";
-    case kErrShape: return "a layer width is < 1 or (K5) over 4030, more than 256 weight panels (K5), a chain's input or output width is wrong, n_steps < 0, or an unknown probe variant";
+    case kErrShape: return "a layer width is < 1 or (K5, K6) over 4030, more than 256 weight panels (K5, K6), a chain's input or output width is wrong, n_steps < 0, or an unknown probe variant";
     case kErrBlockRows: return "block_rows must be a positive multiple of the kernel's 32-row tile";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }

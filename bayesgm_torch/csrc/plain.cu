@@ -31,18 +31,33 @@
 // walk over the staged layers sets its time, not the arithmetic.
 //
 // What the design does about it.
-// - K4, and K3 past kClusterMaxRows rows (plain_logp_kernel,
-//   plain_grad_kernel): one block of 8 warps takes 32 rows; each warp owns
-//   4 rows and walks the output columns with its 32 lanes, so every staged
-//   weight read feeds 4 FMAs and the activation reads are warp broadcasts.  Each layer's w and b are staged in shared memory
-//   once per tile.  K4 never writes a chain's last layer out: its columns
-//   fold straight into the row's squared error (lane-strided fmaf chains,
-//   then a xor butterfly across the warp) and the variance head.  K3's tile
-//   form keeps every hidden pre-activation and the last layer's output in
-//   shared memory, holds the cotangent in two ping-pong buffers and stages
-//   each layer's w again for the backward with an odd row stride (out | 1),
-//   so the 32 lanes walking the input columns hit 32 banks (~146 KB at the
-//   benchmark width).
+// - K4 (plain_logp_kernel): K1's register-tiled design (csrc/bnn_hosteps.cu)
+//   without P, the signs and the second product.  A block takes a tile of
+//   kK4Rows = 32 rows; activations are kept k-major (act[k][row]); each
+//   layer's w and b are cut into panels of at most 64 output columns that
+//   stream through a ring of kK4Stages = 3 cp.async slots across layer and
+//   chain boundaries (one __syncthreads per panel hands a slot over).  On a
+//   64-wide panel each thread computes a micro-tile of kK4MicroRows = 2
+//   rows x 4 columns (256 threads per tile), on a narrower one one row x 4
+//   columns.  A chain's last layer is never written out:
+//   each micro-tile folds its columns into the rows' error groups (K1's
+//   order, sq_rows below), mu0 and the variance head, with the targets
+//   loaded before the products.  Shared memory at the benchmark width: 16 KB
+//   of activations, 3 x 16.6 KB of slots, 6.4 KB of error groups (~73 KB):
+//   three blocks per SM, so 10000 rows (313 tiles) run in one round on 132
+//   SMs.  tools/ablate_inkernel.py sweeps the sizes (32 and 64 rows, 2 and
+//   3 slots, 2 x 4 and 4 x 4 micro-tiles): at 10000 rows the 32-row cells
+//   take 0.067-0.068 ms, the 64-row ones 0.072-0.082; 2 x 4 is the fastest
+//   lone tile (1000 rows: 0.044 ms against 0.051 for 4 x 4) and at 20000
+//   rows (0.113 against 0.119-0.127).
+// - K3 past kClusterMaxRows rows (plain_grad_kernel): one block of 8 warps
+//   takes 32 rows; each warp owns 4 rows and walks the output columns with
+//   its 32 lanes, each layer's w and b staged in shared memory once per
+//   tile.  It keeps every hidden pre-activation and the last layer's output
+//   in shared memory, holds the cotangent in two ping-pong buffers and
+//   stages each layer's w again for the backward with an odd row stride
+//   (out | 1), so the 32 lanes walking the input columns hit 32 banks
+//   (~152 KB at the benchmark width).
 // - K3 up to kClusterMaxRows rows (plain_grad_cluster_kernel; the fit batch
 //   of 32 rows is one tile): K2's cluster form (csrc/bnn_hosteps.cu) without
 //   P and the signs, with the three chains in lockstep and a backward built
@@ -62,16 +77,24 @@
 //   cross CTAs and nothing is added with atomics: two launches give the
 //   same bits.  g, h and f take their steps side by side: 14 cluster
 //   barriers at the benchmark width where one chain after another needs
-//   32.  ~148 KB of shared memory per CTA at the benchmark width.
+//   32.  ~154 KB of shared memory per CTA at the benchmark width.
 // - K3 = K4 bit for bit in both forms: every output is an fmaf chain over
 //   ascending k from 0 plus b, a row's squared error is summed in K4's
-//   lane-strided order and butterfly (sq_warp), and the row's value adds
-//   head_nll for g, h, f and then the prior, as K4 does.
+//   order (K1's: groups of 4 columns, then the groups in ascending order;
+//   sq_rows forms K3's groups across the block and adds each row's in one
+//   thread), and the row's value adds head_nll for g, h, f and then the
+//   prior, as K4 does.
 // A shape whose buffers do not fit in 227 KB returns kErrSmem.
-// What is left (NVIDIA H100, tools/profile_steps.py and
-// tools/ablate_inkernel.py; PERF.md section 6): the cluster form takes
-// ~0.052 ms of device time at 32 rows and up to 384 rows, 0.10 ms at 512
-// (16 clusters no longer run at once); without the backward ~0.04; each of
+// What is left (NVIDIA H100 80GB HBM3, 700 W; tools/ablate_inkernel.py and
+// chip_smoke.py; PERF.md section 6): K4 takes ~0.067 ms of device time at
+// 10000 rows (15 % of its bound) and ~0.113 at 20000; a lone tile (1000
+// rows) takes ~0.044 ms, so at 10000 rows, 2 to 3 tiles per SM, the
+// tiles' latency sets the time: without the products'
+// inner loop 0.040, without the weight copies 0.058, without the narrow
+// panels' loop 0.062, without the 64-wide epilogue 0.064, g's chain alone
+// 0.053.  K3's cluster form takes ~0.052 ms of device time at 32 rows and
+// up to 384 rows, 0.10 ms at 512 (16 clusters no longer run at once);
+// without the backward ~0.04; each of
 // the 14 cluster barriers costs ~0.4 us alone; launch and weight copies
 // ~0.008.  One block per tile takes ~0.12 ms up to 1024 rows (0.13 for the
 // cluster form there) and 0.62 ms at 20000.
@@ -92,6 +115,16 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kMaxSmemBytes = 232448;  // 227 KB, the most one block may use
 constexpr float kLeakySlope = 0.2f;
 constexpr float kEpsF = 1e-6f;
+
+// K4's row tile and the slots of its weight ring (tools/ablate_inkernel.py
+// sweeps both; see the top of this file), and its weight panels: at most 64
+// output columns each, at most kMaxPanels in all.
+constexpr int kK4Rows = 32;
+constexpr int kK4Stages = 3;
+// Rows of a thread's micro-tile on a 64-wide panel (2 or 4) x 4 columns.
+constexpr int kK4MicroRows = 2;
+constexpr int kPanelCols = 64;
+constexpr int kMaxPanels = 256;
 
 constexpr int kCluster = 8;  // K3's CTAs per row tile in its cluster form
 // K3 takes the cluster form up to this many rows; past it, one block per
@@ -134,6 +167,11 @@ struct Params {
   // loss buffers and act's column stride; then the tile's v, x and y,
   // sq / s_row / c_var, and the end of the floats
   int k3_w, k3_off[3][5], k3_as[3], k3_vt, k3_misc, k3_floats;
+  // K4: error groups per row (ceil(v_dim / 4)), its weight panels in the
+  // order a tile walks them (chain << 12 | layer << 6 | panel) and the
+  // ring's slots
+  int n_groups, n_panels, n_stages;
+  uint16_t panel[kMaxPanels];
 };
 
 __device__ __forceinline__ float softplus(float r) {
@@ -194,112 +232,344 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
 }
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Lane `lane`'s share of a row's squared error over mu columns lane,
-// lane + 32, ... below d_mu (t(col) the target, m(col) the output), summed by
-// a xor butterfly across the warp: K4's order, which K3 repeats.
-template <class Diff>
-__device__ __forceinline__ float sq_warp(int lane, int d_mu, Diff diff) {
-  float acc = 0.f;
-  for (int col = lane; col < d_mu; col += 32) {
-    const float d = diff(col);
-    acc = fmaf(d, d, acc);
-  }
+__device__ __forceinline__ bool aligned16(const void* ptr) {
+  return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0;
+}
+
+// The squared errors sq[r] of the tile's R rows over their d_mu mu columns
+// (diff(r, col) = target - output; 0 for rows from n_valid on) in K1's order
+// (csrc/bnn_hosteps.cu): group q, columns 4q .. 4q+3 below d_mu, is an fmaf
+// chain over its columns in ascending order, and a row's sum adds its
+// groups in ascending q from 0.  K4 forms the groups in its micro-tiles'
+// epilogue; K3 repeats the order here: the block's threads form every
+// row's groups into groups[r * n_groups + q] (r fastest, so that
+// neighbouring threads read neighbouring rows), then thread r adds its
+// row's.  Call from every thread; the first barrier is inside, the caller
+// puts one after.
+template <int R, class Diff>
+__device__ __forceinline__ void sq_rows(int d_mu, int n_valid, int n_groups, float* groups,
+                                        float* sq, Diff diff) {
+  const int nq = (d_mu + 3) / 4;
+  for (int idx = threadIdx.x; idx < R * nq; idx += blockDim.x) {
+    const int q = idx / R, r = idx - q * R;
+    float g = 0.f;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  return acc;
+    for (int j = 0; j < 4; ++j) {
+      if (4 * q + j < d_mu) {
+        const float d = diff(r, 4 * q + j);
+        g = fmaf(d, d, g);
+      }
+    }
+    groups[r * n_groups + q] = g;
+  }
+  __syncthreads();
+  if (threadIdx.x < R) {
+    const int r = threadIdx.x;
+    float s = 0.f;
+    for (int q = 0; q < nq; ++q) s += groups[r * n_groups + q];
+    sq[r] = r < n_valid ? s : 0.f;
+  }
 }
 
-// K4.
-__global__ void __launch_bounds__(kThreads)
-plain_logp_kernel(const Params p) {
+// ---------------------------------------------------------------- K4 ----
+
+// A panel of K4's weight stream: out columns col0 .. col0 + ncols - 1 of one
+// layer, padded to width (a multiple of 4) with zeros in shared memory.
+struct Panel {
+  int ch, layer, col0, ncols, width;
+};
+
+__device__ __forceinline__ Panel panel_at(const Params& p, int pc) {
+  Panel q;
+  const int code = p.panel[pc];
+  q.ch = code >> 12;
+  q.layer = (code >> 6) & 63;
+  q.col0 = (code & 63) * kPanelCols;
+  const int out = p.chain[q.ch].dims[q.layer + 1];
+  q.ncols = min(kPanelCols, out - q.col0);
+  q.width = (q.ncols + 3) & ~3;
+  return q;
+}
+
+// A slot holds one panel: w[k][width], then b[width] at `half` floats.
+__device__ void issue_panel(const Params& p, int pc, float* slot, int half) {
+  const Panel q = panel_at(p, pc);
+  const Chain& c = p.chain[q.ch];
+  const int in = c.dims[q.layer], out = c.dims[q.layer + 1];
+  const float* w = c.w[q.layer] + q.col0;
+  const float* b = c.b[q.layer] + q.col0;
+  float* bs = slot + half;
+  const int wd = q.width;
+  // (k, column) of a thread's element, stepped by blockDim.x elements
+  // without a division per element
+  if (out % 4 == 0 && aligned16(w)) {
+    const int w4 = wd / 4, dk = blockDim.x / w4, dc = blockDim.x - dk * w4;
+    int k = threadIdx.x / w4, cc = threadIdx.x - k * w4;
+    for (; k < in; k += dk, cc += dc) {
+      if (cc >= w4) {
+        cc -= w4;
+        ++k;
+        if (k >= in) break;
+      }
+      cp_async16(slot + k * wd + 4 * cc, w + (size_t)k * out + 4 * cc);
+    }
+  } else {
+    const int dk = blockDim.x / wd, dc = blockDim.x - dk * wd;
+    int k = threadIdx.x / wd, cc = threadIdx.x - k * wd;
+    for (; k < in; k += dk, cc += dc) {
+      if (cc >= wd) {
+        cc -= wd;
+        ++k;
+        if (k >= in) break;
+      }
+      if (cc < q.ncols) {
+        cp_async4(slot + k * wd + cc, w + (size_t)k * out + cc);
+      } else {
+        slot[k * wd + cc] = 0.f;
+      }
+    }
+  }
+  for (int cc = threadIdx.x; cc < wd; cc += blockDim.x) {
+    if (cc < q.ncols) {
+      cp_async4(bs + cc, b + cc);
+    } else {
+      bs[cc] = 0.f;
+    }
+  }
+}
+
+// What a panel's epilogue needs besides the accumulators.
+struct Epi {
+  float* nact;    // next layer's activations [col][row], or null on the last layer
+  float* groups;  // last layer: error groups [row][q]
+  float* mu0;
+  float* raw;
+  int ch, row0, n_valid, d_mu, n_groups;
+};
+
+// A last layer's targets for a micro-tile of NR rows and columns col ..
+// col + 3, loaded before its products so that their latency hides behind
+// them (0 past d_mu and for rows past the tile's end).
+template <int NR>
+__device__ __forceinline__ void k4_targets(const Params& p, const Epi& e, int r0, int col,
+                                           float (&tv)[NR][4]) {
+#pragma unroll
+  for (int i = 0; i < NR; ++i) {
+    const int row = e.row0 + r0 + i;
+    const bool load = e.nact == nullptr && r0 + i < e.n_valid;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      tv[i][j] = load && col + j < e.d_mu ? target(p, e.ch, row, col + j) : 0.f;
+  }
+}
+
+// A micro-tile of NR rows r0 .. r0 + NR - 1 (R rows in the tile) and four
+// columns col .. col + 3 (those < out): am their products, bias the
+// panel's b there.  A hidden layer writes LeakyReLU of each output to the
+// next layer's activations; the last layer writes the rows' error group
+// col / 4, mu0 and the variance head's raw output.
+template <int R, int NR>
+__device__ __forceinline__ void k4_epilogue(const Epi& e, int r0, int col, int out,
+                                            const float* bias, const float (&am)[NR][4],
+                                            const float (&tv)[NR][4]) {
+  float pre[NR][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float h[NR];
+#pragma unroll
+    for (int i = 0; i < NR; ++i) {
+      pre[i][j] = am[i][j] + bias[j];
+      h[i] = leaky(pre[i][j]);
+    }
+    if (e.nact != nullptr && col + j < out) {
+      float* na = e.nact + (col + j) * R + r0;
+      if constexpr (NR == 4) {
+        *reinterpret_cast<float4*>(na) = make_float4(h[0], h[1], h[2], h[3]);
+      } else if constexpr (NR == 2) {
+        *reinterpret_cast<float2*>(na) = make_float2(h[0], h[1]);
+      } else {
+        na[0] = h[0];
+      }
+    }
+  }
+  if (e.nact != nullptr) return;
+  const int q = col / 4, n = e.d_mu - 4 * q;
+#pragma unroll
+  for (int i = 0; i < NR; ++i) {
+    const int r = r0 + i;
+    if (r >= e.n_valid) continue;
+    if (n > 0) {
+      float g = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (j < n) {
+          const float d = tv[i][j] - pre[i][j];
+          g = fmaf(d, d, g);
+        }
+      }
+      e.groups[r * e.n_groups + q] = g;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (col + j == 0) e.mu0[r] = pre[i][j];
+      if (col + j == e.d_mu && col + j < out) e.raw[r] = pre[i][j];
+    }
+  }
+}
+
+// One panel of one layer for the tile's R rows, from act [k][row] and the
+// panel's slot: MR x 4 micro-tiles on a 64-wide panel, one row x 4 columns
+// on a narrower one.
+template <int R, int MR>
+__device__ __forceinline__ void k4_panel(const Params& p, const Epi& e, const Panel& q,
+                                         const float* act, const float* slot, int half) {
+  const int in = p.chain[q.ch].dims[q.layer], out = p.chain[q.ch].dims[q.layer + 1];
+  const int wd = q.width;
+  const float* bs = slot + half;
+  const int tid = threadIdx.x;
+  if (wd == kPanelCols) {
+    // A warp covers 32 rows x 4 MR columns: warp -> (32-row part
+    // warp % (R / 32), column block warp / (R / 32)), lane -> (row group
+    // lane % (32 / MR), column quad lane / (32 / MR)); the lanes of a column
+    // quad read 128 contiguous bytes of activations.
+    constexpr int kParts = R / 32, kLanesPerCol = 32 / MR;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int r0 = 32 * (warp % kParts) + MR * (lane % kLanesPerCol);
+    const int c0 = 4 * MR * (warp / kParts) + 4 * (lane / kLanesPerCol);
+    float am[MR][4];
+#pragma unroll
+    for (int i = 0; i < MR; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) am[i][j] = 0.f;
+    float tv[MR][4];
+    k4_targets<MR>(p, e, r0, q.col0 + c0, tv);
+#pragma unroll 8
+    for (int k = 0; k < in; ++k) {
+      float av[MR];
+      if constexpr (MR == 4) {
+        const float4 a = *reinterpret_cast<const float4*>(act + k * R + r0);
+        av[0] = a.x, av[1] = a.y, av[2] = a.z, av[3] = a.w;
+      } else {
+        const float2 a = *reinterpret_cast<const float2*>(act + k * R + r0);
+        av[0] = a.x, av[1] = a.y;
+      }
+      const float4 l = *reinterpret_cast<const float4*>(slot + k * kPanelCols + c0);
+      const float lv[4] = {l.x, l.y, l.z, l.w};
+#pragma unroll
+      for (int i = 0; i < MR; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) am[i][j] = fmaf(av[i], lv[j], am[i][j]);
+    }
+    k4_epilogue<R, MR>(e, r0, q.col0 + c0, out, bs + c0, am, tv);
+  } else {
+    // One row x 4 columns per thread; a warp takes 32 rows of one column quad.
+    const int n_quads = wd / 4;
+    for (int t = tid; t < R * n_quads; t += blockDim.x) {
+      const int r = t % R, c0 = 4 * (t / R);
+      float am[1][4] = {{0.f, 0.f, 0.f, 0.f}}, tv[1][4];
+      k4_targets<1>(p, e, r, q.col0 + c0, tv);
+#pragma unroll 4
+      for (int k = 0; k < in; ++k) {
+        const float a = act[k * R + r];
+        const float4 l = *reinterpret_cast<const float4*>(slot + k * wd + c0);
+        am[0][0] = fmaf(a, l.x, am[0][0]);
+        am[0][1] = fmaf(a, l.y, am[0][1]);
+        am[0][2] = fmaf(a, l.z, am[0][2]);
+        am[0][3] = fmaf(a, l.w, am[0][3]);
+      }
+      k4_epilogue<R, 1>(e, r, q.col0 + c0, out, bs + c0, am, tv);
+    }
+  }
+}
+
+// K4: one block of 16 R / MR threads per tile of R rows (see the top of
+// this file).
+template <int R, int MR>
+__global__ void __launch_bounds__(16 * R / MR) plain_logp_kernel(const Params p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int as = p.act_stride;
-  float* act = smem;
-  float* nxt = act + kTileRows * as;
-  float* wl = nxt + kTileRows * as;
-  float* wb = wl + p.w_max;
-  float* loss = wb + p.b_max;
-  float* sq = loss + kTileRows;
-  float* mu0 = sq + kTileRows;
-  float* raw = mu0 + kTileRows;
+  const int half = as * kPanelCols;
+  const int slot_floats = half + kPanelCols;
+  float* act_buf = smem;  // act[0], act[1], each [k][R]
+  float* ring = act_buf + 2 * R * as;
+  float* groups = ring + p.n_stages * slot_floats;
+  float* loss = groups + R * p.n_groups;
+  float* mu0 = loss + R;
+  float* raw = mu0 + R;
 
-  const int row0 = blockIdx.x * kTileRows;
-  const int n_valid = min(kTileRows, p.n_rows - row0);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  if (tid < kTileRows) loss[tid] = 0.f;
+  const int row0 = blockIdx.x * R;
+  const int n_valid = min(R, p.n_rows - row0);
+  const int tid = threadIdx.x;
+  const int S = p.n_stages;
+  if (tid < R) loss[tid] = 0.f;
 
+  // Prologue: the first S - 1 panels in flight.
+  for (int pc = 0; pc < S - 1; ++pc) {
+    if (pc < p.n_panels) issue_panel(p, pc, ring + pc * slot_floats, half);
+    cp_async_commit();
+  }
+
+  int pc = 0, cur = 0;
   for (int ch = 0; ch < 3; ++ch) {
     const Chain& c = p.chain[ch];
-    // Chain input; rows past the tile's end read as 0.
     const int in0 = c.dims[0];
-    for (int idx = tid; idx < kTileRows * in0; idx += blockDim.x) {
-      const int r = idx / in0, k = idx - r * in0;
-      act[r * as + k] = r < n_valid ? chain_input(p, ch, row0 + r, k) : 0.f;
+    float* act = act_buf + cur * R * as;
+    for (int idx = tid; idx < R * in0; idx += blockDim.x) {
+      const int k = idx / R, r = idx - k * R;
+      act[idx] = r < n_valid ? chain_input(p, ch, row0 + r, k) : 0.f;
     }
-    const int d_mu = ch == 0 ? p.v_dim : 1;
+    Epi e;
+    e.groups = groups;
+    e.mu0 = mu0;
+    e.raw = raw;
+    e.ch = ch;
+    e.row0 = row0;
+    e.n_valid = n_valid;
+    e.d_mu = ch == 0 ? p.v_dim : 1;
+    e.n_groups = p.n_groups;
     for (int i = 0; i < c.n_layers; ++i) {
-      const int in = c.dims[i], out = c.dims[i + 1];
       const bool last = i == c.n_layers - 1;
-      const float* w = c.w[i];
-      for (int idx = tid; idx < in * out; idx += blockDim.x) wl[idx] = w[idx];
-      for (int idx = tid; idx < out; idx += blockDim.x) wb[idx] = c.b[i][idx];
-      __syncthreads();
-
-      float sq_acc[kRowsPerWarp];
-#pragma unroll
-      for (int j = 0; j < kRowsPerWarp; ++j) sq_acc[j] = 0.f;
-      for (int col = lane; col < out; col += 32) {
-        float am[kRowsPerWarp];
-#pragma unroll
-        for (int j = 0; j < kRowsPerWarp; ++j) am[j] = 0.f;
-        for (int k = 0; k < in; ++k) {
-          const float l = wl[k * out + col];
-#pragma unroll
-          for (int j = 0; j < kRowsPerWarp; ++j)
-            am[j] = fmaf(act[(warp * kRowsPerWarp + j) * as + k], l, am[j]);
+      const float* a = act_buf + cur * R * as;
+      e.nact = last ? nullptr : act_buf + (cur ^ 1) * R * as;
+      const int n_pan = (c.dims[i + 1] + kPanelCols - 1) / kPanelCols;
+      for (int j = 0; j < n_pan; ++j, ++pc) {
+        if (S == 3) {
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
         }
-        const float bc = wb[col];
-#pragma unroll
-        for (int j = 0; j < kRowsPerWarp; ++j) {
-          const int r = warp * kRowsPerWarp + j;
-          const float pre = am[j] + bc;
-          if (!last) {
-            nxt[r * as + col] = leaky(pre);
-          } else if (r < n_valid) {
-            if (col < d_mu) {
-              const float d = target(p, ch, row0 + r, col) - pre;
-              sq_acc[j] = fmaf(d, d, sq_acc[j]);
-            }
-            if (col == 0) mu0[r] = pre;
-            if (col == d_mu) raw[r] = pre;
-          }
-        }
+        __syncthreads();  // panel pc and the layer's input are ready; slot (pc - 1) % S is free
+        const int next = pc + S - 1;
+        if (next < p.n_panels) issue_panel(p, next, ring + (next % S) * slot_floats, half);
+        cp_async_commit();
+        k4_panel<R, MR>(p, e, panel_at(p, pc), a, ring + (pc % S) * slot_floats, half);
       }
-      if (last) {
-#pragma unroll
-        for (int j = 0; j < kRowsPerWarp; ++j) {
-          float s = sq_acc[j];
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-          if (lane == 0) sq[warp * kRowsPerWarp + j] = s;
-        }
-      }
-      __syncthreads();
-      float* t = act;
-      act = nxt;
-      nxt = t;
+      if (!last) cur ^= 1;
     }
-    if (tid < n_valid) loss[tid] += head_nll(p, ch, row0 + tid, sq[tid], mu0[tid], raw[tid]);
+    __syncthreads();  // the chain's error groups, mu0 and raw are complete
+    if (tid < n_valid) {
+      float sq = 0.f;
+      for (int q = 0; q < (e.d_mu + 3) / 4; ++q) sq += groups[tid * p.n_groups + q];
+      loss[tid] += head_nll(p, ch, row0 + tid, sq, mu0[tid], raw[tid]);
+    }
+    __syncthreads();  // before the next chain overwrites the groups and its input
   }
+  cp_async_wait<0>();
   if (tid < n_valid) p.out[row0 + tid] = loss[tid] + prior_half_sq(p, row0 + tid);
 }
 
@@ -319,6 +589,7 @@ plain_grad_kernel(const Params p) {
   float* sq = loss + kTileRows;
   float* s_row = sq + kTileRows;
   float* c_var = s_row + kTileRows;
+  float* groups = c_var + kTileRows;  // the rows' error groups [row][q]
 
   const int row0 = blockIdx.x * kTileRows;
   const int n_valid = min(kTileRows, p.n_rows - row0);
@@ -373,17 +644,12 @@ plain_grad_kernel(const Params p) {
     __syncthreads();
 
     // The chain's likelihood term and its output cotangent.  The squared
-    // error is summed as K4 sums it (sq_warp).
+    // error is summed as K4 sums it (sq_rows).
     const int d_mu = ch == 0 ? p.v_dim : 1;
     const int out_last = c.dims[n_layers];
-#pragma unroll
-    for (int j = 0; j < kRowsPerWarp; ++j) {
-      const int r = warp * kRowsPerWarp + j;
-      const float acc = sq_warp(lane, r < n_valid ? d_mu : 0, [&](int col) {
-        return target(p, ch, row0 + r, col) - cot[r * ws + col];
-      });
-      if (lane == 0) sq[r] = acc;
-    }
+    sq_rows<kTileRows>(d_mu, n_valid, p.n_groups, groups, sq, [&](int r, int col) {
+      return r < n_valid ? target(p, ch, row0 + r, col) - cot[r * ws + col] : 0.f;
+    });
     __syncthreads();
     const bool binary_head = ch == 1 && p.binary;
     if (tid < kTileRows) {
@@ -537,6 +803,7 @@ plain_grad_cluster_kernel(const Params p) {
   float* sq = smem + p.k3_misc;
   float* s_row = sq + R;
   float* c_var = s_row + R;
+  float* groups = c_var + R;  // the rows' error groups [row][q]
   int* woff = reinterpret_cast<int*>(smem + p.k3_floats);  // [ch * kMaxLayers + i]
   int* boff = woff + 3 * kMaxLayers;
   int* poff = boff + 3 * kMaxLayers;
@@ -544,7 +811,7 @@ plain_grad_cluster_kernel(const Params p) {
   const int tile = blockIdx.x / kCluster;
   const int row0 = tile * R;
   const int n_valid = min(R, p.n_rows - row0);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x;
 
   // Resident weights, all chains: this CTA's column slice of every layer
   // (the forward's) and its row slice (the backward's).
@@ -608,7 +875,7 @@ plain_grad_cluster_kernel(const Params p) {
     }
   }
   cp_async_commit();
-  cp_async_wait_all();
+  cp_async_wait<0>();
   __syncthreads();
   cluster.sync();  // every CTA of the cluster runs before any DSMEM access
 
@@ -665,12 +932,9 @@ plain_grad_cluster_kernel(const Params p) {
         auto tgt = [&](int r, int col) {
           return ch == 0 ? vt[r * p.v_dim + col] : (ch == 1 ? xt[r] : yt[r]);
         };
-        for (int j = 0; j < R / kWarps; ++j) {
-          const int r = warp * (R / kWarps) + j;
-          const float s = sq_warp(lane, r < n_valid ? d_mu : 0,
-                                  [&](int col) { return tgt(r, col) - full[col * R + r]; });
-          if (lane == 0) sq[r] = s;
-        }
+        sq_rows<R>(d_mu, n_valid, p.n_groups, groups, sq, [&](int r, int col) {
+          return r < n_valid ? tgt(r, col) - full[col * R + r] : 0.f;
+        });
         __syncthreads();
         if (tid < R) {
           float s = 1.f, cvar = 0.f;
@@ -826,7 +1090,8 @@ int build_params(Params& p, const float* z, const float* x, const float* y, cons
   p.k3_vt = off;
   off += kTileRows * (v_dim + 2);
   p.k3_misc = off;
-  p.k3_floats = off + 3 * kTileRows;
+  p.n_groups = (v_dim + 3) / 4;
+  p.k3_floats = off + 3 * kTileRows + kTileRows * p.n_groups;
   p.z = z;
   p.x = x;
   p.y = y;
@@ -844,15 +1109,34 @@ int build_params(Params& p, const float* z, const float* x, const float* y, cons
   p.sigma_v = sigma_v;
   p.sigma_x = sigma_x;
   p.sigma_y = sigma_y;
+  // K4's weight stream (n_panels -1: more panels than K4 takes)
+  for (int ch = 0; ch < 3 && p.n_panels >= 0; ++ch) {
+    const Chain& c = p.chain[ch];
+    for (int i = 0; i < c.n_layers && p.n_panels >= 0; ++i) {
+      const int n_pan = (c.dims[i + 1] + kPanelCols - 1) / kPanelCols;
+      if (n_pan > 63 || p.n_panels + n_pan > kMaxPanels) {
+        p.n_panels = -1;
+      } else {
+        for (int j = 0; j < n_pan; ++j) p.panel[p.n_panels++] = (uint16_t)(ch << 12 | i << 6 | j);
+      }
+    }
+  }
   return 0;
 }
 
+// K4's shared memory (bytes) for a tile of R rows and S ring slots.
+size_t k4_smem_bytes(const Params& p, int R, int S) {
+  const size_t as = p.act_stride;
+  return sizeof(float) * (2 * R * as + S * (as * kPanelCols + kPanelCols) +
+                          (size_t)R * p.n_groups + 3 * (size_t)R);
+}
+
 int launch(void (*kernel)(const Params), const Params& p, int blocks, size_t smem,
-           void* stream) {
+           void* stream, int threads = kThreads) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -873,12 +1157,17 @@ int plain_logp(const float* z, const float* x, const float* y, const float* v, f
                                 binary, fixed_mask, sigma_v, sigma_x, sigma_y, n_layers, dims,
                                 ptrs);
   if (code != 0) return code;
-  const size_t smem = sizeof(float) * (2 * (size_t)kTileRows * p.act_stride +
-                                       (size_t)p.w_max + p.b_max + 4 * kTileRows);
+  if (p.n_panels < 0) return kErrShape;
+  p.n_stages = k4_smem_bytes(p, kK4Rows, kK4Stages) <= (size_t)kMaxSmemBytes ? kK4Stages : 2;
+  const size_t smem = k4_smem_bytes(p, kK4Rows, p.n_stages);
   if (smem > (size_t)kMaxSmemBytes) return kErrSmem;
   if (n_rows <= 0) return 0;
-  return launch(plain_logp_kernel, p, (n_rows + kTileRows - 1) / kTileRows, smem, stream);
+  return launch(plain_logp_kernel<kK4Rows, kK4MicroRows>, p, (n_rows + kK4Rows - 1) / kK4Rows,
+                smem, stream, 16 * kK4Rows / kK4MicroRows);
 }
+
+// K4's row tile.
+int plain_logp_tile_rows() { return kK4Rows; }
 
 // K3: out (n_rows,) = negative log-posterior and grad (n_rows, z_dim) = its
 // z-gradient.  Arguments as for plain_logp.  Up to kClusterMaxRows rows a
@@ -896,7 +1185,7 @@ int plain_logp_and_grad(const float* z, const float* x, const float* y, const fl
   if (code != 0) return code;
   const size_t R = kTileRows;
   const size_t smem_tile = sizeof(float) * (R * (p.pre_stride + 2 * (size_t)p.width) +
-                                            (size_t)p.wt_max + p.b_max + R * (z_dim + 4));
+                                            (size_t)p.wt_max + p.b_max + R * (z_dim + 4 + (size_t)p.n_groups));
   const size_t smem_cluster = sizeof(float) * (size_t)p.k3_floats + sizeof(int) * 9 * kMaxLayers;
   const bool cluster_fits = smem_cluster <= (size_t)kMaxSmemBytes;
   const bool tile_fits = smem_tile <= (size_t)kMaxSmemBytes;
@@ -915,7 +1204,7 @@ const char* plain_error_string(int code) {
   switch (code) {
     case kErrTooManyLayers: return "a chain has 0 or more than 20 layers";
     case kErrSmem: return "the tile's buffers for these widths do not fit in 227 KB of shared memory";
-    case kErrShape: return "a layer width is < 1, or a chain's input or output width is wrong";
+    case kErrShape: return "a layer width is < 1 or (K4) over 4032, more than 256 weight panels (K4), or a chain's input or output width is wrong";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }

@@ -22,8 +22,9 @@ for CPU tensors.  The weights come in the flat layout of
 
 Besides each wrapper's own ``launches``, :data:`LAUNCHES` counts the launches
 of each entry point over every wrapper of this module, so a caller that
-holds no wrapper can still see whether a path launched K5, K6 or K7.  K8,
-the probe's variants of K6's evaluation, has its entry point in the same
+holds no wrapper can still see whether a path launched K5, K6 or K7.  K6 is
+one evaluation of K5's device code.  K8, the probe's variants of K6's first
+design (equal to K6 bit for bit in its base variant), has its entry point in the same
 library and its wrapper in ``bayesgm_torch/benchmarks/mxu_probe.py``.
 """
 

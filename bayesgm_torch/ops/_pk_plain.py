@@ -12,7 +12,8 @@ A wrapper launches its CUDA kernel (``csrc/plain.cu``) for CUDA tensors and
 takes the plain version only for CPU tensors.  K3 has two forms, chosen by
 the launcher from the row count (:func:`k3_cluster_max_rows`): a cluster of
 8 thread blocks per 32-row tile for fit's small batches, one block per tile
-for large ones; both give K4's value bit for bit.
+for large ones; both give K4's value bit for bit.  K4 takes a tile of
+:func:`k4_tile_rows` rows per block.
 """
 
 from __future__ import annotations
@@ -74,6 +75,8 @@ def _lib():
         lib.plain_logp_and_grad.restype = i32
         lib.plain_grad_cluster_max_rows.argtypes = []
         lib.plain_grad_cluster_max_rows.restype = i32
+        lib.plain_logp_tile_rows.argtypes = []
+        lib.plain_logp_tile_rows.restype = i32
         lib.plain_error_string.argtypes = [i32]
         lib.plain_error_string.restype = ctypes.c_char_p
         lib._bayesgm_argtypes = True
@@ -84,6 +87,12 @@ def k3_cluster_max_rows() -> int:
     """The row count up to which K3 takes its cluster form (8 CTAs per
     32-row tile); past it, one block per tile.  Builds the library."""
     return int(_lib().plain_grad_cluster_max_rows())
+
+
+def k4_tile_rows() -> int:
+    """K4's row tile (one block of 4 x that many threads each).  Builds the
+    library."""
+    return int(_lib().plain_logp_tile_rows())
 
 
 class _PlainKernel:

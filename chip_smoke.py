@@ -44,7 +44,8 @@ benchmark: the same n, v_dim, z_dims and units, random weights from seed
 123):
 
 10. K4      - kernel vs its plain version at N=10000 (a predict batch) and
-              N=20000, plus binary treatment and fixed sigmas at N=999;
+              N=20000, plus binary treatment and fixed sigmas at N=999; a
+              second launch gives the same bits; prints K4's row tile;
 11. K3      - values and z-gradients vs the plain version (autograd) in both
               of K3's forms: the cluster form at N=32 (a fit batch) and at
               its last row count (the switch, 512), one block per tile at
@@ -53,7 +54,7 @@ benchmark: the same n, v_dim, z_dims and units, random weights from seed
               K4's bit for bit and a second launch gives the same bits;
 12. timing  - K4 (N=10000, 20000) and K3 (N=32, 20000) vs their plain
               versions, with their device time per launch (as phase 7) and
-              its share of the bound;
+              its share of the bound (K4's targets: 0.05 and 0.10 ms);
 13. fit     - the plain model's fit, as phase 8 (EGM 200, 2 passes of 625
               batches): K3 launches == 1250, none of K4;
 14. predict - MH on the fitted plain model, burn_in=200, n_mcmc=200, two
@@ -70,7 +71,8 @@ The in-kernel-eps family (K5-K7) at the flagship width, on the BNN model:
               (words and uniforms bit for bit, normals within 1e-6), and
               the two pairs' draws differ;
 17. K6      - kernel vs its plain version at N=20000, plus binary treatment
-              and fixed sigmas at N=999 (not a multiple of block_rows);
+              and fixed sigmas at N=999 (not a multiple of block_rows); a
+              second launch gives the same bits;
 18. K7      - values and z-gradients vs the plain version (autograd) at N=32
               and N=20000 (a row's gradient may differ only at a LeakyReLU
               kink, at most 0.1 % of the rows); K7's value equals K6's bit
@@ -80,8 +82,10 @@ The in-kernel-eps family (K5-K7) at the flagship width, on the BNN model:
               the same seed: counts per step within 0.1 % of N, at least
               99.9 % of the rows in the same final z, logp of those rows
               within rtol 1e-4 / atol 1e-3; then K5 (50 steps), K6 and K7 vs
-              their plain versions, median of CUDA-event times, and K5's
-              device time per launch (as phase 7);
+              their plain versions, median of CUDA-event times, and the
+              device time per launch (as phase 7) of K5, of K6 at N=20000
+              (target 0.40 ms) and 2N=40000 and of K7, with its share of
+              the bound;
 20. window  - predict with params['mh_window_kernel'] on the model fitted
               in phase 8 (burn_in=200, n_mcmc=200): K5 launches == 4, paired
               K1 == 200, unpaired K1 == 1, and over every in-kernel-eps
@@ -274,6 +278,7 @@ def main() -> int:
     from bayesgm_torch.ops._pk_plain import logp_plain as plain_logp
     from bayesgm_torch.ops._pk_plain import (
         k3_cluster_max_rows,
+        k4_tile_rows,
         make_fused_causal_logp,
         make_fused_causal_logp_and_grad,
     )
@@ -560,7 +565,12 @@ def main() -> int:
     # 10. K4 at a predict batch and at N, then the variants
     k4_errs, k4_args = [], {n_k: rows(n_k) for n_k in (PLAIN_BS, N)}
     for n_k, a in k4_args.items():
-        k4_errs.append(compare(f"[10 K4 N={n_k}]", k4(*a), plain_logp(pcfg, *a)))
+        out4 = k4(*a)
+        k4_errs.append(compare(f"[10 K4 N={n_k}]", out4, plain_logp(pcfg, *a)))
+        if not torch.equal(k4(*a), out4):
+            raise AssertionError(f"[10 K4 N={n_k}]: two launches differ")
+    print(f"[10 K4] a tile of {k4_tile_rows()} rows per block; two launches give the same bits",
+          flush=True)
     for label, var_cfg, xs in variants:
         a = rows(n_small, xs)
         k4_errs.append(compare(f"[10 K4 {label} N={n_small}]",
@@ -660,8 +670,12 @@ def main() -> int:
     iflats = [flatten_flipout_params(fit_model.nets[k]) for k in "ghf"]
     k6 = ik.make_fused_causal_logp_bnn(cfg, *dims)
     a6 = (z, x, y, v, seed, *iflats)
-    err6 = [compare(f"[17 K6 N={N} block_rows={k6.block_rows}]", k6(*a6),
+    out6 = k6(*a6)
+    err6 = [compare(f"[17 K6 N={N} block_rows={k6.block_rows}]", out6,
                     ik.logp_plain(cfg, *a6, k6.block_rows))]
+    if not torch.equal(k6(*a6), out6):
+        raise AssertionError("[17 K6]: two launches differ")
+    print("[17 K6] two launches give the same bits", flush=True)
     for label, var_cfg, xs in (
             ("binary_treatment", cfg._replace(binary_treatment=True), xb),
             ("fixed sigma_v/x/y", cfg._replace(sigma_v=0.5, sigma_x=0.7, sigma_y=0.3),
@@ -723,6 +737,19 @@ def main() -> int:
               f"plain/kernel {tp / tk:.2f}x{note}", flush=True)
     print(f"[19 timing] K5: device {d_k5:.4f} ms per {MH_WINDOW}-step launch (CUDA events "
           f"{t_k5[0]:.4f} ms), {d_k5 / MH_WINDOW:.4f} ms of device time per MH step", flush=True)
+    # K5-K7: each logical block's eps is needed once per evaluation.
+    iflat_w = sum(t.numel() for f in iflats for t in f)
+    eps_ops = lambda n_rows, block: -(-n_rows // block) * bnn_macs * mp.OPS_PER_NORMAL
+    b_k6 = {n_k: bound(row_bytes(n_k, False) + 4 * iflat_w,
+                       n_k * 4 * bnn_macs + eps_ops(n_k, k6.block_rows)) for n_k in (N, 2 * N)}
+    b_k7 = bound(row_bytes(N, True) + 4 * iflat_w, N * 8 * bnn_macs + eps_ops(N, k7.block_rows))
+    a6x2 = (*(torch.cat([t, t]) for t in (z, x, y, v)), seed, *iflats)
+    d_k6 = {N: device_ms(lambda: k6(*a6)), 2 * N: device_ms(lambda: k6(*a6x2))}
+    d_k7 = device_ms(lambda: k7(*k7_args[N]))
+    for label, td, (b_ms, b_by) in ([(f"K6 N={n_k}", d_k6[n_k], b_k6[n_k]) for n_k in d_k6]
+                                    + [(f"K7 N={N}", d_k7, b_k7)]):
+        print(f"[19 timing] {label}: device {td:.4f} ms; bound {b_ms:.6f} ms ({b_by}), "
+              f"device time at {100 * b_ms / td:.2f} % of it", flush=True)
 
     # 20. predict with the MH window on the fitted BNN model, then the
     # window's burn-in acceptance against the per-step path's
@@ -857,12 +884,6 @@ def main() -> int:
     # Bounds at the main path's shapes: K1 paired at 2N, K2 and K3 at the fit
     # batch, K4 at a predict batch.
     b_k2 = b_g[FIT_BATCH]
-    # K5-K7: each logical block's eps is needed once per evaluation.
-    iflat_w = sum(t.numel() for f in iflats for t in f)
-    eps_ops = lambda n_rows, block: -(-n_rows // block) * bnn_macs * mp.OPS_PER_NORMAL
-    b_k6 = bound(row_bytes(N, False) + 4 * iflat_w,
-                 N * 4 * bnn_macs + eps_ops(N, k6.block_rows))
-    b_k7 = bound(row_bytes(N, True) + 4 * iflat_w, N * 8 * bnn_macs + eps_ops(N, k7.block_rows))
     b_k5 = bound(row_bytes(N, True) + 4 * (iflat_w + MH_WINDOW),  # z, logp out; counts
                  2 * MH_WINDOW * (N * 4 * bnn_macs + eps_ops(N, k5.block_rows))
                  + MH_WINDOW * N * (sum(Z_DIMS) + 1) * mp.OPS_PER_NORMAL)  # proposals, uniforms
@@ -962,9 +983,12 @@ def main() -> int:
         "max_abs_err": max(err6),
         "ms": t_k6[0],
         "plain_ms": t_k6[1],
-        "bound_ms": b_k6[0],
-        "bound_by": b_k6[1],
+        "bound_ms": b_k6[N][0],
+        "bound_by": b_k6[N][1],
         "library_ms": None,
+        "device_ms": d_k6[N],
+        f"device_ms_n{2 * N}": d_k6[2 * N],
+        f"bound_ms_n{2 * N}": b_k6[2 * N][0],
     }, {
         "name": "bnn_inkernel_grad",
         "route": "cuda",
@@ -977,6 +1001,7 @@ def main() -> int:
         "bound_ms": b_k7[0],
         "bound_by": b_k7[1],
         "library_ms": None,
+        "device_ms": d_k7,
         f"ms_n{FIT_BATCH}": t_k7[FIT_BATCH][0],
         f"plain_ms_n{FIT_BATCH}": t_k7[FIT_BATCH][1],
     }, {

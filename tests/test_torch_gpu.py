@@ -252,7 +252,7 @@ PLAIN_CASES = [("continuous", 1), ("continuous", 32), ("continuous", 999), ("bin
 def _plain_case(variant, n, dev):
     cfg = _cfg(use_bnn=False, binary_treatment=variant == "binary",
                **(dict(sigma_v=0.5, sigma_x=0.7, sigma_y=0.3) if variant == "fixed_sigmas" else {}))
-    g_hidden = [8] * 17 if variant == "deep_g" else (24, 40)
+    g_hidden = {"deep_g": [8] * 17, "panels": (100, 3)}.get(variant, (24, 40))
     return (cfg, *_plain_inputs(cfg, n, dev, g_hidden=g_hidden))
 
 
@@ -303,6 +303,25 @@ def test_k3_both_forms_match_plain_and_k4(cuda, variant, n):
     assert torch.equal(neg, tp.make_fused_causal_logp(cfg, *dims)(*args))
     neg2, grad2 = fn(*args)
     assert torch.equal(neg2, neg) and torch.equal(grad2, grad)
+
+
+# K4's tiles: row counts on the edges of a 32- and a 64-row tile, a predict
+# batch and n; "panels" gives g a layer wider than one 64-column panel and
+# one narrower than 4 columns.
+@pytest.mark.parametrize("variant", ["continuous", "binary", "fixed_sigmas", "panels"])
+@pytest.mark.parametrize("n", [1, 31, 63, 64, 65, 999, 10000, 20000])
+def test_k4_tiles_match_plain_and_k3(cuda, variant, n):
+    cfg, args, dims = _plain_case(variant, n, cuda)
+    fn = tp.make_fused_causal_logp(cfg, *dims)
+    got = fn(*args)
+    want = tp.logp_plain(cfg, *args)
+    torch.cuda.synchronize()
+    assert fn.launches == 1 and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    # a second launch gives the same bits, and K3's value (either form) is K4's
+    assert torch.equal(fn(*args), got)
+    neg, _ = tp.make_fused_causal_logp_and_grad(cfg, *dims)(*args)
+    assert torch.equal(neg, got)
 
 
 @pytest.mark.parametrize("make", [tp.make_fused_causal_logp, tp.make_fused_causal_logp_and_grad])
@@ -427,8 +446,12 @@ def _inkernel_case(variant, n, dev):
     kw = dict(sigma_v=0.5, sigma_x=0.7, sigma_y=0.3) if variant == "fixed_sigmas" else {}
     if variant == "v31":  # g's last layer 32 wide: K5's 2 x 4 micro-tiles fold it into the loss
         kw["v_dim"] = 31
+    if variant == "v100":  # g's last layer 101 wide: two panels of Box-Muller pairs
+        kw["v_dim"] = 100
     cfg = _cfg(binary_treatment=variant == "binary", **kw)
-    g_hidden = [8] * 17 if variant == "deep_g" else (24, 40)
+    # "panels": a layer wider than one 64-column panel and one narrower than 4
+    # columns (72: K5's and K6's buffers fit 227 KB up to g widths of about 90)
+    g_hidden = {"deep_g": [8] * 17, "panels": (72, 3)}.get(variant, (24, 40))
     return (cfg, *_inkernel_inputs(cfg, n, dev, g_hidden=g_hidden))
 
 
@@ -489,6 +512,30 @@ def test_k5_kernel_matches_plain(cuda, variant, n, n_steps, block_rows):
     assert float(same.float().mean()) >= 0.999
     torch.testing.assert_close(lp_k[same], lp_p[same], rtol=RTOL, atol=ATOL)
     assert 0 < float(c_k.sum()) < n * n_steps
+
+
+# K6 is one evaluation of K5's: 64-row tiles, 32-row ones where block_rows
+# is an odd multiple of 32 (32, 96).  K7's value and the probe's base
+# (K6's first design) sum in K6's order, so both equal it bit for bit.
+@pytest.mark.parametrize("variant,n,block_rows", [
+    ("continuous", 999, 32), ("continuous", 999, 96), ("continuous", 999, 512),
+    ("continuous", 2000, 96), ("binary", 999, 96), ("fixed_sigmas", 999, 512),
+    ("deep_g", 999, 32), ("v31", 300, 64), ("v100", 999, 512), ("v100", 999, 96),
+    ("panels", 999, 512)])
+def test_k6_tiles_match_plain_k7_and_probe_base(cuda, variant, n, block_rows):
+    cfg, args, dims = _inkernel_case(variant, n, cuda)
+    fn = ik.make_fused_causal_logp_bnn(cfg, *dims, block_rows=block_rows)
+    got = fn(*args)
+    want = ik.logp_plain(cfg, *args, block_rows)
+    torch.cuda.synchronize()
+    assert fn.launches == 1 and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    assert torch.equal(fn(*args), got)  # a second launch gives the same bits
+    neg, _ = ik.make_fused_causal_logp_and_grad_bnn(cfg, *dims, block_rows=block_rows)(*args)
+    assert torch.equal(neg, got)
+    if variant not in ("binary", "fixed_sigmas"):  # what the probe computes
+        base = mp.make_probe_kernel("base", cfg, *dims, block_rows=block_rows)(*args)
+        assert torch.equal(base, got)
 
 
 def test_inkernel_kernels_reject_what_they_cannot_take(cuda):

@@ -1,22 +1,25 @@
 #!/usr/bin/env python3
-"""Where the time of K5 and K3 goes, by ablation, on one NVIDIA GPU.
+"""Where the time of K5, K6, K3 and K4 goes, by ablation, on one NVIDIA GPU.
 
 Run from the root of a checkout:
 
-    python3 tools/ablate_inkernel.py [--reps 20] [--only k5|k3]
+    python3 tools/ablate_inkernel.py [--reps 20] [--only k5|k3|k4]
 
-It builds variants of ``bayesgm_torch/csrc/bnn_inkernel.cu`` (K5) and
-``bayesgm_torch/csrc/plain.cu`` (K3) that each drop or swap one part of a
-kernel (by a textual substitution, checked to apply; the switches exist only
-in these builds, never in the package's sources), and times every variant's
-device time per launch (``chip_smoke.device_ms``: CUDA events around one
-launch queued behind a spin kernel) at the main path's shapes: K5's
-50-step window over n = 20000 rows with the model's row block (512 at this
-width), and K3 over fit's 32 rows (and, for the choice between K3's two
-forms, 32 to 20000 rows), at the width of the repo's flagship configuration
-with random weights from seed 123.  A variant's values are wrong on
-purpose: only its time means anything.  Prints one JSON line per
-measurement and the card's name and power limit.  Imports nothing of JAX.
+It builds variants of ``bayesgm_torch/csrc/bnn_inkernel.cu`` (K5, and K6,
+one evaluation of K5's device code) and ``bayesgm_torch/csrc/plain.cu`` (K3,
+K4) that each drop or swap one part of a kernel, or set K4's row tile and
+weight ring to other sizes (by a textual substitution, checked to apply;
+the switches exist only in these builds, never in the package's sources),
+and times every variant's device time per launch (``chip_smoke.device_ms``:
+CUDA events around one launch queued behind a spin kernel) at the main
+path's shapes: K5's 50-step window and one K6 evaluation over n = 20000
+rows with the model's row block (512 at this width), K3 over fit's 32 rows
+(and, for the choice between K3's two forms, 32 to 20000 rows), and K4 over
+predict's batch of 10000 rows and n (its tile and ring sweep also over 1000
+rows), at the width of the repo's flagship configuration with random
+weights from seed 123.  A variant's values are wrong on purpose: only its
+time means anything.  Prints one JSON line per measurement and the card's
+name and power limit.  Imports nothing of JAX.
 """
 
 import argparse
@@ -34,11 +37,22 @@ from tools.ablate_hosteps import build, typed_lib, variant_source  # noqa: E402
 N, V_DIM, Z_DIMS = 20000, 200, (1, 1, 1, 7)
 K5_STEPS = 50
 K3_ROWS = (32, 128, 256, 384, 512, 1024, 20000)
+K4_ROWS = (10000, 20000)
+K4_SWEEP_ROWS = (1000, 10000, 20000)
+
+
+def k4_geometry(**sizes):
+    """Substitutions that set K4's constants: ``Rows`` (the row tile),
+    ``Stages`` (the weight ring's slots) and ``MicroRows`` (the rows of a
+    thread's micro-tile on a 64-wide panel)."""
+    return [(f"constexpr int kK4{name} = ", f"constexpr int kK4{name} = {value}; //")
+            for name, value in sizes.items()]
+
 
 # name -> (source, kernel it probes, what it drops, [(old, new), ...])
 VARIANTS = {
-    "k5_base": ("bnn_inkernel.cu", "K5", "nothing", []),
-    "k5_noprod": ("bnn_inkernel.cu", "K5", "the products' inner loop", [
+    "k5_base": ("bnn_inkernel.cu", "K5+K6", "nothing", []),
+    "k5_noprod": ("bnn_inkernel.cu", "K5+K6", "the products' inner loop", [
         ("#pragma unroll 8\n    for (int k = 0; k < in; ++k) {\n"
          "      const float4 a = *reinterpret_cast<const float4*>(act + k * kK5Rows + r0);",
          "#pragma unroll 8\n    for (int k = 0; k < 0; ++k) {\n"
@@ -47,16 +61,16 @@ VARIANTS = {
          "        const float a = act[k * kK5Rows + r]",
          "#pragma unroll 4\n      for (int k = 0; k < 0; ++k) {\n"
          "        const float a = act[k * kK5Rows + r]")]),
-    "k5_consteps": ("bnn_inkernel.cu", "K5", "the eps draw (Philox and Box-Muller): a constant normal", [
+    "k5_consteps": ("bnn_inkernel.cu", "K5+K6", "the eps draw (Philox and Box-Muller): a constant normal", [
         ("const uint4 w4 = philox4x32_10(eps_counter(blk, qi, ev, q.ch, q.layer), key);",
          "const uint4 w4 = make_uint4(0u, 0u, 0u, (uint32_t)qi);"),
         ("box_muller(m ? w4.z : w4.x, m ? w4.w : w4.y, cs, sn);",
          "cs = 0.5f + (float)(w4.w & 1u);\n      sn = -0.5f;")]),
-    "k5_nobuild": ("bnn_inkernel.cu", "K5", "P's build in place (draws and products): P = sigma", [
+    "k5_nobuild": ("bnn_inkernel.cu", "K5+K6", "P's build in place (draws and products): P = sigma", [
         ("__device__ void k5_build_p(const Params& p, int pc, float* ps, int blk, uint32_t ev, uint2 key) {\n",
          "__device__ void k5_build_p(const Params& p, int pc, float* ps, int blk, uint32_t ev, uint2 key) {\n"
          "  if (pc >= 0) return;\n")]),
-    "k5_noload": ("bnn_inkernel.cu", "K5", "the loc, sigma and b panels' copies", [
+    "k5_noload": ("bnn_inkernel.cu", "K5+K6", "the loc, sigma and b panels' copies", [
         ("__device__ void k5_copy_panel(const Params& p, int pc, float* slot, int half) {\n",
          "__device__ void k5_copy_panel(const Params& p, int pc, float* slot, int half) {\n"
          "  if (pc >= 0) return;\n")]),
@@ -75,13 +89,44 @@ VARIANTS = {
         ("constexpr int kClusterMaxRows = ", "constexpr int kClusterMaxRows = 1 << 30; //")]),
     "k3_tile_all": ("plain.cu", "K3", "nothing: one block per 32-row tile at every row count", [
         ("constexpr int kClusterMaxRows = ", "constexpr int kClusterMaxRows = 0; //")]),
+    "k4_base": ("plain.cu", "K4", "nothing", []),
+    "k4_noprod": ("plain.cu", "K4", "the products' inner loop", [
+        ("#pragma unroll 8\n    for (int k = 0; k < in; ++k) {\n      float av[MR];",
+         "#pragma unroll 8\n    for (int k = 0; k < 0; ++k) {\n      float av[MR];"),
+        ("#pragma unroll 4\n      for (int k = 0; k < in; ++k) {\n"
+         "        const float a = act[k * R + r];",
+         "#pragma unroll 4\n      for (int k = 0; k < 0; ++k) {\n"
+         "        const float a = act[k * R + r];")]),
+    "k4_noload": ("plain.cu", "K4", "the w and b panels' copies", [
+        ("__device__ void issue_panel(const Params& p, int pc, float* slot, int half) {\n",
+         "__device__ void issue_panel(const Params& p, int pc, float* slot, int half) {\n"
+         "  if (pc >= 0) return;\n")]),
+    "k4_noepi": ("plain.cu", "K4", "the 64-wide panels' epilogue (the loss's groups too)", [
+        ("    k4_epilogue<R, MR>(e, r0, q.col0 + c0, out, bs + c0, am, tv);",
+         "    if (am[0][0] == 1.2345f && am[MR - 1][3] == 3.f) "
+         "k4_epilogue<R, MR>(e, r0, q.col0 + c0, out, bs + c0, am, tv);")]),
+    "k4_nonarrow": ("plain.cu", "K4", "the narrow panels' inner loop", [
+        ("#pragma unroll 4\n      for (int k = 0; k < in; ++k) {\n"
+         "        const float a = act[k * R + r];",
+         "#pragma unroll 4\n      for (int k = 0; k < 0; ++k) {\n"
+         "        const float a = act[k * R + r];")]),
+    "k4_gonly": ("plain.cu", "K4", "h's and f's chains", [
+        ("  int pc = 0, cur = 0;\n  for (int ch = 0; ch < 3; ++ch) {",
+         "  int pc = 0, cur = 0;\n  for (int ch = 0; ch < 1; ++ch) {")]),
 }
+# K4's row tile, ring and micro-tile (the shipped sizes are k4_base's)
+for _rows in (32, 64):
+    for _stages in (2, 3):
+        for _mr in (2, 4):
+            VARIANTS[f"k4_r{_rows}_s{_stages}_m{_mr}"] = (
+                "plain.cu", "K4", f"nothing: a {_rows}-row tile, {_stages} ring slots, "
+                f"{_mr} x 4 micro-tiles", k4_geometry(Rows=_rows, Stages=_stages, MicroRows=_mr))
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--only", choices=["k5", "k3"], default=None)
+    ap.add_argument("--only", choices=["k5", "k3", "k4"], default=None)
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -123,7 +168,9 @@ def main() -> int:
     bm, pm = models[True], models[False]
     k5 = ik.make_fused_mh_steps_bnn(bm.cfg, *[bm.nets[k].dims for k in "ghf"], n_steps=K5_STEPS)
     iflats = [flatten_flipout_params(bm.nets[k]) for k in "ghf"]
+    k6 = ik.make_fused_causal_logp_bnn(bm.cfg, *[bm.nets[k].dims for k in "ghf"])
     k3 = tp.make_fused_causal_logp_and_grad(pm.cfg, *[pm.nets[k].dims for k in "ghf"])
+    k4 = tp.make_fused_causal_logp(pm.cfg, *[pm.nets[k].dims for k in "ghf"])
     flats = [flatten_mlp_params(pm.nets[k]) for k in "ghf"]
 
     card = card_info()
@@ -136,10 +183,18 @@ def main() -> int:
             typed = typed_lib(mod, so)
             mod._lib = lambda _typed=typed: _typed
             runs = []
-            if probes == "K5":
+            if probes.startswith("K5"):
                 runs.append((f"K5 {K5_STEPS} steps block_rows {k5.block_rows}", N, 5,
                              lambda: k5(z, x, y, v, seed, q_sd, *iflats)))
-            else:
+            if probes.endswith("K6"):
+                runs.append((f"K6 block_rows {k6.block_rows}", N, args.reps,
+                             lambda: k6(z, x, y, v, seed, *iflats)))
+            if probes == "K4":
+                rows = K4_SWEEP_ROWS if name.startswith("k4_r") else K4_ROWS
+                for n in rows:
+                    a = [t[:n].contiguous() for t in (z, x, y, v)]
+                    runs.append(("K4", n, args.reps, lambda a=a: k4(*a, *flats)))
+            elif probes == "K3":
                 rows = K3_ROWS if name in ("k3_base", "k3_cluster_all", "k3_tile_all") else (32,)
                 for n in rows:
                     a = [t[:n].contiguous() for t in (z, x, y, v)]

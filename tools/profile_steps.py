@@ -17,9 +17,10 @@ random weights from seed 123), it times four units of work:
 
 For BNN nets it also times an MH burn-in step in windows of 50 steps, one K5
 launch each (``params['mh_window_kernel']``; ``--steps`` must then be a
-multiple of 50), single launches of K6 and K7 over all n rows, and single
-launches of K1 (n rows, and the paired 2n) and K2 (32 and n rows); for plain
-nets, single launches of K3 (32 and n rows) and K4 (10000 rows).  The
+multiple of 50), single launches of K6 (n and 2n rows), K8's base variant
+(2n rows, block 512) and K7 (n rows), and single launches of K1 (n rows,
+and the paired 2n) and K2 (32 and n rows); for plain nets, single launches
+of K3 (32 and n rows) and K4 (10000, n and 1000 rows).  The
 script imports the package from the working directory, so run from the
 root of another checkout it measures that checkout's kernels.
 
@@ -50,6 +51,7 @@ def _units(model, data, plain, steps):
     """``[(name, zero-argument function, steps per call)]``."""
     import torch
 
+    from bayesgm_torch.benchmarks.mxu_probe import make_probe_kernel
     from bayesgm_torch.models import causalbgm as cb
     from bayesgm_torch.ops import mcmc, optim
     from bayesgm_torch.ops._pk_bnn_inkernel import (
@@ -111,16 +113,23 @@ def _units(model, data, plain, steps):
         full = (model.data_z, x, y, v)
         rows32 = [a[:32].contiguous() for a in full]
         batch = [init] + [a[:rows].contiguous() for a in (x, y, v)]
+        rows1k = [a[:1000].contiguous() for a in full]
         units += [("K3 launch (32 rows)", lambda: k3(*rows32, *flats), 1),
                   (f"K3 launch ({N} rows)", lambda: k3(*full, *flats), 1),
-                  (f"K4 launch ({rows} rows)", lambda: k4(*batch, *flats), 1)]
+                  (f"K4 launch ({rows} rows)", lambda: k4(*batch, *flats), 1),
+                  (f"K4 launch ({N} rows)", lambda: k4(*full, *flats), 1),
+                  ("K4 launch (1000 rows)", lambda: k4(*rows1k, *flats), 1)]
     if not plain:
         dims = [model.nets[k].dims for k in "ghf"]
         flats = [flatten_flipout_params(model.nets[k]) for k in "ghf"]
         seed = torch.tensor([1, 2], dtype=torch.int32, device=dev)
         k6 = make_fused_causal_logp_bnn(cfg, *dims)
         k7 = make_fused_causal_logp_and_grad_bnn(cfg, *dims)
+        base = make_probe_kernel("base", cfg, *dims)
+        stack2 = [torch.cat([a, a]) for a in (init, x, y, v)]
         units += [(f"K6 launch ({N} rows)", lambda: k6(init, x, y, v, seed, *flats), 1),
+                  (f"K6 launch ({2 * N} rows)", lambda: k6(*stack2, seed, *flats), 1),
+                  (f"K8 base launch ({2 * N} rows)", lambda: base(*stack2, seed, *flats), 1),
                   (f"K7 launch ({N} rows)", lambda: k7(init, x, y, v, seed, *flats), 1)]
         # K1 and K2 alone at the main path's shapes: MH's paired 2N rows, the
         # initial unpaired N rows, fit's batch of 32 and MALA's N rows.
