@@ -1,15 +1,14 @@
 """K8: where does the in-kernel-eps flipout evaluation's time go?  (Port of
 ``benchmarks/mxu_probe.py``.)
 
-K8 is K6's first design (``ops/_pk_bnn_inkernel.py``, ``csrc/bnn_inkernel.cu``:
-a 32-row tile, each layer staged whole; K6 itself now runs one evaluation of
-K5's register-tiled device code) with one part switched out per variant.
-Per layer, with ``P`` the weight of the perturbation product
+K8 is K6's own device code (``ops/_pk_bnn_inkernel.py``,
+``csrc/bnn_inkernel.cu``: one evaluation of K5's register-tiled evaluation)
+with one part switched out per variant, the variant a template argument of
+that code.  Per layer, with ``P`` the weight of the perturbation product
 ``((h * r_in) @ P) * r_out``:
 
   prod       K6 itself (``make_fused_causal_logp_bnn``), the harness check
-  base       K6's function in its first design through K8's entry point
-             (equals prod bit for bit: both sum in K6's order)
+  base       K6's code through K8's entry point (equals prod bit for bit)
   nopert     ``h @ loc + b``: no perturbation product, no signs, no noise
   noeps      P = sigma * 0.01, signs kept
   epsref     P = sigma * loc (eps read from an input), signs kept

@@ -23,18 +23,24 @@ for CPU tensors.  The weights come in the flat layout of
 Besides each wrapper's own ``launches``, :data:`LAUNCHES` counts the launches
 of each entry point over every wrapper of this module, so a caller that
 holds no wrapper can still see whether a path launched K5, K6 or K7.  K6 is
-one evaluation of K5's device code.  K8, the probe's variants of K6's first
-design (equal to K6 bit for bit in its base variant), has its entry point in the same
-library and its wrapper in ``bayesgm_torch/benchmarks/mxu_probe.py``.
+one evaluation of K5's device code.  K7 has two forms, chosen by the launcher
+from the row count (:func:`k7_cluster_max_rows`): a cluster of 8 thread
+blocks per 32-row tile for small batches, K5's register-tiled evaluation
+with a register-tiled backward for large ones; both give K6's value bit for
+bit.  K8, the probe's variants of K6's own device code (``base`` is K6), has
+its entry point in the same library and its wrapper in
+``bayesgm_torch/benchmarks/mxu_probe.py``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import re
 
 import torch
 
 from bayesgm_torch.ops._build import (
+    CSRC,
     check_launch,
     cuda_stream,
     load_library,
@@ -192,13 +198,25 @@ def _lib():
         lib.bnn_inkernel_eps.argtypes = [vp, vp, i32, i32, i32, i32, i32, i32, vp]
         lib.bnn_inkernel_proposal.argtypes = [vp, vp, i32, i32, i32, vp]
         lib.bnn_inkernel_accept.argtypes = [vp, vp, i32, i32, vp]
+        lib.bnn_inkernel_grad_cluster_max_rows.argtypes = []
         for fn in ("logp", "logp_and_grad", "mh_steps", "probe", "sign_words", "eps",
-                   "proposal", "accept"):
+                   "proposal", "accept", "grad_cluster_max_rows"):
             getattr(lib, f"bnn_inkernel_{fn}").restype = i32
         lib.bnn_inkernel_error_string.argtypes = [i32]
         lib.bnn_inkernel_error_string.restype = ctypes.c_char_p
         lib._bayesgm_argtypes = True
     return lib
+
+
+def k7_cluster_max_rows() -> int:
+    """The row count up to which K7 takes its cluster form (8 thread blocks
+    per 32-row tile); past it, K5's 64-row tiles.  Read from the kernel's
+    source (``kK7ClusterMaxRows``), so it needs no build; the library's
+    ``bnn_inkernel_grad_cluster_max_rows()`` returns the same number."""
+    m = re.search(r"constexpr int kK7ClusterMaxRows = (\d+);", (CSRC / _SOURCE).read_text())
+    if m is None:
+        raise RuntimeError(f"kK7ClusterMaxRows not found in {CSRC / _SOURCE}")
+    return int(m.group(1))
 
 
 def _require_seed(seed):

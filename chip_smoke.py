@@ -73,10 +73,12 @@ The in-kernel-eps family (K5-K7) at the flagship width, on the BNN model:
 17. K6      - kernel vs its plain version at N=20000, plus binary treatment
               and fixed sigmas at N=999 (not a multiple of block_rows); a
               second launch gives the same bits;
-18. K7      - values and z-gradients vs the plain version (autograd) at N=32
-              and N=20000 (a row's gradient may differ only at a LeakyReLU
-              kink, at most 0.1 % of the rows); K7's value equals K6's bit
-              for bit;
+18. K7      - values and z-gradients vs the plain version (autograd) in both
+              of K7's forms: the cluster form at N=32 (a fit batch) and at
+              its last row count (the switch, 768), K5's tiles at the switch
+              + 1 and N=20000 (a row's gradient may differ only at a
+              LeakyReLU kink, at most 0.1 % of the rows); K7's value equals
+              K6's bit for bit and a second launch gives the same bits;
 19. K5      - a 5-step window and the model's own 50-step window (the
               wrapper predict launches) at N=20000 vs the plain version on
               the same seed: counts per step within 0.1 % of N, at least
@@ -84,8 +86,9 @@ The in-kernel-eps family (K5-K7) at the flagship width, on the BNN model:
               within rtol 1e-4 / atol 1e-3; then K5 (50 steps), K6 and K7 vs
               their plain versions, median of CUDA-event times, and the
               device time per launch (as phase 7) of K5, of K6 at N=20000
-              (target 0.40 ms) and 2N=40000 and of K7, with its share of
-              the bound;
+              (target 0.40 ms) and 2N=40000 and of K7 at N=32 (target 0.12
+              ms) and N=20000 (target 0.75 ms), each with its share of the
+              bound;
 20. window  - predict with params['mh_window_kernel'] on the model fitted
               in phase 8 (burn_in=200, n_mcmc=200): K5 launches == 4, paired
               K1 == 200, unpaired K1 == 1, and over every in-kernel-eps
@@ -100,7 +103,8 @@ K8, the probe (bayesgm_torch/benchmarks/mxu_probe.py), with its own nets
 (gamma_eff 1, beta 0, loc ~ N(0, 1) / sqrt(fan_in), sigma 0.0067, b 0) at
 the flagship paired shape, 2N = 40000 rows, block_rows 512:
 
-21. probe   - run_probe over its ten variants (prod = K6, then K8's nine)
+21. probe   - run_probe over its ten variants (prod = K6, then K8's nine,
+              each K6's own code with one part switched out)
               with the two-length timing at 10 vs 50 evaluations: each
               variant's launches == 3 + 4 x 10 + 3 x 50, none of K7's or
               K5's entry points; then each variant's kernel vs its plain
@@ -686,21 +690,31 @@ def main() -> int:
                             ik.make_fused_causal_logp_bnn(var_cfg, *dims)(*a),
                             ik.logp_plain(var_cfg, *a, k6.block_rows)))
 
-    # 18. K7: values and z-gradients; its value is K6's at K7's row block
+    # 18. K7 in both forms (the cluster form up to the switch, K5's tiles
+    # past it): values and z-gradients; its value is K6's at K7's row block
     k7 = ik.make_fused_causal_logp_and_grad_bnn(cfg, *dims)
     k6_at_k7 = ik.make_fused_causal_logp_bnn(cfg, *dims, block_rows=k7.block_rows)
+    k7_switch = ik.k7_cluster_max_rows()
+    if ik._lib().bnn_inkernel_grad_cluster_max_rows() != k7_switch:
+        raise AssertionError("[18 K7] the library's switch differs from its source's")
     err7, k7_args = [], {}
-    for n_k in (FIT_BATCH, N):
+    for n_k in (FIT_BATCH, k7_switch, k7_switch + 1, N):
+        form = "cluster" if n_k <= k7_switch else "tiles"
         a = (z[:n_k].contiguous(), x[:n_k].contiguous(), y[:n_k].contiguous(),
              v[:n_k].contiguous(), seed, *iflats)
         k7_args[n_k] = a
         (neg_k, grad_k), (neg_p, grad_p) = k7(*a), ik.logp_and_grad_plain(cfg, *a, k7.block_rows)
-        err7.append(compare(f"[18 K7 value N={n_k} block_rows={k7.block_rows}]", neg_k, neg_p))
-        err7.append(compare_grad_at_kinks(f"[18 K7 grad N={n_k}]", grad_k, grad_p,
+        err7.append(compare(f"[18 K7 {form} value N={n_k} block_rows={k7.block_rows}]", neg_k,
+                            neg_p))
+        err7.append(compare_grad_at_kinks(f"[18 K7 {form} grad N={n_k}]", grad_k, grad_p,
                                           ik.kink_rows(cfg, *a, k7.block_rows)))
         if not torch.equal(neg_k, k6_at_k7(*a)):
             raise AssertionError(f"[18 K7 N={n_k}]: K7's value differs from K6's")
-    print("[18 K7] value == K6's value bit for bit", flush=True)
+        neg_2, grad_2 = k7(*a)
+        if not (torch.equal(neg_2, neg_k) and torch.equal(grad_2, grad_k)):
+            raise AssertionError(f"[18 K7 N={n_k}]: two launches differ")
+    print(f"[18 K7] value == K6's value bit for bit and two launches give the same bits in "
+          f"both forms (cluster up to {k7_switch} rows)", flush=True)
 
     # 19. K5: a 5-step window and the model's own 50-step window against the
     # plain version, then the timings
@@ -727,9 +741,9 @@ def main() -> int:
             time_ms(lambda: ik.mh_steps_plain(cfg, *a5, MH_WINDOW, k5.block_rows), 0, 3))
     d_k5 = device_ms(lambda: k5(*a5), n_warm=1, n_iter=5)
     t_k6 = (time_ms(lambda: k6(*a6)), time_ms(lambda: ik.logp_plain(cfg, *a6, k6.block_rows)))
-    t_k7 = {n_k: (time_ms(lambda: k7(*a)),
-                  time_ms(lambda: ik.logp_and_grad_plain(cfg, *a, k7.block_rows)))
-            for n_k, a in k7_args.items()}
+    t_k7 = {n_k: (time_ms(lambda: k7(*k7_args[n_k])),
+                  time_ms(lambda: ik.logp_and_grad_plain(cfg, *k7_args[n_k], k7.block_rows)))
+            for n_k in (FIT_BATCH, N)}
     for label, (tk, tp) in ([(f"K5 {MH_WINDOW}-step window N={N}", t_k5), (f"K6 N={N}", t_k6)]
                             + [(f"K7 N={n_k}", t) for n_k, t in t_k7.items()]):
         note = "" if tk <= tp else "  (kernel SLOWER than the plain version)"
@@ -742,12 +756,14 @@ def main() -> int:
     eps_ops = lambda n_rows, block: -(-n_rows // block) * bnn_macs * mp.OPS_PER_NORMAL
     b_k6 = {n_k: bound(row_bytes(n_k, False) + 4 * iflat_w,
                        n_k * 4 * bnn_macs + eps_ops(n_k, k6.block_rows)) for n_k in (N, 2 * N)}
-    b_k7 = bound(row_bytes(N, True) + 4 * iflat_w, N * 8 * bnn_macs + eps_ops(N, k7.block_rows))
+    b_k7 = {n_k: bound(row_bytes(n_k, True) + 4 * iflat_w,
+                       n_k * 8 * bnn_macs + eps_ops(n_k, k7.block_rows)) for n_k in (FIT_BATCH, N)}
     a6x2 = (*(torch.cat([t, t]) for t in (z, x, y, v)), seed, *iflats)
     d_k6 = {N: device_ms(lambda: k6(*a6)), 2 * N: device_ms(lambda: k6(*a6x2))}
-    d_k7 = device_ms(lambda: k7(*k7_args[N]))
+    d_k7 = {n_k: device_ms(lambda: k7(*k7_args[n_k])) for n_k in (FIT_BATCH, N)}
     for label, td, (b_ms, b_by) in ([(f"K6 N={n_k}", d_k6[n_k], b_k6[n_k]) for n_k in d_k6]
-                                    + [(f"K7 N={N}", d_k7, b_k7)]):
+                                    + [(f"K7 N={n_k} ({'cluster' if n_k <= k7_switch else 'tiles'})",
+                                        d_k7[n_k], b_k7[n_k]) for n_k in d_k7]):
         print(f"[19 timing] {label}: device {td:.4f} ms; bound {b_ms:.6f} ms ({b_by}), "
               f"device time at {100 * b_ms / td:.2f} % of it", flush=True)
 
@@ -998,12 +1014,15 @@ def main() -> int:
         "max_abs_err": max(err7),
         "ms": t_k7[N][0],
         "plain_ms": t_k7[N][1],
-        "bound_ms": b_k7[0],
-        "bound_by": b_k7[1],
+        "bound_ms": b_k7[N][0],
+        "bound_by": b_k7[N][1],
         "library_ms": None,
-        "device_ms": d_k7,
+        "device_ms": d_k7[N],
+        "cluster_max_rows": k7_switch,
         f"ms_n{FIT_BATCH}": t_k7[FIT_BATCH][0],
+        f"device_ms_n{FIT_BATCH}": d_k7[FIT_BATCH],
         f"plain_ms_n{FIT_BATCH}": t_k7[FIT_BATCH][1],
+        f"bound_ms_n{FIT_BATCH}": b_k7[FIT_BATCH][0],
     }, {
         "name": "bnn_inkernel_probe",
         "route": "cuda",

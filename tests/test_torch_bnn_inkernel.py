@@ -279,6 +279,16 @@ def test_wrappers_take_plain_versions_on_cpu_and_count_no_launch():
         tk.make_fused_mh_steps_bnn(tcfg, *dims, n_steps=-1)
 
 
+def test_k7_switch_reads_the_kernel_source_and_takes_the_fit_batch():
+    """K7's cluster form covers fit's batch of 32 rows and whole 32-row
+    tiles; the switch is the kernel source's own constant, read without a
+    build."""
+    n = tk.k7_cluster_max_rows()
+    assert isinstance(n, int) and n >= 32 and n % 32 == 0
+    src = (tk.CSRC / tk._SOURCE).read_text()
+    assert f"constexpr int kK7ClusterMaxRows = {n};" in src
+
+
 def test_replayed_draws_cover_sixteen_layers_only():
     d = ReplayedDraws([[5, 4, 7], [2, 4, 2], [3, 4, 2]], 16)
     assert d.sign_words(20, 7, 0, 0).shape == (20, 7)

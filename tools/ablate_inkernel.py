@@ -1,20 +1,22 @@
 #!/usr/bin/env python3
-"""Where the time of K5, K6, K3 and K4 goes, by ablation, on one NVIDIA GPU.
+"""Where the time of K5, K6, K7, K3 and K4 goes, by ablation, on one NVIDIA GPU.
 
 Run from the root of a checkout:
 
-    python3 tools/ablate_inkernel.py [--reps 20] [--only k5|k3|k4]
+    python3 tools/ablate_inkernel.py [--reps 20] [--only k5|k7|k3|k4]
 
-It builds variants of ``bayesgm_torch/csrc/bnn_inkernel.cu`` (K5, and K6,
-one evaluation of K5's device code) and ``bayesgm_torch/csrc/plain.cu`` (K3,
-K4) that each drop or swap one part of a kernel, or set K4's row tile and
-weight ring to other sizes (by a textual substitution, checked to apply;
-the switches exist only in these builds, never in the package's sources),
-and times every variant's device time per launch (``chip_smoke.device_ms``:
-CUDA events around one launch queued behind a spin kernel) at the main
-path's shapes: K5's 50-step window and one K6 evaluation over n = 20000
-rows with the model's row block (512 at this width), K3 over fit's 32 rows
-(and, for the choice between K3's two forms, 32 to 20000 rows), and K4 over
+It builds variants of ``bayesgm_torch/csrc/bnn_inkernel.cu`` (K5, K6, one
+evaluation of K5's device code, and K7's two forms) and
+``bayesgm_torch/csrc/plain.cu`` (K3, K4) that each drop or swap one part of
+a kernel, or set K4's row tile and weight ring to other sizes, or send every
+row count to one of K7's or K3's forms (by a textual substitution, checked
+to apply; the switches exist only in these builds, never in the package's
+sources), and times every variant's device time per launch
+(``chip_smoke.device_ms``: CUDA events around one launch queued behind a
+spin kernel) at the main path's shapes: K5's 50-step window and one K6
+evaluation over n = 20000 rows with the model's row block (512 at this
+width), K7 over n and over fit's 32 rows with its own row block (256), K3
+over fit's 32 rows, K7's and K3's forms from 32 to 20000 rows, and K4 over
 predict's batch of 10000 rows and n (its tile and ring sweep also over 1000
 rows), at the width of the repo's flagship configuration with random
 weights from seed 123.  A variant's values are wrong on purpose: only its
@@ -37,6 +39,8 @@ from tools.ablate_hosteps import build, typed_lib, variant_source  # noqa: E402
 N, V_DIM, Z_DIMS = 20000, 200, (1, 1, 1, 7)
 K5_STEPS = 50
 K3_ROWS = (32, 128, 256, 384, 512, 1024, 20000)
+K7_ROWS = (32, 128, 256, 384, 512, 640, 768, 1024, 20000)
+K7_FIT_ROWS = 32
 K4_ROWS = (10000, 20000)
 K4_SWEEP_ROWS = (1000, 10000, 20000)
 
@@ -49,35 +53,63 @@ def k4_geometry(**sizes):
             for name, value in sizes.items()]
 
 
+K5_BUILD = ("__device__ void k5_build_p(const Params& p, int pc, float* slot, int half, int blk, "
+            "uint32_t ev,\n                           uint2 key) {\n")
+K5_COPY = "__device__ void k5_copy_panel(const Params& p, int pc, float* slot, int half) {\n"
+K7_BWD_PUSH = "    if (Probe<V>::kK7)\n      for (int i = c.n_layers - 2; i >= 0; --i)"
+
 # name -> (source, kernel it probes, what it drops, [(old, new), ...])
 VARIANTS = {
     "k5_base": ("bnn_inkernel.cu", "K5+K6", "nothing", []),
     "k5_noprod": ("bnn_inkernel.cu", "K5+K6", "the products' inner loop", [
         ("#pragma unroll 8\n    for (int k = 0; k < in; ++k) {\n"
-         "      const float4 a = *reinterpret_cast<const float4*>(act + k * kK5Rows + r0);",
+         "      const float4 a = load4(act + k * kK5Rows + r0);",
          "#pragma unroll 8\n    for (int k = 0; k < 0; ++k) {\n"
-         "      const float4 a = *reinterpret_cast<const float4*>(act + k * kK5Rows + r0);"),
+         "      const float4 a = load4(act + k * kK5Rows + r0);"),
         ("#pragma unroll 4\n      for (int k = 0; k < in; ++k) {\n"
-         "        const float a = act[k * kK5Rows + r]",
+         "        const float a = from_op(act[k * kK5Rows + r]);",
          "#pragma unroll 4\n      for (int k = 0; k < 0; ++k) {\n"
-         "        const float a = act[k * kK5Rows + r]")]),
+         "        const float a = from_op(act[k * kK5Rows + r]);")]),
     "k5_consteps": ("bnn_inkernel.cu", "K5+K6", "the eps draw (Philox and Box-Muller): a constant normal", [
         ("const uint4 w4 = philox4x32_10(eps_counter(blk, qi, ev, q.ch, q.layer), key);",
          "const uint4 w4 = make_uint4(0u, 0u, 0u, (uint32_t)qi);"),
         ("box_muller(m ? w4.z : w4.x, m ? w4.w : w4.y, cs, sn);",
          "cs = 0.5f + (float)(w4.w & 1u);\n      sn = -0.5f;")]),
     "k5_nobuild": ("bnn_inkernel.cu", "K5+K6", "P's build in place (draws and products): P = sigma", [
-        ("__device__ void k5_build_p(const Params& p, int pc, float* ps, int blk, uint32_t ev, uint2 key) {\n",
-         "__device__ void k5_build_p(const Params& p, int pc, float* ps, int blk, uint32_t ev, uint2 key) {\n"
-         "  if (pc >= 0) return;\n")]),
+        (K5_BUILD, K5_BUILD + "  if (pc >= 0) return;\n")]),
     "k5_noload": ("bnn_inkernel.cu", "K5+K6", "the loc, sigma and b panels' copies", [
-        ("__device__ void k5_copy_panel(const Params& p, int pc, float* slot, int half) {\n",
-         "__device__ void k5_copy_panel(const Params& p, int pc, float* slot, int half) {\n"
-         "  if (pc >= 0) return;\n")]),
+        (K5_COPY, K5_COPY + "  if (pc >= 0) return;\n")]),
     "k5_nomh": ("bnn_inkernel.cu", "K5", "the proposal and the accept step", [
         ("    for (int idx = tid; idx < R * quads; idx += blockDim.x) {",
          "    for (int idx = tid; idx < 0; idx += blockDim.x) {"),
         ("    if (tid < R) {  // warps 0 and 1, all lanes", "    if (tid < 0) {")]),
+    "k7_base": ("bnn_inkernel.cu", "K7", "nothing", []),
+    "k7_nobwd": ("bnn_inkernel.cu", "K7", "the backward (the last layer's inside its forward too)", [
+        (K7_BWD_PUSH, K7_BWD_PUSH.replace("Probe<V>::kK7", "V < 0")),
+        ("    if constexpr (Probe<V>::kK7) k7_backward<V>(p, s, st, ch, cur, group, ev, acc, row0, n_valid);",
+         ""),
+        ("            __syncthreads();  // the panel's d and d r_out are complete\n"
+         "            k7_bwd_panel<true>(p, q, slot, st.half, e.dbuf, e.sbuf, acc);", "")]),
+    "k7_nobwdbuild": ("bnn_inkernel.cu", "K7", "P's build for the backward's panels (their P = sigma)", [
+        ("      if (g < total) k5_build_p<V>(p, g % NP, slot(g), half, blk, (uint32_t)(g / NP), key);",
+         "      if (g < total && !(p.panel[g % NP] >> 15)) "
+         "k5_build_p<V>(p, g % NP, slot(g), half, blk, (uint32_t)(g / NP), key);")]),
+    "k7_noload": ("bnn_inkernel.cu", "K7", "the loc, sigma and b panels' copies", [
+        (K5_COPY, K5_COPY + "  if (pc >= 0) return;\n")]),
+    "k7c_nosetup": ("bnn_inkernel.cu", "K7c", "the cluster form's set-up: its slices' copies and P's draws", [
+        ("      for (int idx = tid; idx < in4 * ns; idx += blockDim.x) {\n"
+         "        const int jl = idx / in4, k = idx - jl * in4;\n        if (k < in) {",
+         "      for (int idx = tid; idx < 0; idx += blockDim.x) {\n"
+         "        const int jl = idx / in4, k = idx - jl * in4;\n        if (k < in) {")]),
+    "k7c_nobwd": ("bnn_inkernel.cu", "K7c", "the cluster form's backward (its barriers too)", [
+        ("    // Backward, last layer to first.\n    for (int i = n_layers - 1; i >= 0; --i) {",
+         "    // Backward, last layer to first.\n    for (int i = n_layers - 1; i >= n_layers; --i) {")]),
+    "k7c_dsync": ("bnn_inkernel.cu", "K7c", "nothing: every cluster barrier is doubled", [
+        ("cluster.sync();", "{ cluster.sync(); cluster.sync(); }")]),
+    "k7_cluster_all": ("bnn_inkernel.cu", "K7", "nothing: the cluster form at every row count", [
+        ("constexpr int kK7ClusterMaxRows = ", "constexpr int kK7ClusterMaxRows = 1 << 30; //")]),
+    "k7_tile_all": ("bnn_inkernel.cu", "K7", "nothing: K5's tiles at every row count", [
+        ("constexpr int kK7ClusterMaxRows = ", "constexpr int kK7ClusterMaxRows = 0; //")]),
     "k3_base": ("plain.cu", "K3", "nothing", []),
     "k3_nobwd": ("plain.cu", "K3", "the backward (its barriers too)", [
         ("n_pass = max(n_pass, 2 * p.chain[ch].n_layers + 1);",
@@ -126,7 +158,7 @@ for _rows in (32, 64):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--only", choices=["k5", "k3", "k4"], default=None)
+    ap.add_argument("--only", choices=["k5", "k7", "k3", "k4"], default=None)
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -169,6 +201,7 @@ def main() -> int:
     k5 = ik.make_fused_mh_steps_bnn(bm.cfg, *[bm.nets[k].dims for k in "ghf"], n_steps=K5_STEPS)
     iflats = [flatten_flipout_params(bm.nets[k]) for k in "ghf"]
     k6 = ik.make_fused_causal_logp_bnn(bm.cfg, *[bm.nets[k].dims for k in "ghf"])
+    k7 = ik.make_fused_causal_logp_and_grad_bnn(bm.cfg, *[bm.nets[k].dims for k in "ghf"])
     k3 = tp.make_fused_causal_logp_and_grad(pm.cfg, *[pm.nets[k].dims for k in "ghf"])
     k4 = tp.make_fused_causal_logp(pm.cfg, *[pm.nets[k].dims for k in "ghf"])
     flats = [flatten_mlp_params(pm.nets[k]) for k in "ghf"]
@@ -189,6 +222,15 @@ def main() -> int:
             if probes.endswith("K6"):
                 runs.append((f"K6 block_rows {k6.block_rows}", N, args.reps,
                              lambda: k6(z, x, y, v, seed, *iflats)))
+            if probes.startswith("K7"):
+                if name in ("k7_base", "k7_cluster_all", "k7_tile_all"):
+                    rows = K7_ROWS
+                else:
+                    rows = (K7_FIT_ROWS,) if probes == "K7c" else (N,)
+                for n in rows:
+                    a = [t[:n].contiguous() for t in (z, x, y, v)]
+                    runs.append((f"K7 block_rows {k7.block_rows}", n, args.reps,
+                                 lambda a=a: k7(*a, seed, *iflats)))
             if probes == "K4":
                 rows = K4_SWEEP_ROWS if name.startswith("k4_r") else K4_ROWS
                 for n in rows:

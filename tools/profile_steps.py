@@ -18,7 +18,7 @@ random weights from seed 123), it times four units of work:
 For BNN nets it also times an MH burn-in step in windows of 50 steps, one K5
 launch each (``params['mh_window_kernel']``; ``--steps`` must then be a
 multiple of 50), single launches of K6 (n and 2n rows), K8's base variant
-(2n rows, block 512) and K7 (n rows), and single launches of K1 (n rows,
+(2n rows, block 512) and K7 (n, 1000, 512 and 32 rows), and single launches of K1 (n rows,
 and the paired 2n) and K2 (32 and n rows); for plain nets, single launches
 of K3 (32 and n rows) and K4 (10000, n and 1000 rows).  The
 script imports the package from the working directory, so run from the
@@ -131,6 +131,9 @@ def _units(model, data, plain, steps):
                   (f"K6 launch ({2 * N} rows)", lambda: k6(*stack2, seed, *flats), 1),
                   (f"K8 base launch ({2 * N} rows)", lambda: base(*stack2, seed, *flats), 1),
                   (f"K7 launch ({N} rows)", lambda: k7(init, x, y, v, seed, *flats), 1)]
+        for rows7 in (32, 512, 1000):  # K7 in its cluster form (32, 512) and tiles (1000)
+            sub = [a[:rows7].contiguous() for a in (init, x, y, v)]
+            units.append((f"K7 launch ({rows7} rows)", lambda sub=sub: k7(*sub, seed, *flats), 1))
         # K1 and K2 alone at the main path's shapes: MH's paired 2N rows, the
         # initial unpaired N rows, fit's batch of 32 and MALA's N rows.
         ws, sigs = zip(*(split_flipout_flat(f) for f in flats))
