@@ -13,6 +13,10 @@ __version__ = "0.1.0"
 _SYMBOL_TO_MODULE = {
     "CausalBGM": "bayesgm_torch.models.causalbgm",
     "Sim_Hirano_Imbens_sampler": "bayesgm_torch.datasets.causal_samplers",
+    "Sim_Sun_sampler": "bayesgm_torch.datasets.causal_samplers",
+    "Sim_Colangelo_sampler": "bayesgm_torch.datasets.causal_samplers",
+    "get_ADRF": "bayesgm_torch.utils.helpers",
+    "parse_file_triplet": "bayesgm_torch.utils.data_io",
 }
 
 __all__ = sorted(_SYMBOL_TO_MODULE) + ["__version__"]

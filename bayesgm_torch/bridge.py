@@ -17,7 +17,6 @@
 
 from __future__ import annotations
 
-import os
 import re
 
 import numpy as np
@@ -125,16 +124,78 @@ def nets_to_numpy(nets: dict) -> dict:
     return {name: net_to_numpy(net) for name, net in nets.items()}
 
 
-def _flatten(node, prefix: str, out: dict):
-    """``keystr`` paths of a dict/list tree: ``['a'][0]['b']``."""
-    if isinstance(node, dict):
-        for k, sub in node.items():
-            _flatten(sub, f"{prefix}['{k}']", out)
-    elif isinstance(node, (list, tuple)):
-        for i, sub in enumerate(node):
-            _flatten(sub, f"{prefix}[{i}]", out)
-    else:
-        out[prefix] = np.asarray(node)
+def _param_path(net, name: str) -> list:
+    """The JAX pytree path, below the net, of the port parameter ``name``
+    (a ``named_parameters`` name such as ``loc.2`` or ``bn_gamma.0``)."""
+    field, _, index = name.partition(".")
+    if isinstance(net, FlipoutMLP) and field in ("gamma", "beta"):
+        return ["norm", field]
+    if isinstance(net, Critic) and field in ("bn_gamma", "bn_beta"):
+        return ["bn", int(index), field[3:]]
+    if index:
+        return ["layers", int(index), field]
+    raise TypeError(f"no JAX path for parameter {name!r} of {type(net).__name__}")
+
+
+def params_to_tree(nets, values):
+    """Arrange ``values`` (one per parameter, in ``parameters()`` order) as
+    the JAX pytree of ``nets``: a net's tree for one net, ``{name: net
+    tree}`` for a dict of nets (taken in the dict's order).  Each value
+    becomes a numpy array."""
+    named = nets if isinstance(nets, dict) else {None: nets}
+    values = iter(values)
+    root: dict = {}
+    for k, net in named.items():
+        node0 = root.setdefault(k, {})
+        for name, _ in net.named_parameters():
+            node = node0
+            *parents, leaf = _param_path(net, name)
+            for part in parents:
+                node = node.setdefault(part, {})
+            v = next(values)
+            node[leaf] = v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+    root = _listify(root)
+    return root if isinstance(nets, dict) else root[None]
+
+
+def tree_to_params(nets, tree, device) -> list:
+    """The inverse of :func:`params_to_tree`: the float32 tensors of
+    ``tree`` on ``device``, in the parameters' order."""
+    named = nets if isinstance(nets, dict) else {None: nets}
+    out = []
+    for k, net in named.items():
+        for name, _ in net.named_parameters():
+            node = tree[k] if isinstance(nets, dict) else tree
+            for part in _param_path(net, name):
+                node = node[part]
+            out.append(torch.as_tensor(np.asarray(node), dtype=torch.float32, device=device))
+    return out
+
+
+def adam_to_jax(state, nets):
+    """A port ``AdamState`` (moment lists in the parameters' order of
+    ``nets``, a net or a dict of nets) in JAX's form: ``AdamState(m=tree,
+    v=tree, t=int32)``, the trees shaped as :func:`params_to_tree` shapes
+    them."""
+    return type(state)(m=params_to_tree(nets, state.m), v=params_to_tree(nets, state.v),
+                       t=np.asarray(state.t, np.int32))
+
+
+def adam_from_jax(tree, nets, device):
+    """The port's ``AdamState`` from JAX's form (see :func:`adam_to_jax`)."""
+    return type(tree)(m=tree_to_params(nets, tree.m, device),
+                      v=tree_to_params(nets, tree.v, device), t=int(tree.t))
+
+
+def table_adam_to_jax(state):
+    """A port ``TableAdamState`` with numpy moments and an int32 step."""
+    return type(state)(m=state.m.detach().cpu().numpy(), v=state.v.detach().cpu().numpy(),
+                       t=np.asarray(state.t, np.int32))
+
+
+def table_adam_from_jax(tree, device):
+    return type(tree)(m=torch.as_tensor(tree.m, device=device),
+                      v=torch.as_tensor(tree.v, device=device), t=int(tree.t))
 
 
 def save_npz(path: str, nets: dict, data_z=None) -> str:
@@ -144,13 +205,9 @@ def save_npz(path: str, nets: dict, data_z=None) -> str:
     if data_z is not None:
         tree["data_z"] = (data_z.detach().cpu().numpy() if torch.is_tensor(data_z)
                           else np.asarray(data_z, np.float32))
-    arrays: dict = {}
-    _flatten(tree, "", arrays)
-    tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
-        np.savez(f, **arrays)
-    os.replace(tmp, path)
-    return path
+    from bayesgm_torch.utils.checkpoint import save_pytree
+
+    return save_pytree(path, tree)
 
 
 def _parse_key(key: str) -> list:

@@ -1,0 +1,174 @@
+"""Run a causal recipe from ``configs/*.yaml`` on the port (counterpart of
+the root ``main.py``, CausalBGM branch).
+
+    python -m bayesgm_torch.main -c configs/Sim_Colangelo.yaml [-e EPOCHS] [-b EGM_ITERS]
+        [--device cuda|cpu]
+
+The config is read by :mod:`bayesgm_torch.utils.config_io` (no PyYAML).  The
+simulated datasets are Sim_Hirano_Imbens, Sim_Sun and Sim_Colangelo, each
+with its closed-form ADRF, against which the RMSE and MAPE of the predicted
+ADRF are printed.  The optional ``predict:`` and ``fit:`` blocks override
+predict's and fit's keyword arguments and are checked against the engine's
+signatures before the fit.  What the port does not have yet raises
+``NotImplementedError`` naming its ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import inspect
+
+import numpy as np
+
+SIMULATED = ("Sim_Hirano_Imbens", "Sim_Sun", "Sim_Colangelo")
+_NOT_PORTED_DATASETS = {
+    "Semi_Twins": "Semi_Twins needs external CSVs and pandas (ROADMAP Queue 1 item 5)",
+    "Semi_acic": "Semi_acic needs external CSVs and pandas (ROADMAP Queue 1 item 5)",
+    "Sim_heteroskedastic": "BGM is not ported yet (ROADMAP Queue 1 item 9)",
+    "Sim_low_rank": "BGM is not ported yet (ROADMAP Queue 1 item 9)",
+    "MNIST": "MNISTBGM is not ported yet (ROADMAP Queue 1 item 10)",
+}
+_NOT_PORTED_ENGINES = {
+    "identifiable": "IdentifiableCausalBGM is not ported yet (ROADMAP Queue 1 item 6)",
+    "ensemble": "EnsembleCausalBGM is not ported yet (ROADMAP Queue 1 item 7)",
+    "fullmcmc": "FullMCMCCausalBGM is not ported yet (ROADMAP Queue 1 item 8)",
+}
+
+
+def _load_causal_dataset(name):
+    """``(x, y, v, truth_fn)`` of a simulated dataset at the JAX driver's
+    sizes; ``truth_fn(x_grid)`` is the true ADRF."""
+    from bayesgm_torch.datasets.causal_samplers import (
+        Sim_Colangelo_sampler,
+        Sim_Hirano_Imbens_sampler,
+        Sim_Sun_sampler,
+    )
+    from bayesgm_torch.utils.helpers import get_ADRF
+
+    if name == "Sim_Hirano_Imbens":
+        ds = Sim_Hirano_Imbens_sampler(N=20000, v_dim=200)
+        return (*ds.load_all(), lambda g: get_ADRF(x_values=g, dataset="Imbens"))
+    if name == "Sim_Sun":
+        ds = Sim_Sun_sampler(N=20000, v_dim=200)
+        return (*ds.load_all(), lambda g: get_ADRF(x_values=g, dataset="Sun"))
+    if name == "Sim_Colangelo":
+        ds = Sim_Colangelo_sampler(N=20000, v_dim=100)
+        return (*ds.load_all(), lambda g: get_ADRF(x_values=g, dataset="Lee"))
+    if name in _NOT_PORTED_DATASETS:
+        raise NotImplementedError(_NOT_PORTED_DATASETS[name])
+    raise ValueError(f"Unknown causal dataset {name}")
+
+
+def _predict_overrides(params):
+    """Pop and check the optional ``predict:`` block (burn_in, n_mcmc,
+    ess_target, q_sd, alpha)."""
+    overrides = dict(params.pop("predict", None) or {})
+    allowed = {"burn_in", "n_mcmc", "ess_target", "q_sd", "alpha"}
+    unknown = set(overrides) - allowed
+    if unknown:
+        raise ValueError(f"Unknown predict override(s) {sorted(unknown)}; "
+                         f"valid keys: {sorted(allowed)}")
+    return overrides
+
+
+def _takes_any_keyword(fn) -> bool:
+    return any(p.kind is inspect.Parameter.VAR_KEYWORD
+               for p in inspect.signature(fn).parameters.values())
+
+
+def _fit_overrides(params, cls, engine):
+    """Pop and check the optional ``fit:`` block (egm_batch_size,
+    egm_n_iter, batch_size, epochs_per_eval, startoff) against the
+    engine's ``fit`` signature."""
+    overrides = dict(params.pop("fit", None) or {})
+    allowed = {"egm_batch_size", "egm_n_iter", "batch_size", "epochs_per_eval", "startoff"}
+    unknown = set(overrides) - allowed
+    if unknown:
+        raise ValueError(f"Unknown fit override(s) {sorted(unknown)}; "
+                         f"valid keys: {sorted(allowed)}")
+    if not _takes_any_keyword(cls.fit):
+        unsupported = set(overrides) - set(inspect.signature(cls.fit).parameters)
+        if unsupported:
+            raise ValueError(f"fit override(s) {sorted(unsupported)} not supported by "
+                             f"model '{engine}' ({cls.__name__}.fit)")
+    return overrides
+
+
+def _check_overrides_against_engine(cls, engine, predict_overrides):
+    """Raise before the fit if a predict override is not a keyword of the
+    engine's ``predict`` (a ``**kwargs`` predict takes anything)."""
+    if _takes_any_keyword(cls.predict):
+        return
+    unsupported = set(predict_overrides) - set(inspect.signature(cls.predict).parameters)
+    if unsupported:
+        raise ValueError(f"predict override(s) {sorted(unsupported)} not supported by "
+                         f"model '{engine}' ({cls.__name__}.predict)")
+
+
+def run_causal(params, epochs, egm_iters, device="cuda"):
+    """Fit and predict the config's engine on its dataset; prints the ATE
+    (binary) or the ADRF's RMSE and MAPE against the truth (continuous) and
+    returns ``(causal_pre, pos_intervals)``.  The optional ``model:`` key
+    picks the engine; the port has ``causalbgm`` (the default)."""
+    from bayesgm_torch.models.causalbgm import CausalBGM
+
+    x, y, v, truth_fn = _load_causal_dataset(params["dataset"])
+    predict_overrides = _predict_overrides(params)
+    engine = params.pop("model", "causalbgm")
+    if engine in _NOT_PORTED_ENGINES:
+        raise NotImplementedError(_NOT_PORTED_ENGINES[engine])
+    if engine != "causalbgm":
+        raise ValueError(f"Unknown model '{engine}'; valid options: "
+                         f"{sorted(['causalbgm', *_NOT_PORTED_ENGINES])}")
+    cls = CausalBGM
+    _check_overrides_against_engine(cls, engine, predict_overrides)
+    fit_overrides = _fit_overrides(params, cls, engine)
+    model = cls(params=params, random_seed=None, device=device)
+    fit_kwargs = dict(epochs=epochs, epochs_per_eval=10, use_egm_init=True,
+                      egm_n_iter=egm_iters, egm_batches_per_eval=500, verbose=1)
+    fit_kwargs.update(fit_overrides)
+    model.fit(data=(x, y, v), **fit_kwargs)
+
+    kwargs = dict(alpha=0.01, n_mcmc=3000, burn_in=5000, q_sd=1.0)
+    kwargs.update(predict_overrides)
+    if params.get("binary_treatment"):
+        causal_pre, pos_intervals = model.predict(data=(x, y, v), **kwargs)
+        print("ATE estimate:", float(np.mean(causal_pre)))
+        return causal_pre, pos_intervals
+    # Hirano-Imbens on the reference tutorial's [0, 3] grid, the others on
+    # the in-sample [p5, p95]; one full-data batch (bs = n).
+    if params["dataset"] == "Sim_Hirano_Imbens":
+        x_grid = np.linspace(0, 3, 20)
+    else:
+        lo, hi = np.quantile(x, [0.05, 0.95])
+        x_grid = np.linspace(lo, hi, 20)
+    causal_pre, pos_intervals = model.predict(data=(x, y, v), x_values=x_grid, bs=len(x),
+                                              **kwargs)
+    true = np.asarray(truth_fn(x_grid.astype("float32")))
+    rmse = float(np.sqrt(np.mean((causal_pre - true) ** 2)))
+    mape = float(np.mean(np.abs((causal_pre - true) / true)))
+    print(f"ADRF RMSE: {rmse:.4f}  MAPE: {mape:.4f}")
+    return causal_pre, pos_intervals
+
+
+def main(argv=None):
+    from bayesgm_torch.utils import config_io
+
+    parser = argparse.ArgumentParser(prog="python -m bayesgm_torch.main")
+    parser.add_argument("-c", "--config", type=str, required=True, help="path to config file")
+    parser.add_argument("-e", "--epochs", type=int, default=100)
+    parser.add_argument("-b", "--batches", type=int, default=30000, help="EGM iterations")
+    parser.add_argument("--device", type=str, default="cuda", choices=("cuda", "cpu"),
+                        help="run on the GPU (default) or the CPU")
+    args = parser.parse_args(argv)
+    params = config_io.load(args.config)
+    dataset = params["dataset"]
+    if dataset in SIMULATED:
+        return run_causal(params, args.epochs, args.batches, device=args.device)
+    if dataset in _NOT_PORTED_DATASETS:
+        raise NotImplementedError(_NOT_PORTED_DATASETS[dataset])
+    raise ValueError(f"Unknown dataset {dataset}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,9 +1,9 @@
 """CausalBGM: causal inference with a 4-way partitioned latent generative
 model (port of ``bayesgm_tpu/models/causalbgm.py``).
 
-This slice of the port trains and serves the model with flipout-BNN nets
-(``use_bnn=True``, the default) or plain MLP nets (``use_bnn=False``),
-continuous or binary treatment, on one device:
+The port trains and serves the model with flipout-BNN nets (``use_bnn=True``,
+the default) or plain MLP nets (``use_bnn=False``), continuous or binary
+treatment, on one device:
 
 - ``fit``: the WGAN-GP EGM warm start (:meth:`CausalBGM.egm_init`), the
   ``e(V)`` latent init, then iterative updating — per batch, Adam steps of
@@ -24,10 +24,19 @@ continuous or binary treatment, on one device:
   for the initial state, then one per step).  ``sampler="mala"`` runs
   adaptive MALA, each evaluation one K2 (BNN: two per step, fresh noise) or
   K3 (plain: one per step, cached) launch.
+  ``estimator="dr"`` collects the doubly-robust (kernel-AIPW) ADRF per
+  kept step, and ``ess_target`` stops each chain once its effect series
+  have mixed (``adaptive_mh(early_stop=...)``);
+- :meth:`CausalBGM.metropolis_hastings_sampler` returns the latent MH draws
+  and :meth:`CausalBGM.infer_from_latent_posterior` maps them to effect
+  draws.
 
 Weights come from the port's own init (``random_seed``), from ``fit``, or
 from a JAX ``save_weights`` file (:meth:`CausalBGM.load_weights`);
 :meth:`CausalBGM.save_weights` writes one that JAX ``load_weights`` reads.
+With ``params['save_model']`` ``fit`` checkpoints its full state in the
+JAX package's format and a new instance resumes it exactly; with
+``params['metrics_path']`` it logs one JSONL record per evaluation.
 The model runs on ``device="cuda"`` by default and raises where CUDA is
 absent; ``device="cpu"`` (by name) runs the plain PyTorch versions.
 """
@@ -74,6 +83,7 @@ from bayesgm_torch.ops.nn import (
 from bayesgm_torch.utils import checkpoint as ckpt
 from bayesgm_torch.utils.data_io import save_data
 from bayesgm_torch.utils.device import resolve_device
+from bayesgm_torch.utils.profiling import MetricsLogger
 
 
 class CBGMConfig(NamedTuple):
@@ -482,6 +492,46 @@ def _effect_collector_p(cfg: CBGMConfig, x_values, sample_y: bool):
     return collect_p
 
 
+def _dr_effect_collector_p(cfg: CBGMConfig, x_values, h_bw: float, gps_floor: float = 1e-3):
+    """Doubly-robust (kernel-AIPW, Hajek) ADRF collector, per kept MCMC step.
+
+    The nuisance estimates are the model's own heads: ``f`` gives the
+    residuals ``y_i - f(z0_i, z1_i, x_i)`` and ``h`` the generalized
+    propensity ``x | z ~ N(mu_x(z), sigma_x(z)^2)``.  Per grid point x*::
+
+        plugin(x*) = mean_i f(z0_i, z1_i, x*)
+        w_i(x*)    = K_h(x_i - x*) / max(gps_i(x*), gps_floor)
+        dr(x*)     = plugin(x*) + sum_i w_i resid_i / sum_i w_i
+
+    Draw order: f on the observed x, then h, then one batched
+    ``(len(x_values), n, .)`` pass through f in which every grid point gets
+    its own weight-noise draw.  Continuous treatment only; the nets and the
+    observed ``(x, y)`` arrive via ``params["nets"]`` and ``params["data"]``."""
+    xv_np = np.asarray(x_values, np.float32)
+
+    def collect_p(params, z, generator):
+        nets = params["nets"]
+        x, y, _ = params["data"]
+        z0, z1, z2 = _split_z(cfg, z)
+        f_obs = _apply(cfg, nets["f"], torch.cat([z0, z1, x], dim=-1), generator)
+        resid = y[:, 0] - f_obs[:, 0]
+        h_out = _apply(cfg, nets["h"], torch.cat([z0, z2], dim=-1), generator)
+        mu_x = h_out[:, 0]
+        s2x = _sigma_sq(cfg.sigma_x, h_out[:, -1])
+        xv = torch.as_tensor(xv_np, device=z.device)
+        n, d = z.shape[0], z0.shape[-1] + z1.shape[-1]
+        inp = torch.cat([torch.cat([z0, z1], dim=-1).expand(xv.shape[0], n, d),
+                         xv[:, None, None].expand(xv.shape[0], n, 1)], dim=-1)
+        plugin = torch.mean(_apply(cfg, nets["f"], inp, generator)[..., 0], dim=1)
+        gps = (torch.exp(-0.5 * (xv[:, None] - mu_x) ** 2 / s2x)
+               / torch.sqrt(2.0 * np.pi * s2x))
+        kern = torch.exp(-0.5 * ((x[:, 0] - xv[:, None]) / np.float32(h_bw)) ** 2)
+        w = kern / torch.clamp_min(gps, gps_floor)
+        return plugin + torch.sum(w * resid, dim=1) / torch.clamp_min(torch.sum(w, dim=1), 1e-12)
+
+    return collect_p
+
+
 def _resolve_predict_bs(cfg: CBGMConfig, bs, n_test: int) -> int:
     """Resolve the predict subject-batch size against the BNN eps contract.
 
@@ -524,6 +574,15 @@ class _KernelLogProb(torch.autograd.Function):
         return -cotangent[:, None] * grad_neg, None
 
 
+@torch.no_grad()
+def _copy_params(dst_nets, src_nets):
+    """Copy every parameter of ``src_nets`` into ``dst_nets`` (same kinds
+    and dims), in place."""
+    for k in NET_NAMES:
+        for dst, src in zip(dst_nets[k].parameters(), src_nets[k].parameters()):
+            dst.copy_(src)
+
+
 def _kernel_seed(generator, device):
     """Two int32 seed words for the kernel's sign generator, drawn on the
     device (no host round trip)."""
@@ -532,7 +591,7 @@ def _kernel_seed(generator, device):
 
 
 class CausalBGM:
-    """Causal Bayesian Generative Model (fit and predict slice).
+    """Causal Bayesian Generative Model on one device.
 
     Parameters
     ----------
@@ -555,11 +614,18 @@ class CausalBGM:
         of 50, the burn-in stays per step, as in the JAX package.  On the
         CPU the window runs K5's plain version (the JAX package on the CPU
         ignores the flag and runs per step).
+        ``'save_model'``: ``fit`` writes the full training state to
+        ``{output_dir}/checkpoints/{dataset}/{timestamp}/ckpt-{epoch}.npz``
+        at every eval epoch (the JAX package's keys, with the two generator
+        states ``['gen']`` and ``['host_gen']`` in place of its PRNG key).
+        ``'metrics_path'``: ``fit`` appends one JSONL ``eval`` record
+        (epoch, mse_x, mse_y, mse_v) per eval epoch.
     timestamp : str or None
-        Run timestamp (current local time if None).  When
-        ``{output_dir}/checkpoints/{dataset}/{timestamp}`` holds a JAX
-        ``ckpt-*.npz``, the five nets of the latest one are restored here,
-        as the JAX package does; ``fit`` still refuses to resume from it.
+        Run timestamp (current local time if None).  When the checkpoint
+        folder holds a ``ckpt-*.npz`` (of either package), the five nets of
+        the latest one are restored here, as the JAX package does, and
+        ``fit`` resumes from the port's own full-state file (see
+        :meth:`fit`).
     random_seed : int or None
         Seed of the init and of the model's generators (default 42).
     device : str or torch.device
@@ -606,10 +672,7 @@ class CausalBGM:
             g_d_freq=int(p["g_d_freq"]),
             deconf_weight=float(p.get("deconf_weight", 0.0)),
         )
-        if p["save_model"]:
-            raise NotImplementedError("save_model (checkpointing) is not ported yet")
-        if p.get("metrics_path"):
-            raise NotImplementedError("metrics_path (MetricsLogger) is not ported yet")
+        self._metrics = MetricsLogger(p["metrics_path"]) if p.get("metrics_path") else None
         use_k2 = p.get("use_pallas_latent", "auto")
         if not (use_k2 is True or (isinstance(use_k2, str) and use_k2 == "auto")):
             raise ValueError(f"use_pallas_latent={use_k2!r}: only 'auto' or True (the "
@@ -636,16 +699,20 @@ class CausalBGM:
             self.timestamp = datetime.datetime.now().strftime("%Y%m%d_%H%M%S")
         self.checkpoint_path = "{}/checkpoints/{}/{}".format(
             p["output_dir"], p["dataset"], self.timestamp)
+        if p["save_model"] and not os.path.exists(self.checkpoint_path):
+            os.makedirs(self.checkpoint_path)
         self.save_dir = "{}/results/{}/{}".format(
             p["output_dir"], p["dataset"], self.timestamp)
         if p["save_res"] and not os.path.exists(self.save_dir):
             os.makedirs(self.save_dir)
 
         # Restore the nets of the latest checkpoint, as the JAX package does
-        # whatever save_model is; the rest of its state is fit's to resume.
-        latest = ckpt.latest_checkpoint(self.checkpoint_path)
-        if latest is not None:
-            self._copy_nets(bridge.nets_from_numpy(ckpt.read_nets(latest)), latest)
+        # whatever save_model is; the rest of its state (optimizers, latent
+        # table, generators) has data-dependent shapes and is fit's to resume.
+        self._resume_ckpt = ckpt.latest_checkpoint(self.checkpoint_path)
+        if self._resume_ckpt is not None:
+            self._copy_nets(bridge.nets_from_numpy(ckpt.read_nets(self._resume_ckpt)),
+                            self._resume_ckpt)
             print("Latest checkpoint restored!!")
 
     # -- construction -----------------------------------------------------
@@ -719,10 +786,7 @@ class CausalBGM:
             if nets[k].dims != self.nets[k].dims:
                 raise ValueError(f"{path}: net {k!r} has dims {nets[k].dims}, "
                                  f"this model {self.nets[k].dims}")
-        with torch.no_grad():
-            for k in NET_NAMES:
-                for dst, src in zip(self.nets[k].parameters(), nets[k].parameters()):
-                    dst.copy_(src)
+        _copy_params(self.nets, nets)
 
     def initialize_nets(self, print_summary: bool = False):
         """Networks are built eagerly in ``__init__``; optionally print sizes."""
@@ -768,6 +832,89 @@ class CausalBGM:
         self.egm_losses = {k: float(t) for k, t in losses.items()}
         print("EGM Initialization Ends.")
 
+    # -- checkpointable training state ------------------------------------------
+
+    def _ge_nets(self):
+        """The nets ``_opt_ge`` steps, in its parameters' order."""
+        return {k: self.nets[k] for k in ("g", "e", "f", "h")}
+
+    def _full_state_bundle(self, data_z, z_opt, epoch, best_loss, best_causal_pre):
+        """The full training state in the JAX package's schema (numpy
+        leaves), with the device and host generators' states (uint8) under
+        ``['gen']`` and ``['host_gen']`` where JAX keeps its PRNG key."""
+        n = data_z.shape[0]
+        causal_shape = (n, 1) if self.cfg.binary_treatment else (200,)
+        best_pre = (np.zeros(causal_shape, np.float32) if best_causal_pre is None
+                    else np.asarray(best_causal_pre, np.float32).reshape(causal_shape))
+        return {
+            "nets": bridge.nets_to_numpy(self.nets),
+            "opts": {k: bridge.adam_to_jax(self.opts[k], self.nets[k]) for k in ("g", "f", "h")},
+            "opt_d": bridge.adam_to_jax(self._opt_d, self.nets["dz"]),
+            "opt_ge": bridge.adam_to_jax(self._opt_ge, self._ge_nets()),
+            "data_z": data_z.detach().cpu().numpy(),
+            "z_opt": bridge.table_adam_to_jax(z_opt),
+            "gen": self._gen.get_state().numpy(),
+            "host_gen": self._host_gen.get_state().numpy(),
+            "epoch": np.asarray(epoch, np.int32),
+            "best_loss": np.asarray(best_loss, np.float32),
+            "best_epoch": np.asarray(self.best_epoch or 0, np.int32),
+            "best_causal_pre": best_pre,
+            "best_nets": bridge.nets_to_numpy(self.best_nets or self.nets),
+            "swa_nets": bridge.nets_to_numpy(self.swa_nets or self.nets),
+            "swa_count": np.asarray(self._swa_count, np.int32),
+        }
+
+    def _full_state_template(self, n):
+        """The bundle's structure, shapes and dtypes for ``n`` rows."""
+        z = torch.zeros((n, sum(self.cfg.z_dims)))
+        return self._full_state_bundle(z, optim.table_adam_init(z), 0, 0.0, None)
+
+    def _apply_full_state(self, state):
+        """Load a restored bundle into the model; returns ``(z_opt, epoch,
+        best_loss)``."""
+        dev = self.device
+        self._copy_nets(bridge.nets_from_numpy(state["nets"]), self._resume_ckpt)
+        self.opts = {k: bridge.adam_from_jax(state["opts"][k], self.nets[k], dev)
+                     for k in ("g", "f", "h")}
+        self._opt_d = bridge.adam_from_jax(state["opt_d"], self.nets["dz"], dev)
+        self._opt_ge = bridge.adam_from_jax(state["opt_ge"], self._ge_nets(), dev)
+        self.data_z = torch.as_tensor(state["data_z"], device=dev)
+        self._gen.set_state(torch.as_tensor(state["gen"]))
+        self._host_gen.set_state(torch.as_tensor(state["host_gen"]))
+        self.best_epoch = int(state["best_epoch"])
+        self.best_causal_pre = np.asarray(state["best_causal_pre"])
+        self.best_nets = self._snapshot(state["best_nets"])
+        self._swa_count = int(state["swa_count"])
+        self.swa_nets = self._snapshot(state["swa_nets"]) if self._swa_count > 0 else None
+        z_opt = bridge.table_adam_from_jax(state["z_opt"], dev)
+        return z_opt, int(state["epoch"]), float(state["best_loss"])
+
+    def _snapshot(self, tree):
+        """A copy of the model's nets holding the values of ``tree``."""
+        nets = copy.deepcopy(self.nets)
+        _copy_params(nets, bridge.nets_from_numpy(tree))
+        return nets
+
+    def _try_resume(self, n):
+        """Restore the full training state from the checkpoint found in
+        ``__init__``; returns ``(z_opt, start_epoch, best_loss)`` or None.
+
+        A file without ``['data_z']`` (the nets alone) returns None at once.
+        A file lacking another leaf the port's bundle holds (a JAX
+        full-state file has no ``['gen']``; a ``save_weights`` file has no
+        ``['opts']``) prints why and returns None: training goes on from the
+        nets ``__init__`` restored, as the JAX package does on a port file."""
+        if self._resume_ckpt is None or not ckpt.has_group(self._resume_ckpt, "data_z"):
+            return None
+        try:
+            state = ckpt.restore_checkpoint(self._resume_ckpt, self._full_state_template(n))
+        except (KeyError, ValueError) as e:
+            print(f"Full-state resume unavailable ({e}); continuing with restored weights only.")
+            return None
+        z_opt, epoch, best_loss = self._apply_full_state(state)
+        print(f"Resuming training from checkpoint at epoch {epoch}.")
+        return z_opt, epoch + 1, best_loss
+
     # -- iterative updating -------------------------------------------------
 
     def _build_fused_latent_vg(self):
@@ -806,13 +953,19 @@ class CausalBGM:
         ``startoff`` on) and the tail half of training feeds the running
         mean ``swa_nets``.
 
-        ``mesh`` and resuming from a checkpoint are not ported yet and raise
-        ``NotImplementedError``."""
+        With ``params['save_model']`` the full training state is written at
+        every eval epoch, after the evaluation (nets, the five Adam states,
+        the latent table and its moments, both generators, the epoch and the
+        best/SWA snapshots).  When ``__init__`` found such a port file, fit
+        resumes after its epoch with its best loss and skips the EGM; the
+        random streams continue where they stopped, so the resumed run is
+        bit-equal to an uninterrupted one.  The ``lr_decay`` schedule runs
+        over this call's ``epochs``: resume a killed run with the same
+        ``epochs``.
+
+        ``mesh`` is not ported yet and raises ``NotImplementedError``."""
         if mesh is not None:
             raise NotImplementedError("fit(mesh=...) is not ported yet")
-        if ckpt.latest_checkpoint(self.checkpoint_path) is not None:
-            raise NotImplementedError(
-                f"{self.checkpoint_path} holds a checkpoint; resuming is not ported yet")
         tdata = self._data(data)
         data_v = tdata[2]
         n = data_v.shape[0]
@@ -821,26 +974,30 @@ class CausalBGM:
             with open(f"{self.save_dir}/params.txt", "w") as f:
                 f.write(str(self.params))
 
-        best_loss = np.inf
-        if use_egm_init:
-            self.egm_init(tdata, egm_n_iter=egm_n_iter,
-                          batch_size=egm_batch_size or batch_size,
-                          egm_batches_per_eval=egm_batches_per_eval, verbose=verbose)
-            print("Initialize latent variables Z with e(V)...")
-            with torch.no_grad():
-                self.data_z = _apply(cfg, self.nets["e"], data_v, self._gen)
+        resume = self._try_resume(n)
+        if resume is not None:
+            z_opt, start_epoch, best_loss = resume
         else:
-            print("Random initialization of latent variables Z...")
-            self.data_z = torch.randn((n, sum(cfg.z_dims)), generator=self._gen,
-                                      device=self.device)
-        z_opt = optim.table_adam_init(self.data_z)
+            start_epoch, best_loss = 0, np.inf
+            if use_egm_init:
+                self.egm_init(tdata, egm_n_iter=egm_n_iter,
+                              batch_size=egm_batch_size or batch_size,
+                              egm_batches_per_eval=egm_batches_per_eval, verbose=verbose)
+                print("Initialize latent variables Z with e(V)...")
+                with torch.no_grad():
+                    self.data_z = _apply(cfg, self.nets["e"], data_v, self._gen)
+            else:
+                print("Random initialization of latent variables Z...")
+                self.data_z = torch.randn((n, sum(cfg.z_dims)), generator=self._gen,
+                                          device=self.device)
+            z_opt = optim.table_adam_init(self.data_z)
 
         n_full = n // batch_size
         remainder = n - n_full * batch_size
         latent_vg = self._build_fused_latent_vg()
         decay = self.params.get("lr_decay")
         print("Iterative Updating Starts ...")
-        for epoch in range(0, epochs + 1):
+        for epoch in range(start_epoch, epochs + 1):
             perm = torch.randperm(n, generator=self._host_gen).to(self.device)
             scale = optim.lr_schedule_scale(decay, epoch, epochs)
             batches = [perm[b * batch_size:(b + 1) * batch_size] for b in range(n_full)]
@@ -859,6 +1016,8 @@ class CausalBGM:
                 if verbose:
                     print("Epoch [%d/%d]: MSE_x: %.4f, MSE_y: %.4f, MSE_v: %.4f\n"
                           % (epoch, epochs, float(mse_x), mse_y, float(mse_v)))
+                if self._metrics is not None:
+                    self._metrics.log("eval", epoch=epoch, mse_x=mse_x, mse_y=mse_y, mse_v=mse_v)
                 if epoch >= startoff and mse_y < best_loss:
                     best_loss = mse_y
                     self.best_causal_pre = causal_pre
@@ -875,6 +1034,12 @@ class CausalBGM:
                                 for a, b in zip(self.swa_nets[k].parameters(),
                                                 self.nets[k].parameters()):
                                     a.add_((b - a) * w)
+                if self.params["save_model"]:
+                    path = ckpt.save_checkpoint(self.checkpoint_path, epoch,
+                                                self._full_state_bundle(
+                                                    self.data_z, z_opt, epoch, best_loss,
+                                                    self.best_causal_pre))
+                    print(f"Saving checkpoint for epoch {epoch} at {path}")
                 if self.params["save_res"]:
                     save_data(f"{self.save_dir}/causal_pre_at_{epoch}.{save_format}",
                               causal_pre)
@@ -1036,11 +1201,59 @@ class CausalBGM:
 
     # -- inference ----------------------------------------------------------
 
+    def metropolis_hastings_sampler(self, data, initial_q_sd=1.0, q_sd=None, burn_in=5000,
+                                    n_keep=3000, target_acceptance_rate=0.25, tolerance=0.05,
+                                    adjustment_interval=50, adaptive_sd=None, window_size=100):
+        """Posterior Z draws by adaptive MH on :meth:`_make_log_prob` (BNN
+        nets: both sides of the accept ratio evaluated afresh every step,
+        K1 twice per step on the kernel path; plain nets: K4 once per step).
+        Returns a ``(n_keep, n, z_dim)`` numpy array."""
+        x, y, v = (np.asarray(a, np.float32) for a in data)
+        cfg = self.cfg
+        if adaptive_sd is None:
+            adaptive_sd = q_sd is None or q_sd <= 0
+        q0 = initial_q_sd if adaptive_sd else q_sd
+        log_prob = self._make_log_prob(x, y, v)
+        with torch.no_grad():
+            init = torch.randn((x.shape[0], sum(cfg.z_dims)), generator=self._gen,
+                               device=self.device)
+            res = mcmc.adaptive_mh(
+                lambda params, z, generator: log_prob(z, generator), init, self._gen,
+                burn_in=burn_in, n_keep=n_keep, q_sd=float(q0), adaptive=bool(adaptive_sd),
+                target_rate=target_acceptance_rate, tolerance=tolerance,
+                adjustment_interval=adjustment_interval, window_size=window_size,
+                recompute_current=cfg.use_bnn)
+        print(f"Final MCMC Acceptance Rate: {float(res.accept_rate):.4f}")
+        return res.samples.cpu().numpy()
+
+    def infer_from_latent_posterior(self, data_posterior_z, x_values=None, sample_y=True):
+        """Map posterior Z draws ``(n_keep, n, z_dim)`` to causal-effect
+        draws through the effect collector of :meth:`predict`, each draw with
+        its own noise: binary ``(n_keep, n)`` ITE draws, continuous
+        ``(len(x_values), n_keep)`` ADRF draws.  The draws go to the device
+        and come back in groups of 64."""
+        if not self.cfg.binary_treatment:
+            if x_values is None:
+                raise ValueError(
+                    "For continuous treatment, 'x_values' must not be None. "
+                    "Provide a list or a single treatment value.")
+            x_values = np.atleast_1d(np.asarray(x_values, dtype=float))
+        z_draws = np.asarray(data_posterior_z, np.float32)
+        collect = _effect_collector(self.cfg, self.nets, x_values, sample_y)
+        outs = []
+        with torch.no_grad():
+            for start in range(0, z_draws.shape[0], 64):
+                group = torch.as_tensor(z_draws[start:start + 64], device=self.device)
+                outs.append(torch.stack([collect(z, self._gen) for z in group]).cpu().numpy())
+        out = np.concatenate(outs, axis=0)  # (n_keep, stat)
+        return out if self.cfg.binary_treatment else out.T
+
     def predict(self, data, alpha=0.01, n_mcmc=3000, burn_in=5000, x_values=None,
                 q_sd=1.0, sample_y=True, bs=None, sampler="mh",
                 use_best_nets=False, use_swa_nets=False, mesh=None,
                 return_diagnostics=False, return_draws=False,
-                estimator="plugin", ess_target=None):
+                estimator="plugin", dr_bw=None, dr_gps_floor=1e-3,
+                ess_target=None, ess_rhat=1.01):
         """Causal effects with posterior intervals from latent MCMC.
 
         Binary: returns (ITE mean (n,), intervals (n, 2)).  Continuous:
@@ -1060,8 +1273,21 @@ class CausalBGM:
         ``params['mh_window_kernel']`` runs a BNN MH burn-in in windows of
         50 steps, one K5 launch each (the class docstring says when).
 
-        ``mesh``, ``estimator="dr"`` and ``ess_target`` are not ported yet and
-        raise ``NotImplementedError``.
+        ``estimator="dr"`` (continuous treatment, ``sampler="mh"`` only)
+        collects the doubly-robust kernel-AIPW ADRF per kept step (see
+        :func:`_dr_effect_collector_p`; ``sample_y`` is ignored).  ``dr_bw``
+        is its treatment-kernel bandwidth, by default Silverman's
+        ``1.06 std(x) max(n, 2)^(-1/5)`` over the whole test sample, so every
+        subject batch estimates the same functional; ``dr_gps_floor`` clips
+        the generalized propensity from below.
+
+        ``ess_target`` (``sampler="mh"`` only) stops each subject batch's
+        chain once the minimum ESS over its collected effect series reaches
+        ``ess_target`` and every split-R̂ is at most ``ess_rhat``, judged
+        every 500 kept steps from 1000 on (``adaptive_mh(early_stop=...)``);
+        ``n_mcmc`` stays the cap.
+
+        ``mesh`` is not ported yet and raises ``NotImplementedError``.
         """
         if not 0 < alpha < 1:
             raise ValueError("The significance level 'alpha' must be greater than 0 and less than 1.")
@@ -1069,10 +1295,6 @@ class CausalBGM:
             raise NotImplementedError("predict(mesh=...) is not ported yet")
         if sampler not in ("mh", "mala"):
             raise ValueError(f"unknown sampler {sampler!r} (expected 'mh' or 'mala')")
-        if estimator != "plugin":
-            raise NotImplementedError(f"estimator={estimator!r} is not ported yet (only 'plugin')")
-        if ess_target is not None:
-            raise NotImplementedError("ess_target (ESS-adaptive chains) is not ported yet")
         cfg = self.cfg
         if not cfg.binary_treatment and x_values is None:
             raise ValueError(
@@ -1092,14 +1314,35 @@ class CausalBGM:
         adaptive = q_sd is None or q_sd <= 0
         q0 = 1.0 if adaptive else float(q_sd)
 
+        if estimator not in ("plugin", "dr"):
+            raise ValueError(f"Unknown estimator: {estimator!r} (expected 'plugin' or 'dr').")
+        early_stop = None
+        if ess_target is not None:
+            if sampler != "mh":
+                raise ValueError("ess_target requires sampler='mh' (early stopping hooks "
+                                 "the chunked MH chain).")
+            early_stop = dict(min_ess=float(ess_target), max_rhat=float(ess_rhat))
+        if estimator == "dr":
+            if sampler != "mh":
+                raise ValueError("estimator='dr' requires sampler='mh' (the params-mode "
+                                 "chain carries the observed (x, y) the correction needs).")
+            if cfg.binary_treatment:
+                raise ValueError("estimator='dr' supports continuous treatment only "
+                                 "(the kernel-AIPW correction targets the ADRF).")
+            if dr_bw is None:
+                dr_bw = float(1.06 * np.std(data_x) * max(n_test, 2) ** (-0.2))
+            collect_p = _dr_effect_collector_p(cfg, x_values, float(dr_bw),
+                                               float(dr_gps_floor))
+        else:
+            collect_p = _effect_collector_p(cfg, x_values, sample_y)
+        collect = _effect_collector(cfg, nets, x_values, sample_y)
+
         print("MCMC Latent Variable Sampling ...")
         lp, plp, make_params, make_multi_step = self._make_param_log_prob()
         # The K-steps-per-launch burn-in (K5), opt-in as in the JAX package.
         multi_step = (make_multi_step(MH_WINDOW)
                       if self.params.get("mh_window_kernel", False) and make_multi_step
                       else None)
-        collect_p = _effect_collector_p(cfg, x_values, sample_y)
-        collect = _effect_collector(cfg, nets, x_values, sample_y)
 
         def run_batch(bx, by, bv):
             with torch.no_grad():
@@ -1115,7 +1358,8 @@ class CausalBGM:
                     res = mcmc.adaptive_mh(
                         lp, init, self._gen, burn_in=burn_in, n_keep=n_mcmc, q_sd=q0,
                         adaptive=adaptive, recompute_current=cfg.use_bnn, collect=collect_p,
-                        paired_log_prob_fn=plp, multi_step_fn=multi_step, params=params)
+                        paired_log_prob_fn=plp, multi_step_fn=multi_step, params=params,
+                        early_stop=early_stop)
                 rate = float(res.accept_rate)
                 samples = res.samples.cpu().numpy()
             print(f"Final MCMC Acceptance Rate: {rate:.4f}")

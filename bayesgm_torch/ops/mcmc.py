@@ -6,7 +6,9 @@ All ``n`` subjects are independent chains stepped in lockstep along axis 0.
 The chain is a plain Python loop whose state, acceptance window and proposal
 sd stay on the device: a step never reads a value back to the host, so the
 host only enqueues work.  (The JAX package cuts its chain into 500-step
-jitted chunks for the TPU program watchdog; nothing here needs that.)
+jitted chunks for the TPU program watchdog; here the kept steps are cut at
+the same :data:`CHUNK` boundaries only where ``early_stop`` judges the
+chain.)
 
 The adaptation schedule is the reference's: every ``adjustment_interval``
 burn-in steps, ``q_sd`` (MALA: the step size) is multiplied by 0.9 or 1.1
@@ -24,6 +26,8 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+
+CHUNK = 500  # kept steps between the early-stop gate's checks (the JAX chunk)
 
 
 class MHResult(NamedTuple):
@@ -130,10 +134,22 @@ def adaptive_mh(log_prob_fn: Callable, init_state, generator: torch.Generator, *
     than the per-step check), and the window's per-step rates enter the
     ring.  The sampling phase stays per step.
 
-    ``early_stop`` (ESS-adaptive chain length) is not ported yet.
+    ``early_stop`` (a dict; None runs all ``n_keep`` kept steps) stops the
+    sampling phase once the collected series have mixed, on the JAX
+    package's cadence: after kept step ``done``, a multiple of
+    :data:`CHUNK` (or ``n_keep``) below ``n_keep``, when ``done >=
+    min_keep`` (default ``2 * CHUNK``) and ``done - last_check >=
+    check_every`` (default ``CHUNK``), the chain stops if every series has a
+    finite ESS >= ``min_ess`` (required) and a finite split-R̂ <=
+    ``max_rhat`` (default 1.01).  ``samples`` then has fewer rows.  A
+    collected statistic wider than ``gate_cols`` (default 2048) along its
+    second axis is judged on a fixed subsample of that many columns
+    (:func:`_gate_column_index`, chosen at the first chunk); each chunk's
+    gate columns are sliced on the device and copied to the host once.
+    ``gate_cols <= 0`` raises ``ValueError`` (the JAX package takes an empty
+    subsample and fails at its first check).
     """
-    if early_stop is not None:
-        raise NotImplementedError("early_stop (ESS-adaptive chain length) is not ported yet")
+    gate = None if early_stop is None else _EarlyStopGate(**early_stop)
     collect_fn = (lambda p, s, g: s) if collect is None else collect
     statics = dict(
         q_sd_is_adaptive=bool(adaptive), burn_in=burn_in, target_rate=target_rate,
@@ -163,12 +179,57 @@ def adaptive_mh(log_prob_fn: Callable, init_state, generator: torch.Generator, *
             carry, rate = _mh_step(carry, generator, step_lp,
                                    paired_log_prob_fn=step_plp, **statics)
     samples = []
-    for _ in range(n_keep):
-        carry, rate = _mh_step(carry, generator, step_lp,
-                               paired_log_prob_fn=step_plp, **statics)
-        samples.append(collect_fn(params, carry[0], generator))
+    while len(samples) < n_keep:
+        start = len(samples)
+        for _ in range(min(CHUNK, n_keep - start)):
+            carry, rate = _mh_step(carry, generator, step_lp,
+                                   paired_log_prob_fn=step_plp, **statics)
+            samples.append(collect_fn(params, carry[0], generator))
+        if gate is not None and gate.stop(samples[start:], len(samples), n_keep):
+            break
     stacked = torch.stack(samples) if samples else None
     return MHResult(samples=stacked, q_sd=carry[2], accept_rate=rate)
+
+
+def _gate_column_index(width: int, gate_cols: int) -> np.ndarray:
+    """The sorted column subsample the early-stop gate judges a wide
+    statistic on: ``gate_cols`` of ``width`` columns, drawn as the JAX
+    package draws them (``RandomState(0).choice``, no replacement)."""
+    return np.sort(np.random.RandomState(0).choice(width, gate_cols, replace=False))
+
+
+class _EarlyStopGate:
+    """The ESS / split-R̂ stopping rule of ``adaptive_mh(early_stop=...)``,
+    judged on host copies of the gate columns, chunk by chunk."""
+
+    def __init__(self, min_ess, max_rhat=1.01, min_keep=2 * CHUNK, check_every=CHUNK,
+                 gate_cols=2048):
+        if int(gate_cols) <= 0:
+            raise ValueError(f"gate_cols must be positive, got {gate_cols}")
+        self.min_ess, self.max_rhat = float(min_ess), float(max_rhat)
+        self.min_keep, self.check_every = int(min_keep), max(1, int(check_every))
+        self.gate_cols = int(gate_cols)
+        self.index = None  # a wide statistic's gate columns, fixed at the first chunk
+        self.host = []  # the gate columns of every chunk so far, on the host
+        self.last_check = 0
+
+    def stop(self, chunk, done: int, n_keep: int) -> bool:
+        """Take the newest chunk of collected steps; True when the chain
+        should stop after ``done`` kept steps."""
+        chunk = torch.stack(chunk)
+        if not self.host and chunk.ndim >= 2 and chunk.shape[1] > self.gate_cols:
+            self.index = torch.as_tensor(_gate_column_index(chunk.shape[1], self.gate_cols),
+                                         device=chunk.device)
+        if self.index is not None:
+            chunk = chunk.index_select(1, self.index)
+        self.host.append(chunk.cpu().numpy())
+        if done >= n_keep or done < self.min_keep or done - self.last_check < self.check_every:
+            return False
+        self.last_check = done
+        arr = np.concatenate(self.host, axis=0)
+        ess, rhat = effective_sample_size(arr), split_rhat(arr)
+        return bool(np.all(np.isfinite(ess)) and np.min(ess) >= self.min_ess
+                    and np.all(np.isfinite(rhat)) and np.max(rhat) <= self.max_rhat)
 
 
 # ---------------------------------------------------------------------------

@@ -115,6 +115,36 @@ the flagship paired shape, 2N = 40000 rows, block_rows 512:
               every variant's value must lie over ten limits from nopert's,
               and bf16's from base's (at sigma 0.0067 too).
 
+The rest of CausalBGM's surface, each path with its kernels' counts:
+
+22. resume  - save_model and metrics_path at the flagship widths on 2000
+              rows (EGM 50, epochs 0..3, lr_decay cosine): a run killed in
+              the evaluate of epoch 2 and resumed by a new instance ends
+              with a last checkpoint (nets, Adam states, latent table and
+              moments, both generators, best and SWA snapshots) and a
+              metrics log equal bit for bit to an uninterrupted run's, with
+              K2 launched once per step of each; then the size and write
+              time of phase 8's model's full state at n=20000;
+23. sampler - metropolis_hastings_sampler (burn_in 200, 100 kept, K1 twice
+              per step) and infer_from_latent_posterior on the 20-point grid
+              on phase 8's model: shapes, finite values, launch counts;
+24. DR/ESS  - predict(estimator="dr") on phase 13's plain model (two
+              10000-row batches, 200 + 200 steps) beside the plugin
+              predict on the same settings: finite ADRF, ordered intervals,
+              K4 launches, ms per step; then predict(ess_target=400,
+              n_mcmc=2000) on phase 8's model: the kept count a multiple of
+              500 in [1000, 2000], the gate's ESS and split-Rhat where it
+              stopped, K1 launches;
+25. driver  - bayesgm_torch.main.main (the entry of python -m
+              bayesgm_torch.main) on configs/Sim_Sun.yaml, read by
+              config_io (as shipped it raises: its identifiable engine is
+              not ported; without the model key it runs the causalbgm
+              engine at n=20000), cut by -e 1 -b 200 and a predict: block
+              (burn_in 200, n_mcmc 1500, ess_target 400): checkpoint,
+              finite ADRF, the RMSE line, K2 and K1 launches; then
+              python -m bayesgm_torch causalbgm in a new process on a
+              2000-row .npz triplet, which writes its two result files.
+
 Launch counts are set to 0 just before each driven path and read just
 after; the launches of the comparisons do not count.  The last lines are a
 JSON object with the kernels' numbers (each with its bound: the larger of
@@ -124,8 +154,14 @@ card line, and {"ok": true, "device": {...}}.  Imports nothing of JAX nor of
 the JAX package.
 """
 
+import contextlib
+import glob
+import io
 import json
+import os
+import shutil
 import statistics
+import subprocess
 import sys
 import tempfile
 import time
@@ -145,6 +181,10 @@ PROBE_SHORT, PROBE_LONG = 10, 50  # the probe's two chain lengths (its defaults:
 PROBE_SIGMA, SEPARATION = (0.05, 0.15), 10.0
 FIT_BATCH, FIT_EPOCHS, EGM_N_ITER = 32, 1, 200
 PLAIN_BS = 10000  # predict's subject batch for plain nets (bs=None)
+N_RESUME, RESUME_EPOCHS, RESUME_EGM = 2000, 3, 50  # phase 22's fits
+API_KEEP = 100  # phase 23's kept MH draws of Z
+ESS_TARGET, ESS_N_MCMC = 400, 2000  # phase 24's ESS gate (the configs' ess_target)
+DRIVER_N_MCMC, CLI_N = 1500, 2000  # phase 25's driver cap (one gate check) and CLI rows
 SPIN_CYCLES = 5_000_000  # ~2.5 ms of spin ahead of a timed call: longer than any wrapper's host time
 
 
@@ -300,7 +340,11 @@ def main() -> int:
         flipout_step_perturbations,
         split_flipout_flat,
     )
+    from bayesgm_torch.ops.optim import table_adam_init
+    from bayesgm_torch.utils import config_io
+    from bayesgm_torch.utils.checkpoint import save_checkpoint
     from bayesgm_torch.utils.device import card_info
+    from bayesgm_torch.utils.profiling import MetricsLogger
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -896,6 +940,273 @@ def main() -> int:
         raise AssertionError("[21 K8] a variant's value is within reach of base's or nopert's")
     for v in mp.VARIANTS:
         print(f"[21 timing] {v}: plain {p_plain_ms[v]:.4f} ms", flush=True)
+
+    # 22. resume: the flagship BNN widths at N_RESUME rows, run uninterrupted,
+    # then killed in the evaluate of epoch 2 and resumed by a new instance;
+    # the last checkpoint files (nets, Adam states, latent table and moments,
+    # both generators, best and SWA snapshots) and the metrics logs must be
+    # equal bit for bit
+    r_data = Sim_Hirano_Imbens_sampler(batch_size=32, N=N_RESUME, v_dim=V_DIM, seed=1).load_all()
+    r_steps = -(-N_RESUME // FIT_BATCH)  # batches per pass, the remainder batch included
+    resume_root = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+
+    def resume_model(run):
+        p = flagship_params(os.path.join(resume_root, run))
+        p.update(save_model=True, metrics_path=os.path.join(resume_root, run, "metrics.jsonl"))
+        return CausalBGM(p, timestamp="resume", random_seed=5, device="cuda")
+
+    def resume_fit(m, die_at=None):
+        """Fit ``m`` (EGM 50, epochs 0..RESUME_EPOCHS); with ``die_at`` its
+        evaluate raises on that call.  Returns (K2 launches, wall s)."""
+        if die_at is not None:
+            calls, evaluate = [0], m.evaluate
+
+            def dying_evaluate(*a, **kw):
+                calls[0] += 1
+                if calls[0] == die_at:
+                    raise RuntimeError("simulated kill")
+                return evaluate(*a, **kw)
+
+            m.evaluate = dying_evaluate
+        m.kernels["bnn_hosteps_grad"].launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        try:
+            m.fit(r_data, epochs=RESUME_EPOCHS, epochs_per_eval=1, batch_size=FIT_BATCH,
+                  use_egm_init=True, egm_n_iter=RESUME_EGM, egm_batches_per_eval=RESUME_EGM,
+                  verbose=0)
+        except RuntimeError as e:
+            if die_at is None or "simulated kill" not in str(e):
+                raise
+        torch.cuda.synchronize()
+        return m.kernels["bnn_hosteps_grad"].launches, time.perf_counter() - t
+
+    ma = resume_model("a")
+    k2_a, wall_a = resume_fit(ma)
+    mb1 = resume_model("b")
+    k2_b1, wall_b1 = resume_fit(mb1, die_at=3)
+    saved_b1 = sorted(os.listdir(mb1.checkpoint_path))
+    mb2 = resume_model("b")
+    k2_b2, wall_b2 = resume_fit(mb2)
+    last = f"ckpt-{RESUME_EPOCHS}.npz"
+    with np.load(os.path.join(ma.checkpoint_path, last)) as fa, \
+            np.load(os.path.join(mb2.checkpoint_path, last)) as fb:
+        keys = sorted(fa.files)
+        differ = [k for k in keys if not np.array_equal(fa[k], fb[k])]
+        same_keys = keys == sorted(fb.files)
+    metrics = [[(r["event"], r["epoch"], r["mse_x"], r["mse_y"], r["mse_v"])
+                for r in MetricsLogger(m.params["metrics_path"]).read()] for m in (ma, mb2)]
+    print(f"[22 resume] n={N_RESUME}: uninterrupted {wall_a:.3f} s, killed {wall_b1:.3f} s "
+          f"(checkpoints {saved_b1}), resumed {wall_b2:.3f} s; K2 launches {k2_a}, {k2_b1}, "
+          f"{k2_b2}; {len(keys)} leaves in {last}, differing: {differ[:8]}", flush=True)
+    checks = {
+        "killed run wrote epochs 0 and 1": saved_b1 == ["ckpt-0.npz", "ckpt-1.npz"],
+        "same keys in the last checkpoints": same_keys,
+        "last checkpoints equal bit for bit": same_keys and not differ,
+        "nets and data_z equal": all(torch.equal(p, q) for k in ma.nets for p, q in
+                                     zip(ma.nets[k].parameters(), mb2.nets[k].parameters()))
+                                 and torch.equal(ma.data_z, mb2.data_z),
+        "both generators' states equal": (torch.equal(ma._gen.get_state(), mb2._gen.get_state())
+                                          and torch.equal(ma._host_gen.get_state(),
+                                                          mb2._host_gen.get_state())),
+        "best_epoch equal": ma.best_epoch == mb2.best_epoch,
+        "metrics logs equal": metrics[0] == metrics[1] and len(metrics[0]) == RESUME_EPOCHS + 1,
+        f"K2 launches {4 * r_steps} / {3 * r_steps} / {2 * r_steps}":
+            (k2_a, k2_b1, k2_b2) == (4 * r_steps, 3 * r_steps, 2 * r_steps),
+    }
+    for name, ok in checks.items():
+        print(f"[22 resume] {name}: {'ok' if ok else 'FAIL'}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError("[22 resume] the resumed run differs from the uninterrupted one")
+    # the write of phase 8's model's bundle at N rows
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    bundle = fit_model._full_state_bundle(fit_model.data_z, table_adam_init(fit_model.data_z),
+                                          FIT_EPOCHS, 0.0, fit_model.best_causal_pre)
+    t_bundle = time.perf_counter() - t
+    path = save_checkpoint(os.path.join(resume_root, "n20000"), FIT_EPOCHS, bundle)
+    t_write = time.perf_counter() - t - t_bundle
+    ckpt_mb = os.path.getsize(path) / 2**20
+    print(f"[22 checkpoint] n={N}: {ckpt_mb:.3f} MiB; {1e3 * (t_bundle + t_write):.3f} ms "
+          f"({1e3 * t_bundle:.3f} ms to gather the state on the host, {1e3 * t_write:.3f} ms "
+          f"to write)", flush=True)
+    shutil.rmtree(resume_root)
+
+    # 23. the sampler API on phase 8's fitted BNN model: MH draws of Z (K1
+    # unpaired, both sides of each step), then the 20-point effect draws
+    for k in fit_model.kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    z_draws = fit_model.metropolis_hastings_sampler(data_np, burn_in=BURN_IN, n_keep=API_KEEP)
+    t_mh = time.perf_counter() - t
+    api_launches = {name: k.launches for name, k in fit_model.kernels.items()}
+    t = time.perf_counter()
+    eff = fit_model.infer_from_latent_posterior(z_draws, x_values=np.linspace(0, 3, 20))
+    t_inf = time.perf_counter() - t
+    api_launches_infer = sum(k.launches for k in fit_model.kernels.values()) - sum(
+        api_launches.values())
+    want_k1 = 1 + 2 * (BURN_IN + API_KEEP)
+    print(f"[23 sampler] metropolis_hastings_sampler {t_mh:.3f} s ({BURN_IN} + {API_KEEP} "
+          f"steps), draws {z_draws.shape}; infer_from_latent_posterior {t_inf:.3f} s, effect "
+          f"draws {eff.shape}; launches {api_launches}", flush=True)
+    checks = {
+        f"draws shape ({API_KEEP}, {N}, {sum(Z_DIMS)}) and finite":
+            z_draws.shape == (API_KEEP, N, sum(Z_DIMS)) and bool(np.all(np.isfinite(z_draws))),
+        f"effect draws shape (20, {API_KEEP}) and finite":
+            eff.shape == (20, API_KEEP) and bool(np.all(np.isfinite(eff))),
+        f"K1 unpaired launches == {want_k1}, no other kernel":
+            api_launches["bnn_hosteps"] == want_k1 and sum(api_launches.values()) == want_k1,
+        "no kernel launch in infer_from_latent_posterior": api_launches_infer == 0,
+    }
+    for name, ok in checks.items():
+        print(f"[23 sampler] {name}: {'ok' if ok else 'FAIL'}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError("[23 sampler] checks failed")
+
+    # 24. DR on phase 13's plain model (two batches of PLAIN_BS), beside the
+    # plugin collector on the same chains; then the ESS gate on phase 8's
+    # BNN model
+    grid = np.linspace(0, 3, 20)
+    dr_walls = {}
+    for est in ("dr", "plugin"):
+        for k in plain_model.kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        adrf_e, ci_e = plain_model.predict(data_np, x_values=grid, alpha=0.01, burn_in=BURN_IN,
+                                           n_mcmc=N_MCMC, q_sd=1.0, estimator=est)
+        torch.cuda.synchronize()
+        dr_walls[est] = time.perf_counter() - t
+        if est == "dr":
+            adrf_dr, ci_dr = adrf_e, ci_e
+            dr_launches = {name: k.launches for name, k in plain_model.kernels.items()}
+    extra_ms = 1e3 * (dr_walls["dr"] - dr_walls["plugin"]) / (n_batches * N_MCMC)
+    print(f"[24 DR] n={N}, {n_batches} batches: wall {dr_walls['dr']:.3f} s (plugin "
+          f"{dr_walls['plugin']:.3f} s) for {BURN_IN} + {N_MCMC} steps per batch, "
+          f"{1e3 * dr_walls['dr'] / (n_batches * (BURN_IN + N_MCMC)):.3f} ms/step (plugin "
+          f"{1e3 * dr_walls['plugin'] / (n_batches * (BURN_IN + N_MCMC)):.3f}); DR adds "
+          f"{extra_ms:.3f} ms per kept step of a batch; launches {dr_launches}", flush=True)
+    print(f"[24 DR] ADRF {np.array2string(adrf_dr, precision=4)}", flush=True)
+    checks = {
+        "DR adrf finite, intervals ordered": (bool(np.all(np.isfinite(adrf_dr)))
+                                              and bool(np.all(ci_dr[:, 0] <= ci_dr[:, 1]))),
+        f"K4 launches == {n_batches * (1 + BURN_IN + N_MCMC)}":
+            dr_launches["plain"] == n_batches * (1 + BURN_IN + N_MCMC)
+            and dr_launches["plain_grad"] == 0,
+    }
+    for k in fit_model.kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _, ci_s, diag_s, draws_s = fit_model.predict(
+        data_np, x_values=grid, alpha=0.01, burn_in=BURN_IN, n_mcmc=ESS_N_MCMC, q_sd=1.0,
+        ess_target=ESS_TARGET, return_diagnostics=True, return_draws=True)
+    torch.cuda.synchronize()
+    ess_wall = time.perf_counter() - t
+    kept = draws_s.shape[1]
+    ess_launches = {name: k.launches for name, k in fit_model.kernels.items()}
+    min_ess, max_rhat = float(np.min(diag_s["ess"])), float(np.max(diag_s["rhat"]))
+    print(f"[24 ESS] ess_target={ESS_TARGET}, n_mcmc={ESS_N_MCMC}: kept {kept} steps in "
+          f"{ess_wall:.3f} s; gate series min ESS {min_ess:.1f}, max split-Rhat {max_rhat:.4f}; "
+          f"launches {ess_launches}", flush=True)
+    checks.update({
+        f"kept a multiple of 500 in [1000, {ESS_N_MCMC}]":
+            kept % 500 == 0 and 1000 <= kept <= ESS_N_MCMC,
+        "the gate held where the chain stopped": kept == ESS_N_MCMC or (
+            min_ess >= ESS_TARGET and max_rhat <= 1.01),
+        f"K1 paired launches == {BURN_IN + kept}":
+            ess_launches["bnn_hosteps_paired"] == BURN_IN + kept
+            and ess_launches["bnn_hosteps"] == 1,
+    })
+    for name, ok in checks.items():
+        print(f"[24 DR/ESS] {name}: {'ok' if ok else 'FAIL'}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError("[24 DR/ESS] checks failed")
+
+    # 25. the driver on configs/Sim_Sun.yaml (read by config_io; its
+    # identifiable engine is not ported, so the config runs the causalbgm
+    # engine), depth cut by -e 1 -b 200 and a predict: block; then the CLI
+    # in a new process on a 2000-row .npz triplet
+    from bayesgm_torch import main as driver
+
+    drive_root = tempfile.mkdtemp(prefix="chip_smoke_driver_")
+    text = open("configs/Sim_Sun.yaml").read()
+    try:
+        driver.run_causal(config_io.loads(text), 0, 0, device="cuda")
+        raise AssertionError("[25 driver] the identifiable engine ran")
+    except NotImplementedError as e:
+        print(f"[25 driver] Sim_Sun.yaml as shipped: NotImplementedError({e})", flush=True)
+    text = (text.replace("model: identifiable\n", "")
+            .replace("output_dir: '.'", f"output_dir: '{drive_root}'")
+            .replace("  burn_in: 1000\n", f"  burn_in: {BURN_IN}\n  n_mcmc: {DRIVER_N_MCMC}\n"))
+    cfg_path = os.path.join(drive_root, "Sim_Sun.yaml")
+    with open(cfg_path, "w") as f:
+        f.write(text)
+    print(f"[25 driver] config {config_io.load(cfg_path)}", flush=True)
+    built = []
+    init = CausalBGM.__init__
+
+    def recording_init(self, *a, **kw):
+        init(self, *a, **kw)
+        built.append(self)
+
+    CausalBGM.__init__ = recording_init
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            adrf_d, ci_d = driver.main(["-c", cfg_path, "-e", "1", "-b", "200",
+                                        "--device", "cuda"])
+    finally:
+        CausalBGM.__init__ = init
+    torch.cuda.synchronize()
+    drive_wall = time.perf_counter() - t
+    printed = out.getvalue().splitlines()
+    rmse_lines = [line for line in printed if line.startswith("ADRF RMSE:")]
+    dm = built[0]
+    drive_launches = {name: k.launches for name, k in dm.kernels.items()}
+    ckpts = sorted(os.listdir(dm.checkpoint_path))
+    print(f"[25 driver] wall {drive_wall:.3f} s; {rmse_lines}; {[l for l in printed if 'Acceptance' in l]}; "
+          f"checkpoints {ckpts}; launches {drive_launches}", flush=True)
+    checks = {
+        "one model built": len(built) == 1,
+        "ADRF finite, intervals ordered": (adrf_d.shape == (20,)
+                                           and bool(np.all(np.isfinite(adrf_d)))
+                                           and bool(np.all(ci_d[:, 0] <= ci_d[:, 1]))),
+        "RMSE line printed": len(rmse_lines) == 1,
+        "checkpoint of epoch 0 written": ckpts == ["ckpt-0.npz"],
+        f"K2 launches == {2 * (N // FIT_BATCH)}": drive_launches["bnn_hosteps_grad"]
+                                                  == 2 * (N // FIT_BATCH),
+        "K1 paired launched": drive_launches["bnn_hosteps_paired"] >= BURN_IN + 1000,
+    }
+    triplet = os.path.join(drive_root, "triplet.npz")
+    tx, ty, tv = Sim_Hirano_Imbens_sampler(N=CLI_N, v_dim=V_DIM, seed=2).load_all()
+    np.savez(triplet, x=tx, y=ty, v=tv)
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "bayesgm_torch", "causalbgm", "-o", drive_root, "-i", triplet,
+         "-d", "cli", "--device", "cuda", "--no-binary_treatment", "--x_values", "0.5", "1.0",
+         "1.5", "-Z", "1", "1", "1", "7", "-N", "20", "--batches_per_eval", "20", "-E", "1",
+         "--epochs_per_eval", "1", "-M", "20", "--burn_in", "20"],
+        capture_output=True, text=True, timeout=600)
+    cli_wall = time.perf_counter() - t
+    res_dirs = glob.glob(os.path.join(drive_root, "results", "cli", "*"))
+    est = ivl = None
+    if proc.returncode == 0 and len(res_dirs) == 1:
+        est = np.loadtxt(os.path.join(res_dirs[0], "causal_effect_point_estimate.txt"))
+        ivl = np.loadtxt(os.path.join(res_dirs[0], "causal_effect_posterior_interval.txt"))
+    print(f"[25 CLI] python -m bayesgm_torch causalbgm on {CLI_N} rows: rc {proc.returncode} in "
+          f"{cli_wall:.3f} s; estimate {est}; stderr tail {proc.stderr[-300:]!r}", flush=True)
+    checks["CLI wrote both files: (3,) and (3, 2), finite and ordered"] = (
+        est is not None and est.shape == (3,) and ivl.shape == (3, 2)
+        and bool(np.all(np.isfinite(est))) and bool(np.all(ivl[:, 0] <= ivl[:, 1])))
+    for name, ok in checks.items():
+        print(f"[25 driver/CLI] {name}: {'ok' if ok else 'FAIL'}", flush=True)
+    shutil.rmtree(drive_root)
+    if not all(checks.values()):
+        raise AssertionError("[25 driver/CLI] checks failed")
 
     # Bounds at the main path's shapes: K1 paired at 2N, K2 and K3 at the fit
     # batch, K4 at a predict batch.

@@ -164,9 +164,13 @@ def flipout_draw(i, dims, batch):
 
 class FlipoutDraws:
     """Patch both packages' ``_fused_flipout_draws`` with one numpy stream;
-    ``jax_calls`` / ``port_calls`` count the draws each side took."""
+    ``jax_calls`` / ``port_calls`` count the draws each side took.
 
-    def __init__(self, monkeypatch):
+    With ``broadcast_lead=True`` a port input with leading axes ``(..., n,
+    in)`` takes one draw shared by every leading index, as a JAX apply under
+    ``vmap`` takes the patched draw once for all mapped points."""
+
+    def __init__(self, monkeypatch, broadcast_lead=False):
         self.jax_calls = 0
         self.port_calls = 0
 
@@ -177,10 +181,10 @@ class FlipoutDraws:
             return tuple([jnp.asarray(a) for a in part] for part in out)
 
         def port_draws(layers, x_shape, generator):
-            if len(x_shape) != 2:
+            if len(x_shape) != 2 and not broadcast_lead:
                 raise ValueError("the shared stream covers 2-D inputs only")
             dims = [tuple(loc.shape) for loc, _, _ in layers]
-            out = flipout_draw(self.port_calls, dims, int(x_shape[0]))
+            out = flipout_draw(self.port_calls, dims, int(x_shape[-2]))
             self.port_calls += 1
             dev = layers[0][0].device
             return tuple([torch.as_tensor(a, device=dev) for a in part] for part in out)

@@ -167,18 +167,11 @@ def test_cuda_device_raises_without_cuda(tmp_path):
         tcb.CausalBGM(_params(tmp_path))  # cuda is the default
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(estimator="dr"),
-                                dict(ess_target=100.0)])
+@pytest.mark.parametrize("kw", [dict(mesh=object())])
 def test_unported_predict_options_raise(tmp_path, kw):
     model = tcb.CausalBGM(_params(tmp_path), random_seed=0, device="cpu")
     with pytest.raises(NotImplementedError):
         model.predict(_data(n=8), x_values=[1.0], burn_in=1, n_mcmc=1, **kw)
-
-
-@pytest.mark.parametrize("kw", [dict(save_model=True)])
-def test_unported_model_options_raise(tmp_path, kw):
-    with pytest.raises(NotImplementedError):
-        tcb.CausalBGM(_params(tmp_path, **kw), device="cpu")
 
 
 def test_unknown_sampler_raises(tmp_path):
@@ -282,12 +275,34 @@ def test_port_cpu_predict_never_imports_jax(tmp_path):
             adrf, ci = p.predict((x, y, v), x_values=[0.5, 1.0], burn_in=5, n_mcmc=5,
                                  sampler=sampler)
             assert adrf.shape == (2,)
+        # the rest of the surface: checkpoints and the metrics log, DR and
+        # ESS-gated predict, the sampler API, and the entry points' modules
+        from bayesgm_torch import Sim_Colangelo_sampler, Sim_Sun_sampler, get_ADRF
+        from bayesgm_torch import main as driver, parse_file_triplet
+        from bayesgm_torch.cli import cli
+        from bayesgm_torch.utils import config_io, profiling
+        s = CausalBGM(dict(v_dim=6, z_dims=[1, 1, 1, 2], binary_treatment=False,
+                           dataset="t", output_dir={str(tmp_path)!r}, save_res=False,
+                           save_model=True, metrics_path={str(tmp_path / "m.jsonl")!r},
+                           use_bnn=False, g_units=[8], e_units=[8], h_units=[8],
+                           f_units=[8], dz_units=[8]), random_seed=0, device="cpu")
+        s.fit((x, y, v), epochs=1, epochs_per_eval=1, batch_size=16, use_egm_init=False,
+              verbose=0)
+        for kw in (dict(estimator="dr"), dict(ess_target=5.0)):
+            adrf, ci = s.predict((x, y, v), x_values=[0.5, 1.0], burn_in=5, n_mcmc=5, **kw)
+        z = s.metropolis_hastings_sampler((x, y, v), burn_in=5, n_keep=3)
+        assert s.infer_from_latent_posterior(z, x_values=[1.0]).shape == (1, 3)
+        config_io.load("configs/Sim_Sun.yaml")
+        Sim_Sun_sampler(N=8, v_dim=6).load_all(), Sim_Colangelo_sampler(N=8, v_dim=6)
+        bad = [m for m in ("yaml", "pandas", "sklearn", "bayesgm_tpu") if m in sys.modules]
+        print("OTHERS_IMPORTED", bad)
         print("JAX_IMPORTED", "jax" in sys.modules)
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "JAX_IMPORTED False" in out.stdout
+    assert "OTHERS_IMPORTED []" in out.stdout
 
 
 def test_effect_draws_are_chain_diagnosable(tmp_path):

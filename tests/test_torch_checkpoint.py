@@ -94,14 +94,6 @@ def test_restored_log_posterior_matches_jax(jax_checkpoint, monkeypatch):
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **VAL_TOL)
 
 
-def test_fit_still_refuses_to_resume(jax_checkpoint):
-    ck = jax_checkpoint
-    tm = tcb.CausalBGM(_params(ck["tmp"], ck["use_bnn"]), timestamp=TIMESTAMP,
-                       random_seed=99, device="cpu")
-    with pytest.raises(NotImplementedError, match="resuming"):
-        tm.fit(_data(8), epochs=1, egm_n_iter=1)
-
-
 def test_load_npz_reads_a_full_state_checkpoint(jax_checkpoint):
     """Every group of the JAX bundle parses, the Adam NamedTuples' fields
     (.m, .v, .t) included, and the nets come out as port nets."""

@@ -9,7 +9,6 @@ stubbed TPU PRNG and ``sign_words=``, and the EGM batches and interpolation
 weights through monkeypatches of ``jax.random`` and of the port's helpers."""
 
 import copy
-import os
 
 import numpy as np
 import pytest
@@ -356,21 +355,11 @@ def test_load_weights_restores_all_five_nets(tmp_path):
     assert tm.opts["g"].m[0].shape == tm.nets["g"].gamma.shape
 
 
-@pytest.mark.parametrize("what", ["mesh", "metrics_path", "checkpoint"])
+@pytest.mark.parametrize("what", ["mesh"])
 def test_unported_fit_options_raise(tmp_path, what):
-    params = _params(tmp_path, metrics_path=str(tmp_path / "m.jsonl")
-                     if what == "metrics_path" else None)
-    if what == "metrics_path":
-        with pytest.raises(NotImplementedError):
-            tcb.CausalBGM(params, device="cpu")
-        return
-    model = tcb.CausalBGM(params, random_seed=0, device="cpu")
-    if what == "checkpoint":
-        os.makedirs(model.checkpoint_path)
-        open(os.path.join(model.checkpoint_path, "ckpt-1.npz"), "wb").close()
+    model = tcb.CausalBGM(_params(tmp_path), random_seed=0, device="cpu")
     with pytest.raises(NotImplementedError):
-        model.fit(_data(8), epochs=1, egm_n_iter=1,
-                  **(dict(mesh=object()) if what == "mesh" else {}))
+        model.fit(_data(8), epochs=1, egm_n_iter=1, mesh=object())
 
 
 # -- the slice as a whole -----------------------------------------------------

@@ -120,13 +120,6 @@ def test_diagnostics_equal_jax():
         np.testing.assert_array_equal(got[k], want[k])
 
 
-@pytest.mark.parametrize("kw", [dict(early_stop=dict(min_ess=100))])
-def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError):
-        tmcmc.adaptive_mh(_gauss_lp, torch.zeros((4, 2)), torch.Generator(), burn_in=1,
-                          n_keep=1, **kw)
-
-
 def test_burn_in_only_returns_no_samples_and_collect_is_used():
     gen = torch.Generator().manual_seed(0)
     res = tmcmc.adaptive_mh(_gauss_lp, torch.zeros((8, 2)), gen, burn_in=20, n_keep=0)
