@@ -12,6 +12,9 @@ __version__ = "0.1.0"
 
 _SYMBOL_TO_MODULE = {
     "CausalBGM": "bayesgm_torch.models.causalbgm",
+    "IdentifiableCausalBGM": "bayesgm_torch.models.identifiable",
+    "FullMCMCCausalBGM": "bayesgm_torch.models.fullmcmc",
+    "EnsembleCausalBGM": "bayesgm_torch.models.ensemble",
     "Sim_Hirano_Imbens_sampler": "bayesgm_torch.datasets.causal_samplers",
     "Sim_Sun_sampler": "bayesgm_torch.datasets.causal_samplers",
     "Sim_Colangelo_sampler": "bayesgm_torch.datasets.causal_samplers",

@@ -12,7 +12,10 @@
   the standard library alone;
 - :func:`nets_to_numpy` and :func:`save_npz` go the other way: they write
   the port's nets under the same keys, so JAX ``CausalBGM.load_weights``
-  reads a model the port trained.
+  reads a model the port trained;
+- :func:`net_from_numpy` / :func:`net_to_numpy` carry one net (such as the
+  identifiable model's prior net) both ways, and :func:`flat_weight_samples`
+  takes JAX ``FullMCMCCausalBGM``'s flat weight samples.
 """
 
 from __future__ import annotations
@@ -90,18 +93,37 @@ def mlp_from_numpy(tree) -> MLP:
     return net
 
 
+def net_from_numpy(tree):
+    """One ``FlipoutMLP``, ``Critic`` or ``MLP`` from its JAX pytree, or None
+    for a tree of another kind."""
+    if _is_flipout_net(tree):
+        return flipout_mlp_from_numpy(tree)
+    if _is_critic(tree):
+        return critic_from_numpy(tree)
+    if _is_mlp(tree):
+        return mlp_from_numpy(tree)
+    return None
+
+
 def nets_from_numpy(tree) -> dict:
     """``{name: FlipoutMLP, Critic or MLP}`` for every flipout-, critic- or
     plain-MLP-shaped entry of ``tree`` (nets of other kinds are left out)."""
-    nets = {}
-    for name, sub in tree.items():
-        if _is_flipout_net(sub):
-            nets[name] = flipout_mlp_from_numpy(sub)
-        elif _is_critic(sub):
-            nets[name] = critic_from_numpy(sub)
-        elif _is_mlp(sub):
-            nets[name] = mlp_from_numpy(sub)
-    return nets
+    nets = {name: net_from_numpy(sub) for name, sub in tree.items()}
+    return {name: net for name, net in nets.items() if net is not None}
+
+
+def flat_weight_samples(samples, net: MLP) -> np.ndarray:
+    """A stack of flat weight samples ``(N, D)`` of the plain MLP ``net``, as
+    JAX ``FullMCMCCausalBGM`` stores them (``ravel_pytree`` order), for the
+    port: the port's flat order is JAX's (``ops.nn.flatten_params``), so the
+    carry-across is the identity on the values; it checks the width and
+    returns float32."""
+    samples = np.asarray(samples, np.float32)
+    width = sum(p.numel() for p in net.parameters())
+    if samples.ndim != 2 or samples.shape[1] != width:
+        raise ValueError(f"flat weight samples of shape {samples.shape} for a net of "
+                         f"{width} weights (expected (N, {width}))")
+    return samples
 
 
 def net_to_numpy(net) -> dict:

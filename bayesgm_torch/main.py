@@ -28,11 +28,6 @@ _NOT_PORTED_DATASETS = {
     "Sim_low_rank": "BGM is not ported yet (ROADMAP Queue 1 item 9)",
     "MNIST": "MNISTBGM is not ported yet (ROADMAP Queue 1 item 10)",
 }
-_NOT_PORTED_ENGINES = {
-    "identifiable": "IdentifiableCausalBGM is not ported yet (ROADMAP Queue 1 item 6)",
-    "ensemble": "EnsembleCausalBGM is not ported yet (ROADMAP Queue 1 item 7)",
-    "fullmcmc": "FullMCMCCausalBGM is not ported yet (ROADMAP Queue 1 item 8)",
-}
 
 
 def _load_causal_dataset(name):
@@ -109,18 +104,22 @@ def run_causal(params, epochs, egm_iters, device="cuda"):
     """Fit and predict the config's engine on its dataset; prints the ATE
     (binary) or the ADRF's RMSE and MAPE against the truth (continuous) and
     returns ``(causal_pre, pos_intervals)``.  The optional ``model:`` key
-    picks the engine; the port has ``causalbgm`` (the default)."""
+    picks the engine: ``causalbgm`` (the default), ``identifiable``,
+    ``fullmcmc`` (its weight-space HMC runs between fit and predict) or
+    ``ensemble``."""
     from bayesgm_torch.models.causalbgm import CausalBGM
+    from bayesgm_torch.models.ensemble import EnsembleCausalBGM
+    from bayesgm_torch.models.fullmcmc import FullMCMCCausalBGM
+    from bayesgm_torch.models.identifiable import IdentifiableCausalBGM
 
     x, y, v, truth_fn = _load_causal_dataset(params["dataset"])
+    engines = {"causalbgm": CausalBGM, "identifiable": IdentifiableCausalBGM,
+               "fullmcmc": FullMCMCCausalBGM, "ensemble": EnsembleCausalBGM}
     predict_overrides = _predict_overrides(params)
     engine = params.pop("model", "causalbgm")
-    if engine in _NOT_PORTED_ENGINES:
-        raise NotImplementedError(_NOT_PORTED_ENGINES[engine])
-    if engine != "causalbgm":
-        raise ValueError(f"Unknown model '{engine}'; valid options: "
-                         f"{sorted(['causalbgm', *_NOT_PORTED_ENGINES])}")
-    cls = CausalBGM
+    if engine not in engines:
+        raise ValueError(f"Unknown model '{engine}'; valid options: {sorted(engines)}")
+    cls = engines[engine]
     _check_overrides_against_engine(cls, engine, predict_overrides)
     fit_overrides = _fit_overrides(params, cls, engine)
     model = cls(params=params, random_seed=None, device=device)
@@ -128,6 +127,9 @@ def run_causal(params, epochs, egm_iters, device="cuda"):
                       egm_n_iter=egm_iters, egm_batches_per_eval=500, verbose=1)
     fit_kwargs.update(fit_overrides)
     model.fit(data=(x, y, v), **fit_kwargs)
+    if engine == "fullmcmc":
+        # predict needs the posterior weight samples
+        model.run_mcmc_training((x, y, v))
 
     kwargs = dict(alpha=0.01, n_mcmc=3000, burn_in=5000, q_sd=1.0)
     kwargs.update(predict_overrides)

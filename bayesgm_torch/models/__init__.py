@@ -1,0 +1,22 @@
+"""The model engines.  Symbols resolve lazily, so importing one engine does
+not import the others."""
+
+_SYMBOL_TO_MODULE = {
+    "CausalBGM": "bayesgm_torch.models.causalbgm",
+    "IdentifiableCausalBGM": "bayesgm_torch.models.identifiable",
+    "FullMCMCCausalBGM": "bayesgm_torch.models.fullmcmc",
+    "EnsembleCausalBGM": "bayesgm_torch.models.ensemble",
+}
+
+__all__ = sorted(_SYMBOL_TO_MODULE)
+
+
+def __getattr__(name):
+    module_path = _SYMBOL_TO_MODULE.get(name)
+    if module_path is None:
+        raise AttributeError(f"module 'bayesgm_torch.models' has no attribute {name!r}")
+    import importlib
+
+    value = getattr(importlib.import_module(module_path), name)
+    globals()[name] = value
+    return value

@@ -240,6 +240,24 @@ def _params(nets, names):
     return [p for k in names for p in nets[k].parameters()]
 
 
+def _update_nets(cfg: CBGMConfig, nets, opts, bz, bx, by, bv, generator, lr: float):
+    """The first half of a training step, in place: g, h and f each take
+    their own flipout draw (in that order) and an Adam step at ``lr`` on
+    their batch loss.  Returns ``(opts, losses)``."""
+    opts = dict(opts)
+    losses = {}
+    for name, loss_fn, args, keys in (
+            ("g", _loss_v, (bz, bv), ("loss_v", "mse_v")),
+            ("h", _loss_x, (bz, bx), ("loss_x", "mse_x")),
+            ("f", _loss_y, (bz, bx, by), ("loss_y", "mse_y"))):
+        loss, aux = loss_fn(cfg, nets[name], *args, generator)
+        params = list(nets[name].parameters())
+        grads = torch.autograd.grad(loss, params)
+        opts[name] = optim.adam_update(grads, opts[name], params, lr)
+        losses[keys[0]], losses[keys[1]] = loss.detach(), aux.detach()
+    return opts, losses
+
+
 def _train_batch_step(cfg: CBGMConfig, nets, opts, z_table, z_opt, idx, generator, data,
                       latent_vg=None, lr_scale=1.0):
     """One iterative-updating step, in place: g, h and f each take their own
@@ -255,19 +273,8 @@ def _train_batch_step(cfg: CBGMConfig, nets, opts, z_table, z_opt, idx, generato
     x, y, v = data
     bx, by, bv = x[idx], y[idx], v[idx]
     bz = z_table[idx]
-    lr = cfg.lr_theta * lr_scale
-    opts = dict(opts)
-    losses = {}
-    for name, loss_fn, args, keys in (
-            ("g", _loss_v, (bz, bv), ("loss_v", "mse_v")),
-            ("h", _loss_x, (bz, bx), ("loss_x", "mse_x")),
-            ("f", _loss_y, (bz, bx, by), ("loss_y", "mse_y"))):
-        loss, aux = loss_fn(cfg, nets[name], *args, generator)
-        params = list(nets[name].parameters())
-        grads = torch.autograd.grad(loss, params)
-        opts[name] = optim.adam_update(grads, opts[name], params, lr)
-        losses[keys[0]], losses[keys[1]] = loss.detach(), aux.detach()
-
+    opts, losses = _update_nets(cfg, nets, opts, bz, bx, by, bv, generator,
+                                cfg.lr_theta * lr_scale)
     if latent_vg is not None:
         neg_rows, grad_rows = latent_vg(bz, bx, by, bv, nets, generator)
         loss_post = torch.mean(neg_rows)
@@ -401,10 +408,11 @@ def _linspace(start, stop, num: int):
 
 
 @torch.no_grad()
-def _evaluate(cfg: CBGMConfig, nets, data, z, generator, nb_intervals: int = 200):
+def _evaluate(cfg: CBGMConfig, nets, data, z, generator, nb_intervals: int = 200,
+              with_preds: bool = False):
     """Full-data reconstruction MSEs and the in-sample ITE (binary) or ADRF
     grid (continuous).  Returns ``(causal_pre, mse_x, mse_y, mse_v)`` as
-    device tensors.
+    device tensors; ``with_preds`` appends ``(x_pred, y_pred, v_pred)``.
 
     Draw order: e (when ``z`` is None), g, f, h, then the effect.  The ADRF
     grid (``nb_intervals`` points between the 5th and 95th 'nearest'
@@ -428,20 +436,24 @@ def _evaluate(cfg: CBGMConfig, nets, data, z, generator, nb_intervals: int = 200
         ones = torch.ones((x.shape[0], 1), device=x.device)
         y_pos = _apply(cfg, f_net, torch.cat([z0, z1, ones], dim=-1), generator)[:, :1]
         y_neg = _apply(cfg, f_net, torch.cat([z0, z1, 0.0 * ones], dim=-1), generator)[:, :1]
-        return y_pos - y_neg, mse_x, mse_y, mse_v
-
-    x_grid = _linspace(_percentile_nearest(x, 5.0), _percentile_nearest(x, 95.0), nb_intervals)
-    zz = torch.cat([z0, z1], dim=-1)
-    n, d = zz.shape
-    draws = _fused_flipout_draws(f_net.layers(), (n, d + 1), generator) if cfg.use_bnn else None
-    chunk = max(1, min(nb_intervals, (1 << 22) // max(n, 1)))
-    means = []
-    for start in range(0, nb_intervals, chunk):
-        xv = x_grid[start:start + chunk]
-        inp = torch.cat([zz.expand(xv.shape[0], n, d),
-                         xv[:, None, None].expand(xv.shape[0], n, 1)], dim=-1)
-        means.append(torch.mean(_apply(cfg, f_net, inp, generator, draws)[..., 0], dim=1))
-    return torch.cat(means), mse_x, mse_y, mse_v
+        causal_pre = y_pos - y_neg
+    else:
+        x_grid = _linspace(_percentile_nearest(x, 5.0), _percentile_nearest(x, 95.0),
+                           nb_intervals)
+        zz = torch.cat([z0, z1], dim=-1)
+        n, d = zz.shape
+        draws = (_fused_flipout_draws(f_net.layers(), (n, d + 1), generator) if cfg.use_bnn
+                 else None)
+        chunk = max(1, min(nb_intervals, (1 << 22) // max(n, 1)))
+        means = []
+        for start in range(0, nb_intervals, chunk):
+            xv = x_grid[start:start + chunk]
+            inp = torch.cat([zz.expand(xv.shape[0], n, d),
+                             xv[:, None, None].expand(xv.shape[0], n, 1)], dim=-1)
+            means.append(torch.mean(_apply(cfg, f_net, inp, generator, draws)[..., 0], dim=1))
+        causal_pre = torch.cat(means)
+    out = (causal_pre, mse_x, mse_y, mse_v)
+    return out + (x_pred, y_pred, v_pred) if with_preds else out
 
 
 # ---------------------------------------------------------------------------
@@ -711,8 +723,7 @@ class CausalBGM:
         # table, generators) has data-dependent shapes and is fit's to resume.
         self._resume_ckpt = ckpt.latest_checkpoint(self.checkpoint_path)
         if self._resume_ckpt is not None:
-            self._copy_nets(bridge.nets_from_numpy(ckpt.read_nets(self._resume_ckpt)),
-                            self._resume_ckpt)
+            self._restore_nets(self._resume_ckpt)
             print("Latest checkpoint restored!!")
 
     # -- construction -----------------------------------------------------
@@ -746,6 +757,11 @@ class CausalBGM:
         else:
             self.kernels = {"plain": make_fused_causal_logp(cfg, *dims),
                             "plain_grad": make_fused_causal_logp_and_grad(cfg, *dims)}
+
+    def _restore_nets(self, path):
+        """Copy the nets of the checkpoint at ``path`` into the model's own
+        parameters (``__init__``'s restore; a subclass adds its extra nets)."""
+        self._copy_nets(bridge.nets_from_numpy(ckpt.read_nets(path)), path)
 
     def _fork_generator(self) -> torch.Generator:
         """A new device generator seeded from the host stream (no sync)."""
@@ -1018,31 +1034,37 @@ class CausalBGM:
                           % (epoch, epochs, float(mse_x), mse_y, float(mse_v)))
                 if self._metrics is not None:
                     self._metrics.log("eval", epoch=epoch, mse_x=mse_x, mse_y=mse_y, mse_v=mse_v)
-                if epoch >= startoff and mse_y < best_loss:
-                    best_loss = mse_y
-                    self.best_causal_pre = causal_pre
-                    self.best_epoch = epoch
-                    self.best_nets = copy.deepcopy(self.nets)
-                if epoch >= epochs // 2:
-                    self._swa_count += 1
-                    if self.swa_nets is None:
-                        self.swa_nets = copy.deepcopy(self.nets)
-                    else:
-                        w = 1.0 / self._swa_count
-                        with torch.no_grad():
-                            for k in NET_NAMES:
-                                for a, b in zip(self.swa_nets[k].parameters(),
-                                                self.nets[k].parameters()):
-                                    a.add_((b - a) * w)
-                if self.params["save_model"]:
-                    path = ckpt.save_checkpoint(self.checkpoint_path, epoch,
-                                                self._full_state_bundle(
-                                                    self.data_z, z_opt, epoch, best_loss,
-                                                    self.best_causal_pre))
-                    print(f"Saving checkpoint for epoch {epoch} at {path}")
-                if self.params["save_res"]:
-                    save_data(f"{self.save_dir}/causal_pre_at_{epoch}.{save_format}",
-                              causal_pre)
+                best_loss = self._record_eval(epoch, epochs, startoff, causal_pre, mse_y,
+                                              best_loss, z_opt, save_format)
+
+    def _record_eval(self, epoch, epochs, startoff, causal_pre, mse_y, best_loss, z_opt,
+                     save_format):
+        """After an eval epoch's evaluation: keep the best-``mse_y`` snapshot
+        (from ``startoff`` on), fold the nets into the SWA mean over the tail
+        half, write the full-state checkpoint (``save_model``) and the
+        in-sample effect (``save_res``).  Returns the best loss."""
+        if epoch >= startoff and mse_y < best_loss:
+            best_loss = mse_y
+            self.best_causal_pre = causal_pre
+            self.best_epoch = epoch
+            self.best_nets = copy.deepcopy(self.nets)
+        if epoch >= epochs // 2:
+            self._swa_count += 1
+            if self.swa_nets is None:
+                self.swa_nets = copy.deepcopy(self.nets)
+            else:
+                w = 1.0 / self._swa_count
+                with torch.no_grad():
+                    for k in NET_NAMES:
+                        for a, b in zip(self.swa_nets[k].parameters(), self.nets[k].parameters()):
+                            a.add_((b - a) * w)
+        if self.params["save_model"]:
+            path = ckpt.save_checkpoint(self.checkpoint_path, epoch, self._full_state_bundle(
+                self.data_z, z_opt, epoch, best_loss, self.best_causal_pre))
+            print(f"Saving checkpoint for epoch {epoch} at {path}")
+        if self.params["save_res"]:
+            save_data(f"{self.save_dir}/causal_pre_at_{epoch}.{save_format}", causal_pre)
+        return best_loss
 
     # -- evaluation -----------------------------------------------------------
 

@@ -1,6 +1,6 @@
-"""Adaptive random-walk Metropolis–Hastings and Metropolis-adjusted
-Langevin (MALA) on the device, and chain diagnostics (port of
-``bayesgm_tpu/ops/mcmc.py``).
+"""Adaptive random-walk Metropolis–Hastings, Metropolis-adjusted Langevin
+(MALA) and Hamiltonian Monte Carlo (HMC) on the device, and chain
+diagnostics (port of ``bayesgm_tpu/ops/mcmc.py``).
 
 All ``n`` subjects are independent chains stepped in lockstep along axis 0.
 The chain is a plain Python loop whose state, acceptance window and proposal
@@ -13,10 +13,13 @@ chain.)
 The adaptation schedule is the reference's: every ``adjustment_interval``
 burn-in steps, ``q_sd`` (MALA: the step size) is multiplied by 0.9 or 1.1
 when the windowed acceptance rate leaves ``target_rate ± tolerance``.
+HMC nudges its scalar step size by ``1 ± adaptation_rate`` every step over
+the first ``adapt_fraction`` of the burn-in.
 
 Randomness comes from one explicit ``torch.Generator``, drawn in a fixed
-order each step: the proposal noise, the target evaluation(s), then the
-accept uniforms (fresh-noise MALA evaluates the current state first).
+order each step: the proposal noise (HMC: the momentum), the target
+evaluation(s), then the accept uniforms (fresh-noise MALA evaluates the
+current state first).
 """
 
 from __future__ import annotations
@@ -340,6 +343,119 @@ def adaptive_mala(log_prob_fn: Callable, init_state, generator: torch.Generator,
         samples.append(collect_fn(carry[0], generator))
     stacked = torch.stack(samples) if samples else None
     return MHResult(samples=stacked, q_sd=carry[-3], accept_rate=rate)  # carry[-3]: eps
+
+
+# ---------------------------------------------------------------------------
+# Hamiltonian Monte Carlo
+# ---------------------------------------------------------------------------
+
+
+class HMCResult(NamedTuple):
+    samples: Optional[torch.Tensor]  # collected values, leading axis n_keep
+    step_size: torch.Tensor  # final step size (0-d)
+    accept_rate: torch.Tensor  # mean acceptance over the kept steps (0-d)
+
+
+def _value_and_grad(log_prob_fn, state, generator):
+    """``(log_prob(state), d sum(log_prob) / d state)``, both detached."""
+    with torch.enable_grad():
+        s = state.detach().requires_grad_(True)
+        logp = log_prob_fn(s, generator)
+        (grad,) = torch.autograd.grad(logp.sum(), s)
+    return logp.detach(), grad
+
+
+def _leapfrog(value_and_grad_fn, state, momentum, grad, step_size, num_steps: int, generator):
+    """``num_steps`` leapfrog steps, each a half kick, a drift and a half
+    kick; ``grad`` is the gradient at ``state``.  Returns ``(state,
+    momentum, logp, grad)`` at the end point: each drift's target value and
+    gradient come from one evaluation, which the next step's first half
+    kick reuses."""
+    logp = None
+    for _ in range(num_steps):
+        momentum = momentum + 0.5 * step_size * grad
+        state = state + step_size * momentum
+        logp, grad = value_and_grad_fn(state, generator)
+        momentum = momentum + 0.5 * step_size * grad
+    return state, momentum, logp, grad
+
+
+def _hmc_step(carry, generator, value_and_grad_fn, num_leapfrog: int, target_accept: float,
+              n_adapt: int, adaptation_rate: float):
+    """One HMC step.  ``carry = (state, logp, grad, step_size, t)``: the
+    current state's target value and gradient are carried, so a step costs
+    ``num_leapfrog`` evaluations; ``t`` is a host int.  Returns ``(carry,
+    accept)``."""
+    state, logp, grad, step_size, t = carry
+    momentum = torch.randn(state.shape, generator=generator, device=state.device,
+                           dtype=state.dtype)
+    new_state, new_momentum, new_logp, new_grad = _leapfrog(
+        value_and_grad_fn, state, momentum, grad, step_size, num_leapfrog, generator)
+    ke_old = 0.5 * torch.sum(momentum**2, dim=-1)
+    ke_new = 0.5 * torch.sum(new_momentum**2, dim=-1)
+    log_accept_ratio = (new_logp - ke_new) - (logp - ke_old)
+    u = torch.rand(logp.shape, generator=generator, device=logp.device)
+    accept = torch.log(u) < log_accept_ratio
+    state = torch.where(accept[..., None], new_state, state)
+    logp = torch.where(accept, new_logp, logp)
+    grad = torch.where(accept[..., None], new_grad, grad)
+    if t < n_adapt:
+        # Scalar step-size adaptation toward the target acceptance (the
+        # SimpleStepSizeAdaptation recipe): one multiplicative nudge per step.
+        accept_prob = torch.mean(torch.exp(torch.clamp_max(log_accept_ratio, 0.0)))
+        step_size = torch.where(accept_prob > target_accept, step_size * (1.0 + adaptation_rate),
+                                step_size / (1.0 + adaptation_rate))
+    return (state, logp, grad, step_size, t + 1), accept
+
+
+def hmc(log_prob_fn: Callable, init_state, generator: torch.Generator, *, burn_in: int = 5000,
+        n_keep: int = 3000, step_size: float = 0.01, num_leapfrog: int = 10,
+        target_accept: float = 0.75, adapt_fraction: float = 0.8,
+        adaptation_rate: float = 0.01, collect: Optional[Callable] = None,
+        params=None) -> HMCResult:
+    """HMC over ``n`` independent chains (axis 0 of ``init_state``), with
+    the step size adapted toward ``target_accept`` over the first
+    ``int(burn_in * adapt_fraction)`` steps (times ``1 + adaptation_rate``
+    when the step's mean acceptance probability is above it, divided by it
+    otherwise).
+
+    ``log_prob_fn(state, g) -> (n,)`` must be differentiable in ``state``
+    and a deterministic function of it: the value and gradient at the
+    current state are carried from the step that reached it, where the JAX
+    package evaluates them again (the same numbers).  With ``params`` given,
+    ``log_prob_fn`` and ``collect`` take ``(params, state, g)`` instead.
+    ``collect(state, g)`` is the per-kept-step statistic (the raw state by
+    default); ``samples`` stacks it along a leading ``n_keep`` axis (None
+    when ``n_keep == 0``).  The step size and the acceptance sum stay on the
+    device: a step reads nothing back to the host.  Each step draws the
+    momentum, then (through the target) the evaluations, then the accept
+    uniforms, then the collected statistic."""
+    if num_leapfrog < 1:
+        raise ValueError(f"num_leapfrog must be at least 1, got {num_leapfrog}")
+    if params is None:
+        lp, col = log_prob_fn, collect
+    else:
+        lp = lambda s, g: log_prob_fn(params, s, g)
+        col = None if collect is None else (lambda s, g: collect(params, s, g))
+    collect_fn = (lambda s, g: s) if col is None else col
+    step = partial(_hmc_step, value_and_grad_fn=partial(_value_and_grad, lp),
+                   num_leapfrog=num_leapfrog, target_accept=target_accept,
+                   n_adapt=int(burn_in * adapt_fraction), adaptation_rate=adaptation_rate)
+
+    dev = init_state.device
+    logp0, grad0 = _value_and_grad(lp, init_state, generator)
+    carry = (init_state.detach(), logp0, grad0,
+             torch.tensor(step_size, dtype=torch.float32, device=dev), 0)
+    for _ in range(burn_in):
+        carry, _ = step(carry, generator)
+    samples = []
+    acc_sum = torch.zeros((), dtype=torch.float32, device=dev)
+    for _ in range(n_keep):
+        carry, accept = step(carry, generator)
+        acc_sum = acc_sum + accept.to(torch.float32).mean()
+        samples.append(collect_fn(carry[0], generator))
+    stacked = torch.stack(samples) if samples else None
+    return HMCResult(samples=stacked, step_size=carry[3], accept_rate=acc_sum / max(n_keep, 1))
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""Plain and flipout Bayesian MLPs and the WGAN critic (port of the plain
-MLP, the flipout subset and the critic of ``bayesgm_tpu/ops/nn.py``).
+"""Plain and flipout Bayesian MLPs, the WGAN critic and a plain MLP's flat
+weights (port of the plain MLP, the flipout subset, the critic and the
+flat-weight helpers of ``bayesgm_tpu/ops/nn.py``).
 
 Conventions kept from the JAX package for numerical parity:
 
@@ -25,7 +26,7 @@ apply.
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 from torch import nn
@@ -81,7 +82,8 @@ class MLP(nn.Module):
 
 
 def mlp_apply(net: MLP, x):
-    """LeakyReLU MLP with a linear last layer."""
+    """LeakyReLU MLP with a linear last layer (``net`` an :class:`MLP` or
+    its :class:`MLPWeights`)."""
     n_hidden = len(net.w) - 1
     for i in range(n_hidden):
         x = leaky_relu(dense_apply(net.w[i], net.b[i], x))
@@ -242,3 +244,49 @@ def flipout_mlp_mean_apply(net: FlipoutMLP, x):
         x = leaky_relu(x @ loc + b)
     loc, _, b = layers[-1]
     return x @ loc + b
+
+
+# ---------------------------------------------------------------------------
+# Flat weights of a plain MLP (weight-space HMC)
+# ---------------------------------------------------------------------------
+
+
+class MLPWeights(NamedTuple):
+    """A plain MLP's weights as tensors, for :func:`mlp_apply`: ``w[i]``
+    ``(..., in, out)`` and ``b[i]`` ``(out,)``, or ``(K, 1, out)`` for a stack
+    of K nets (then ``x`` is ``(K, rows, in)``)."""
+
+    w: list
+    b: list
+
+
+def flatten_params(net: MLP):
+    """``(flat, unravel)``: the MLP's weights as one float32 vector in the
+    order of JAX's ``ravel_pytree`` over ``{"layers": [{"b", "w"}, ...]}``
+    (``b0, w0, b1, w1, ...``, each ``w`` row-major ``(in, out)``), so a
+    JAX flat sample means the same net here.  ``unravel(flat)`` returns
+    :class:`MLPWeights` whose tensors are views of ``flat`` (differentiable
+    in it); a ``(K, D)`` stack gives K nets' weights."""
+    dims = net.dims
+    flat = torch.cat([t.detach().reshape(-1) for b, w in zip(net.b, net.w) for t in (b, w)])
+    width = flat.shape[0]
+
+    def unravel(flat):
+        if flat.shape[-1] != width:
+            raise ValueError(f"a flat weight vector of {flat.shape[-1]} for an MLP of {width}")
+        lead = flat.shape[:-1]
+        ws, bs, at = [], [], 0
+        for d_in, d_out in zip(dims[:-1], dims[1:]):
+            b = flat[..., at:at + d_out]
+            bs.append(b.reshape(lead + (1, d_out)) if lead else b)
+            at += d_out
+            ws.append(flat[..., at:at + d_in * d_out].reshape(lead + (d_in, d_out)))
+            at += d_in * d_out
+        return MLPWeights(w=ws, b=bs)
+
+    return flat, unravel
+
+
+def standard_normal_log_prior(flat):
+    """``sum log N(w; 0, 1)`` over the last axis."""
+    return -0.5 * torch.sum(flat**2, dim=-1) - 0.5 * flat.shape[-1] * math.log(2 * math.pi)

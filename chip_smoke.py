@@ -137,13 +137,33 @@ The rest of CausalBGM's surface, each path with its kernels' counts:
               stopped, K1 launches;
 25. driver  - bayesgm_torch.main.main (the entry of python -m
               bayesgm_torch.main) on configs/Sim_Sun.yaml, read by
-              config_io (as shipped it raises: its identifiable engine is
-              not ported; without the model key it runs the causalbgm
-              engine at n=20000), cut by -e 1 -b 200 and a predict: block
-              (burn_in 200, n_mcmc 1500, ess_target 400): checkpoint,
-              finite ADRF, the RMSE line, K2 and K1 launches; then
-              python -m bayesgm_torch causalbgm in a new process on a
-              2000-row .npz triplet, which writes its two result files.
+              config_io, without its model: line (the causalbgm engine at
+              n=20000), cut by -e 1 -b 200 and a predict: block (burn_in
+              200, n_mcmc 1500, ess_target 400): checkpoint, finite ADRF,
+              the RMSE line, K2 and K1 launches; then python -m
+              bayesgm_torch causalbgm in a new process on a 2000-row .npz
+              triplet, which writes its two result files.
+
+CausalBGM's three variants:
+
+26. ident.  - configs/Sim_Sun.yaml as shipped (model: identifiable)
+              through bayesgm_torch.main.main, cut as phase 25: finite
+              ADRF, the RMSE line, a checkpoint holding prior_net and U,
+              the ESS gate's kept count, ms per iVAE training step and per
+              MH step, and no kernel launched (the latent loss and the MH
+              target are composites, as in JAX); then an identifiable fit
+              on 2000 Sim_Sun rows killed in the evaluate of epoch 2 and
+              resumed by a new instance, bit-equal to an uninterrupted one;
+27. fullmcmc- FullMCMCCausalBGM at the plain model's widths: fit as phase
+              13 (K3 launches == 1250, no other kernel), run_mcmc_training
+              with 100 + 100 HMC steps per net (ms per HMC step and the
+              acceptance of g, h and f), predict (200 + 200 MH steps, one
+              weight draw per step, no kernel), and one 64-draw chunk of
+              infer_from_latent_posterior with its time and peak memory;
+28. ensemble- EnsembleCausalBGM with two BNN members (EGM 100, one pass
+              each, predict 200 + 200): each member's K2 and K1 launches
+              equal a lone CausalBGM's (phases 8 and 9), the pooled draws
+              have shape (20, 400) and the ADRF is their mean.
 
 Launch counts are set to 0 just before each driven path and read just
 after; the launches of the comparisons do not count.  The last lines are a
@@ -184,7 +204,10 @@ PLAIN_BS = 10000  # predict's subject batch for plain nets (bs=None)
 N_RESUME, RESUME_EPOCHS, RESUME_EGM = 2000, 3, 50  # phase 22's fits
 API_KEEP = 100  # phase 23's kept MH draws of Z
 ESS_TARGET, ESS_N_MCMC = 400, 2000  # phase 24's ESS gate (the configs' ess_target)
-DRIVER_N_MCMC, CLI_N = 1500, 2000  # phase 25's driver cap (one gate check) and CLI rows
+DRIVER_N_MCMC, CLI_N = 1500, 2000  # phases 25's and 26's driver cap (one gate check), CLI rows
+HMC_STEPS = 100  # phase 27's HMC burn-in and kept steps per net (the JAX defaults: 1000, 2000)
+INFER_CHUNK_DRAWS = 64  # one chunk of FullMCMC's infer_from_latent_posterior
+ENS_EGM, ENS_EPOCHS = 100, 0  # phase 28's member fits: EGM iterations, passes - 1
 SPIN_CYCLES = 5_000_000  # ~2.5 ms of spin ahead of a timed call: longer than any wrapper's host time
 
 
@@ -275,6 +298,21 @@ def time_ms(fn, n_warm=3, n_iter=25):
     return statistics.median(times)
 
 
+def timed_call(spans, name, fn):
+    """``fn`` with its synchronized wall time added to ``spans[name]``."""
+    import torch
+
+    def run(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            torch.cuda.synchronize()
+            spans[name] = spans.get(name, 0.0) + time.perf_counter() - t
+    return run
+
+
 def device_ms(fn, n_warm=3, n_iter=20):
     """Device time per call of ``fn``: the median of CUDA-event times around
     one call queued behind a spin kernel (``torch.cuda._sleep``), so that the
@@ -307,7 +345,7 @@ def main() -> int:
         return 1
     import numpy as np
 
-    from bayesgm_torch import CausalBGM, Sim_Hirano_Imbens_sampler
+    from bayesgm_torch import CausalBGM, Sim_Hirano_Imbens_sampler, Sim_Sun_sampler
     from bayesgm_torch.benchmarks import mxu_probe as mp
     from bayesgm_torch.models.causalbgm import MH_WINDOW, _apply, _loss_v
     from bayesgm_torch.ops._build import load_library
@@ -486,19 +524,8 @@ def main() -> int:
 
         loss_v0 = full_loss_v()
         spans = {"egm": 0.0, "evaluate": 0.0}
-
-        def timed(name, fn):
-            def run(*a, **kw):
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                out = fn(*a, **kw)
-                torch.cuda.synchronize()
-                spans[name] += time.perf_counter() - t
-                return out
-            return run
-
-        fit_model.egm_init = timed("egm", fit_model.egm_init)
-        fit_model.evaluate = timed("evaluate", fit_model.evaluate)
+        fit_model.egm_init = timed_call(spans, "egm", fit_model.egm_init)
+        fit_model.evaluate = timed_call(spans, "evaluate", fit_model.evaluate)
         for k in fit_model.kernels.values():
             k.launches = 0
         torch.cuda.synchronize()
@@ -1124,25 +1151,19 @@ def main() -> int:
     if not all(checks.values()):
         raise AssertionError("[24 DR/ESS] checks failed")
 
-    # 25. the driver on configs/Sim_Sun.yaml (read by config_io; its
-    # identifiable engine is not ported, so the config runs the causalbgm
-    # engine), depth cut by -e 1 -b 200 and a predict: block; then the CLI
+    # 25. the driver on configs/Sim_Sun.yaml (read by config_io) without its
+    # model: line, so the causalbgm engine runs (phase 26 runs the file as
+    # shipped), depth cut by -e 1 -b 200 and a predict: block; then the CLI
     # in a new process on a 2000-row .npz triplet
     from bayesgm_torch import main as driver
 
     drive_root = tempfile.mkdtemp(prefix="chip_smoke_driver_")
-    text = open("configs/Sim_Sun.yaml").read()
-    try:
-        driver.run_causal(config_io.loads(text), 0, 0, device="cuda")
-        raise AssertionError("[25 driver] the identifiable engine ran")
-    except NotImplementedError as e:
-        print(f"[25 driver] Sim_Sun.yaml as shipped: NotImplementedError({e})", flush=True)
-    text = (text.replace("model: identifiable\n", "")
-            .replace("output_dir: '.'", f"output_dir: '{drive_root}'")
-            .replace("  burn_in: 1000\n", f"  burn_in: {BURN_IN}\n  n_mcmc: {DRIVER_N_MCMC}\n"))
+    sun_text = (open("configs/Sim_Sun.yaml").read()
+                .replace("output_dir: '.'", f"output_dir: '{drive_root}'")
+                .replace("  burn_in: 1000\n", f"  burn_in: {BURN_IN}\n  n_mcmc: {DRIVER_N_MCMC}\n"))
     cfg_path = os.path.join(drive_root, "Sim_Sun.yaml")
     with open(cfg_path, "w") as f:
-        f.write(text)
+        f.write(sun_text.replace("model: identifiable\n", ""))
     print(f"[25 driver] config {config_io.load(cfg_path)}", flush=True)
     built = []
     init = CausalBGM.__init__
@@ -1207,6 +1228,296 @@ def main() -> int:
     shutil.rmtree(drive_root)
     if not all(checks.values()):
         raise AssertionError("[25 driver/CLI] checks failed")
+
+    # 26. the identifiable engine: configs/Sim_Sun.yaml as shipped (model:
+    # identifiable) through bayesgm_torch.main.main at n=20000, cut as phase
+    # 25; its latent loss and MH target are composites, so no kernel runs
+    from bayesgm_torch import EnsembleCausalBGM, FullMCMCCausalBGM, IdentifiableCausalBGM
+
+    ident_root = tempfile.mkdtemp(prefix="chip_smoke_ident_")
+    cfg_path = os.path.join(ident_root, "Sim_Sun.yaml")
+    with open(cfg_path, "w") as f:
+        f.write(sun_text.replace(drive_root, ident_root))
+    print(f"[26 identifiable] config {config_io.load(cfg_path)}", flush=True)
+    built, spans, chains = [], {}, []
+    ident_init, mh = IdentifiableCausalBGM.__init__, mcmc.adaptive_mh
+
+    def recording_ident_init(self, *a, **kw):
+        ident_init(self, *a, **kw)
+        for name in ("fit", "evaluate", "predict"):
+            setattr(self, name, timed_call(spans, name, getattr(self, name)))
+        egm = timed_call(spans, "egm_init", self.egm_init)
+
+        def egm_init(*a, **kw):  # its evaluations (save_res) count as EGM time
+            before = spans.get("evaluate", 0.0)
+            try:
+                return egm(*a, **kw)
+            finally:
+                spans["evaluate"] = before
+        self.egm_init = egm_init
+        built.append(self)
+
+    def recording_mh(*a, **kw):
+        res = timed_call(spans, "chain", mh)(*a, **kw)
+        chains.append((kw["burn_in"], res.samples.shape[0]))
+        return res
+
+    IdentifiableCausalBGM.__init__, mcmc.adaptive_mh = recording_ident_init, recording_mh
+    for entry in ik.LAUNCHES:
+        ik.LAUNCHES[entry] = 0
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            adrf_i, ci_i = driver.main(["-c", cfg_path, "-e", "1", "-b", "200", "--device", "cuda"])
+    finally:
+        IdentifiableCausalBGM.__init__, mcmc.adaptive_mh = ident_init, mh
+    printed = out.getvalue().splitlines()
+    im = built[0]
+    ident_launches = {name: k.launches for name, k in im.kernels.items()}
+    ident_launches.update({f"bnn_inkernel_{e}": n for e, n in ik.LAUNCHES.items()})
+    n_ident_steps = 2 * (N // FIT_BATCH)
+    train_s = spans["fit"] - spans["egm_init"] - spans["evaluate"]
+    (burn_i, kept_i), = chains
+    with np.load(os.path.join(im.checkpoint_path, "ckpt-0.npz")) as f:
+        ckpt_keys = set(f.files)
+        ckpt_u = f["['data_u']"] if "['data_u']" in ckpt_keys else None
+    rmse_lines = [line for line in printed if line.startswith("ADRF RMSE:")]
+    print(f"[26 identifiable] n={N}: fit {spans['fit']:.3f} s (EGM {spans['egm_init']:.3f} s, "
+          f"evaluations {spans['evaluate']:.3f} s, training {train_s:.3f} s = "
+          f"{1e3 * train_s / n_ident_steps:.3f} ms per iVAE step over {n_ident_steps}); predict "
+          f"{spans['predict']:.3f} s, chain {spans['chain']:.3f} s for {burn_i} + {kept_i} MH "
+          f"steps ({1e3 * spans['chain'] / (burn_i + kept_i):.3f} ms/step incl. the collector); "
+          f"{rmse_lines}; {[l for l in printed if 'Acceptance' in l]}; launches {ident_launches}",
+          flush=True)
+    checks = {
+        "one model built": len(built) == 1,
+        "ADRF finite, intervals ordered": (adrf_i.shape == (20,)
+                                           and bool(np.all(np.isfinite(adrf_i)))
+                                           and bool(np.all(ci_i[:, 0] <= ci_i[:, 1]))),
+        "RMSE line printed": len(rmse_lines) == 1,
+        "checkpoint of epoch 0 holds prior_net and data_u": (
+            ckpt_u is not None and any(k.startswith("['prior_net']") for k in ckpt_keys)
+            and np.array_equal(ckpt_u, im.data_u.cpu().numpy())),
+        f"U one-hot ({N}, 10)": (tuple(im.data_u.shape) == (N, 10)
+                                 and bool(torch.all(im.data_u.sum(dim=1) == 1))),
+        "no kernel launched": sum(ident_launches.values()) == 0,
+        f"kept a multiple of 500 in [1000, {DRIVER_N_MCMC}]":
+            kept_i % 500 == 0 and 1000 <= kept_i <= DRIVER_N_MCMC,
+    }
+    for name, ok in checks.items():
+        print(f"[26 identifiable] {name}: {'ok' if ok else 'FAIL'}", flush=True)
+    shutil.rmtree(ident_root)
+    if not all(checks.values()):
+        raise AssertionError("[26 identifiable] checks failed")
+
+    # 26 resume: the identifiable recipe's widths at N_RESUME Sim_Sun rows
+    # (EGM 50, epochs 0..3, lr_decay cosine), killed in the evaluate of epoch
+    # 2 and resumed by a new instance, against an uninterrupted run
+    sun_params = config_io.loads(sun_text)
+    sun_params.pop("predict")
+    i_data = Sim_Sun_sampler(batch_size=32, N=N_RESUME, v_dim=V_DIM, seed=1).load_all()
+    i_steps = N_RESUME // FIT_BATCH  # full batches only: the identifiable fit skips the rest
+    i_root = tempfile.mkdtemp(prefix="chip_smoke_ident_resume_")
+
+    def ident_resume(run, die_at=None):
+        p = dict(sun_params, output_dir=os.path.join(i_root, run), save_res=False,
+                 lr_decay="cosine")
+        m = IdentifiableCausalBGM(p, timestamp="resume", random_seed=5, device="cuda")
+        if die_at is not None:
+            calls, evaluate = [0], m.evaluate
+
+            def dying_evaluate(*a, **kw):
+                calls[0] += 1
+                if calls[0] == die_at:
+                    raise RuntimeError("simulated kill")
+                return evaluate(*a, **kw)
+
+            m.evaluate = dying_evaluate
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        try:
+            m.fit(i_data, epochs=RESUME_EPOCHS, epochs_per_eval=1, batch_size=FIT_BATCH,
+                  use_egm_init=True, egm_n_iter=RESUME_EGM, egm_batches_per_eval=RESUME_EGM,
+                  verbose=0)
+        except RuntimeError as e:
+            if die_at is None or "simulated kill" not in str(e):
+                raise
+        torch.cuda.synchronize()
+        return m, time.perf_counter() - t
+
+    ia, wall_ia = ident_resume("a")
+    ib1, wall_ib1 = ident_resume("b", die_at=3)
+    saved_ib1 = sorted(os.listdir(ib1.checkpoint_path))
+    ib2, wall_ib2 = ident_resume("b")
+    last = f"ckpt-{RESUME_EPOCHS}.npz"
+    with np.load(os.path.join(ia.checkpoint_path, last)) as fa, \
+            np.load(os.path.join(ib2.checkpoint_path, last)) as fb:
+        keys = sorted(fa.files)
+        differ = [k for k in keys if not np.array_equal(fa[k], fb[k])]
+        same_keys = keys == sorted(fb.files)
+    print(f"[26 resume] n={N_RESUME}: uninterrupted {wall_ia:.3f} s, killed {wall_ib1:.3f} s "
+          f"(checkpoints {saved_ib1}), resumed {wall_ib2:.3f} s "
+          f"({1e3 * wall_ib2 / (2 * i_steps):.3f} ms per iVAE step incl. 2 evaluations); "
+          f"{len(keys)} leaves in {last}, differing: {differ[:8]}", flush=True)
+    checks = {
+        "killed run wrote epochs 0 and 1": saved_ib1 == ["ckpt-0.npz", "ckpt-1.npz"],
+        "last checkpoints equal bit for bit": same_keys and not differ,
+        "prior_net, prior_opt and data_u in the file": {"['data_u']", "['prior_opt'].t"} <= set(keys),
+        "nets, prior net, U and data_z equal": (
+            all(torch.equal(p, q) for k in ia.nets
+                for p, q in zip(ia.nets[k].parameters(), ib2.nets[k].parameters()))
+            and all(torch.equal(p, q) for p, q in zip(ia.prior_net.parameters(),
+                                                      ib2.prior_net.parameters()))
+            and torch.equal(ia.data_u, ib2.data_u) and torch.equal(ia.data_z, ib2.data_z)),
+        "both generators' states equal": (torch.equal(ia._gen.get_state(), ib2._gen.get_state())
+                                          and torch.equal(ia._host_gen.get_state(),
+                                                          ib2._host_gen.get_state())),
+    }
+    for name, ok in checks.items():
+        print(f"[26 resume] {name}: {'ok' if ok else 'FAIL'}", flush=True)
+    shutil.rmtree(i_root)
+    if not all(checks.values()):
+        raise AssertionError("[26 resume] the resumed identifiable run differs")
+
+    # 27. FullMCMC at the Sim_Hirano_Imbens widths (plain nets): the
+    # inherited fit through K3, weight-space HMC over g, h and f (PyTorch
+    # composites), then predict with one weight draw per MH step
+    spans, hmc_runs = {}, []
+    hmc = mcmc.hmc
+
+    def recording_hmc(*a, **kw):
+        t_span = {}
+        res = timed_call(t_span, "hmc", hmc)(*a, **kw)
+        hmc_runs.append((t_span["hmc"], kw["burn_in"] + kw["n_keep"], float(res.accept_rate),
+                         float(res.step_size)))
+        return res
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        fm = FullMCMCCausalBGM(flagship_params(out_dir), random_seed=123, device="cuda")
+    for k in fm.kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fm.fit(data_np, epochs=FIT_EPOCHS, epochs_per_eval=1, batch_size=FIT_BATCH,
+           use_egm_init=True, egm_n_iter=EGM_N_ITER, egm_batches_per_eval=100, verbose=0)
+    torch.cuda.synchronize()
+    fm_fit_wall = time.perf_counter() - t
+    fm_fit_launches = {name: k.launches for name, k in fm.kernels.items()}
+    for k in fm.kernels.values():
+        k.launches = 0
+    mcmc.hmc = recording_hmc
+    try:
+        fm.run_mcmc_training(data_np, num_samples=HMC_STEPS, num_burnin=HMC_STEPS,
+                             num_leapfrog=3)
+    finally:
+        mcmc.hmc = hmc
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    adrf_f, ci_f, diag_f = fm.predict(data_np, x_values=np.linspace(0, 3, 20), alpha=0.01,
+                                      burn_in=BURN_IN, n_mcmc=N_MCMC, q_sd=1.0,
+                                      return_diagnostics=True)
+    torch.cuda.synchronize()
+    fm_pred_wall = time.perf_counter() - t
+    fm_pred_peak = torch.cuda.max_memory_allocated() / 2**30
+    fm_launches = {name: k.launches for name, k in fm.kernels.items()}
+    z_chunk = fm.metropolis_hastings_sampler(data_np, burn_in=BURN_IN, n_keep=INFER_CHUNK_DRAWS)
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    eff_f = fm.infer_from_latent_posterior(z_chunk, x_values=np.linspace(0, 3, 20))
+    torch.cuda.synchronize()
+    chunk_ms = 1e3 * (time.perf_counter() - t)
+    chunk_peak = torch.cuda.max_memory_allocated() / 2**30
+    for (wall, steps, acc, step), name in zip(hmc_runs, "ghf"):
+        d = getattr(fm, f"{name}_net_samples").shape[1]
+        print(f"[27 fullmcmc HMC] {name}_net ({d} weights, {N} rows): {wall:.3f} s for {steps} "
+              f"steps, {1e3 * wall / steps:.3f} ms per HMC step (3 leapfrog steps); acceptance "
+              f"{acc:.4f}; final step size {step:.3e}", flush=True)
+    print(f"[27 fullmcmc] fit {fm_fit_wall:.3f} s, launches {fm_fit_launches}; predict "
+          f"{fm_pred_wall:.3f} s for {BURN_IN} + {N_MCMC} MH steps and {N_MCMC} paired effect "
+          f"draws, peak {fm_pred_peak:.3f} GiB, launches {fm_launches}; one "
+          f"{INFER_CHUNK_DRAWS}-draw chunk of infer_from_latent_posterior on the 20-point grid: "
+          f"{chunk_ms:.3f} ms, peak {chunk_peak:.3f} GiB ({base_mem:.3f} GiB before)", flush=True)
+    print(f"[27 fullmcmc] ADRF {np.array2string(adrf_f, precision=4)}", flush=True)
+    n_fit_steps = (FIT_EPOCHS + 1) * -(-N // FIT_BATCH)  # the remainder batch included
+    checks = {
+        f"K3 launches == {n_fit_steps} in fit, none else": (
+            fm_fit_launches["plain_grad"] == n_fit_steps and fm_fit_launches["plain"] == 0),
+        "no kernel launched by HMC and predict": sum(fm_launches.values()) == 0,
+        f"weight samples ({HMC_STEPS}, D) finite for g, h and f": all(
+            getattr(fm, f"{k}_net_samples").shape[0] == HMC_STEPS
+            and bool(np.all(np.isfinite(getattr(fm, f"{k}_net_samples")))) for k in "ghf"),
+        "ADRF finite, intervals ordered": (adrf_f.shape == (20,)
+                                           and bool(np.all(np.isfinite(adrf_f)))
+                                           and bool(np.all(ci_f[:, 0] <= ci_f[:, 1]))),
+        f"effect draws ({INFER_CHUNK_DRAWS}, 20) finite": (eff_f.shape == (INFER_CHUNK_DRAWS, 20)
+                                                            and bool(np.all(np.isfinite(eff_f)))),
+    }
+    for name, ok in checks.items():
+        print(f"[27 fullmcmc] {name}: {'ok' if ok else 'FAIL'}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError("[27 fullmcmc] checks failed")
+    del fm, z_chunk
+
+    # 28. EnsembleCausalBGM: two BNN members at the flagship widths, each
+    # fitted (EGM ENS_EGM, ENS_EPOCHS + 1 passes) and predicted as a lone
+    # CausalBGM is (K2 once per step; K1 once, then paired once per step)
+    with tempfile.TemporaryDirectory() as out_dir:
+        ens = EnsembleCausalBGM(dict(flagship_params(out_dir), n_members=2), random_seed=123,
+                                device="cuda")
+    member_fit, member_pred = [], []
+    for m in ens.members:
+        fit_m = m.fit
+        pred_m = m.predict
+
+        def counted(fn, store, model=m):
+            def run(*a, **kw):
+                for k in model.kernels.values():
+                    k.launches = 0
+                out = fn(*a, **kw)
+                store.append({name: k.launches for name, k in model.kernels.items()})
+                return out
+            return run
+
+        m.fit, m.predict = counted(fit_m, member_fit), counted(pred_m, member_pred)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ens.fit(data_np, epochs=ENS_EPOCHS, epochs_per_eval=1, batch_size=FIT_BATCH,
+            use_egm_init=True, egm_n_iter=ENS_EGM, egm_batches_per_eval=100, verbose=0)
+    torch.cuda.synchronize()
+    ens_fit_wall = time.perf_counter() - t
+    t = time.perf_counter()
+    adrf_e, ci_e, diag_e, pooled = ens.predict(data_np, x_values=np.linspace(0, 3, 20),
+                                               alpha=0.01, burn_in=BURN_IN, n_mcmc=N_MCMC,
+                                               q_sd=1.0, return_diagnostics=True,
+                                               return_draws=True)
+    torch.cuda.synchronize()
+    ens_pred_wall = time.perf_counter() - t
+    lone_k2 = fit_launches["bnn_hosteps_grad"] // (FIT_EPOCHS + 1) * (ENS_EPOCHS + 1)
+    lone_pred = {"bnn_hosteps": 1, "bnn_hosteps_paired": BURN_IN + N_MCMC}  # phase 9's counts
+    print(f"[28 ensemble] 2 members, n={N}: fit {ens_fit_wall:.3f} s (EGM {ENS_EGM}, "
+          f"{ENS_EPOCHS + 1} passes each), predict {ens_pred_wall:.3f} s ({BURN_IN} + {N_MCMC} "
+          f"steps each); pooled draws {pooled.shape}; member launches: fit {member_fit}, "
+          f"predict {member_pred}; min ESS {float(np.min(diag_e['ess'])):.1f}, max split-Rhat "
+          f"{float(np.max(diag_e['rhat'])):.4f}", flush=True)
+    checks = {
+        f"each member's K2 launches == {lone_k2}, as a lone CausalBGM's (phase 8 per pass)": all(
+            f["bnn_hosteps_grad"] == lone_k2 and sum(f.values()) == lone_k2 for f in member_fit),
+        "each member's predict launches == phase 9's": all(
+            p == {**{k: 0 for k in p}, **lone_pred} for p in member_pred),
+        f"pooled draws (20, {2 * N_MCMC})": pooled.shape == (20, 2 * N_MCMC),
+        "ADRF = pooled mean, finite, intervals ordered": (
+            bool(np.allclose(adrf_e, pooled.mean(axis=1))) and bool(np.all(np.isfinite(adrf_e)))
+            and bool(np.all(ci_e[:, 0] <= ci_e[:, 1]))),
+        "members differ": not np.array_equal(pooled[:, :N_MCMC], pooled[:, N_MCMC:]),
+    }
+    for name, ok in checks.items():
+        print(f"[28 ensemble] {name}: {'ok' if ok else 'FAIL'}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError("[28 ensemble] checks failed")
+    del ens
 
     # Bounds at the main path's shapes: K1 paired at 2N, K2 and K3 at the fit
     # batch, K4 at a predict batch.

@@ -29,6 +29,9 @@ from bayesgm_torch.cli import cli  # noqa: E402
 from bayesgm_torch.datasets import base_sampler as tbase  # noqa: E402
 from bayesgm_torch.datasets import causal_samplers as tcs  # noqa: E402
 from bayesgm_torch.models.causalbgm import CausalBGM  # noqa: E402
+from bayesgm_torch.models.ensemble import EnsembleCausalBGM  # noqa: E402
+from bayesgm_torch.models.fullmcmc import FullMCMCCausalBGM  # noqa: E402
+from bayesgm_torch.models.identifiable import IdentifiableCausalBGM  # noqa: E402
 from bayesgm_torch.utils import config_io  # noqa: E402
 from bayesgm_torch.utils import data_io as tio  # noqa: E402
 from bayesgm_torch.utils import helpers as thelpers  # noqa: E402
@@ -253,16 +256,43 @@ def test_override_checks_follow_the_engines_signatures():
             mod._fit_overrides({"fit": {"startoff": 1}}, _NoEss, "noess")
 
 
+def test_override_checks_of_the_variant_engines():
+    """tests/test_configs.py's checks: fullmcmc's predict takes no
+    ess_target and is refused before the fit (by the driver too), the
+    ensemble forwards **kwargs and takes any override in the allowed set;
+    identifiable takes the configs' overrides.  The driver refuses
+    Sim_Sun.yaml's ess_target under model: fullmcmc before it builds the
+    model, and an unknown engine by name."""
+    for mod in (driver, jax_driver):
+        mod._check_overrides_against_engine(EnsembleCausalBGM, "ensemble",
+                                            {"ess_target": 400, "burn_in": 1000})
+        mod._check_overrides_against_engine(IdentifiableCausalBGM, "identifiable",
+                                            {"ess_target": 400, "burn_in": 1000})
+        with pytest.raises(ValueError, match="not supported by model 'fullmcmc'"):
+            mod._check_overrides_against_engine(FullMCMCCausalBGM, "fullmcmc",
+                                                {"ess_target": 400})
+        assert mod._fit_overrides({"fit": {"egm_batch_size": 128}}, EnsembleCausalBGM,
+                                  "ensemble") == {"egm_batch_size": 128}
+        assert mod._fit_overrides({"fit": {"startoff": 2}}, IdentifiableCausalBGM,
+                                  "identifiable") == {"startoff": 2}
+    params = config_io.load(os.path.join(REPO, "configs", "Sim_Sun.yaml"))
+    params["model"] = "fullmcmc"
+    built = mock.MagicMock(side_effect=AssertionError("built"))
+    with mock.patch.object(driver, "_load_causal_dataset",
+                           return_value=(*np.zeros((3, 4, 1)), None)), \
+            mock.patch.object(FullMCMCCausalBGM, "__init__", built), \
+            pytest.raises(ValueError, match="not supported by model 'fullmcmc'"):
+        driver.run_causal(dict(params), epochs=0, egm_iters=0, device="cpu")
+    built.assert_not_called()
+    with pytest.raises(ValueError, match="Unknown model 'bgm'"):
+        driver.run_causal(dict(params, model="bgm"), epochs=0, egm_iters=0, device="cpu")
+
+
 @pytest.mark.parametrize("params,match", [
-    (dict(dataset="Sim_Sun", model="identifiable"), "item 6"),
-    (dict(dataset="Sim_Sun", model="ensemble"), "item 7"),
-    (dict(dataset="Sim_Sun", model="fullmcmc"), "item 8"),
     (dict(dataset="Semi_acic"), "item 5"),
     (dict(dataset="Semi_Twins"), "item 5"),
 ])
-def test_unported_engines_and_datasets_name_their_item(monkeypatch, params, match):
-    monkeypatch.setattr(tcs, "Sim_Sun_sampler", lambda **kw: tcs.Base_sampler(
-        np.zeros(4), np.zeros(4), np.zeros((4, 2))))
+def test_unported_datasets_name_their_item(params, match):
     with pytest.raises(NotImplementedError, match=match):
         driver.run_causal(dict(params), epochs=0, egm_iters=0, device="cpu")
 
@@ -274,26 +304,67 @@ def test_main_names_the_item_of_unported_models(config, match):
         driver.main(["-c", os.path.join(REPO, "configs", config), "--device", "cpu"])
 
 
-def test_run_causal_on_sim_sun_end_to_end(monkeypatch, tmp_path, capsys):
-    """configs/Sim_Sun.yaml as config_io reads it, cut in this test alone:
-    a 200-row Sim_Sun of 12 covariates, narrow units, the causalbgm engine
-    (its identifiable engine is not ported), depth through epochs, EGM
-    iterations and the predict: block.  It writes checkpoints and prints the
-    RMSE line; the driver's own code keeps n=20000."""
+def _small_sim_sun(monkeypatch, tmp_path, **overrides):
+    """configs/Sim_Sun.yaml as config_io reads it, cut in the test alone: a
+    200-row Sim_Sun of 12 covariates, narrow units, depth through the
+    predict: block (the driver's own code keeps n=20000)."""
     params = config_io.load(os.path.join(REPO, "configs", "Sim_Sun.yaml"))
-    assert params.pop("model") == "identifiable"
     params.update(output_dir=str(tmp_path), v_dim=12, g_units=[16], e_units=[16],
-                  f_units=[8], h_units=[8], dz_units=[8])
+                  f_units=[8], h_units=[8], dz_units=[8], prior_units=[8], **overrides)
     params["predict"].update(burn_in=10, n_mcmc=20)
     small = tcs.Sim_Sun_sampler(N=200, v_dim=12, seed=0).load_all()
     truth = lambda g: thelpers.get_ADRF(x_values=g, dataset="Sun")
     monkeypatch.setattr(driver, "_load_causal_dataset", lambda name: (*small, truth))
-    adrf, ci = driver.run_causal(params, epochs=1, egm_iters=3, device="cpu")
-    out = capsys.readouterr().out
+    return params
+
+
+def _check_driver_run(adrf, ci, out, tmp_path, dataset="Sim_Sun"):
     assert adrf.shape == (20,) and np.all(np.isfinite(adrf)) and np.all(ci[:, 0] <= ci[:, 1])
     assert len([line for line in out.splitlines() if line.startswith("ADRF RMSE:")]) == 1
-    ckpts = glob.glob(os.path.join(str(tmp_path), "checkpoints", "Sim_Sun", "*", "ckpt-0.npz"))
-    assert len(ckpts) == 1
+    return glob.glob(os.path.join(str(tmp_path), "checkpoints", dataset, "*", "ckpt-0.npz"))
+
+
+def test_run_causal_on_sim_sun_end_to_end(monkeypatch, tmp_path, capsys):
+    """Sim_Sun.yaml as shipped selects the identifiable engine
+    (model: identifiable), which runs: U drawn, fit, a checkpoint holding
+    the prior net and U, the ESS-gated predict and the RMSE line."""
+    built = []
+    init = IdentifiableCausalBGM.__init__
+    monkeypatch.setattr(IdentifiableCausalBGM, "__init__",
+                        lambda self, *a, **k: built.append(self) or init(self, *a, **k))
+    params = _small_sim_sun(monkeypatch, tmp_path)
+    assert params["model"] == "identifiable"
+    adrf, ci = driver.run_causal(params, epochs=1, egm_iters=3, device="cpu")
+    out = capsys.readouterr().out
+    assert "Generating auxiliary variable U for 10 segments." in out
+    assert len(built) == 1 and built[0].data_u.shape == (200, 10)
+    (ckpt,) = _check_driver_run(adrf, ci, out, tmp_path)
+    with np.load(ckpt) as f:
+        assert "['data_u']" in f.files and any(k.startswith("['prior_net']") for k in f.files)
+
+
+@pytest.mark.parametrize("engine", ["identifiable", "ensemble", "fullmcmc"])
+def test_run_causal_runs_each_variant_engine(monkeypatch, tmp_path, capsys, engine):
+    """model: identifiable | ensemble | fullmcmc on the cut Sim_Sun, each
+    through run_causal as the causalbgm engine runs (fullmcmc without the
+    config's ess_target, which its predict lacks; its weight-space HMC runs
+    between fit and predict, cut to 10 + 10 steps here)."""
+    params = _small_sim_sun(monkeypatch, tmp_path, model=engine, n_members=2)
+    hmc_calls = []
+    if engine == "fullmcmc":
+        params["predict"].pop("ess_target")
+        run = FullMCMCCausalBGM.run_mcmc_training
+        monkeypatch.setattr(FullMCMCCausalBGM, "run_mcmc_training",
+                            lambda self, data: hmc_calls.append(len(data[0]))
+                            or run(self, data, num_samples=10, num_burnin=10))
+    adrf, ci = driver.run_causal(params, epochs=1, egm_iters=3, device="cpu")
+    out = capsys.readouterr().out
+    datasets = ["Sim_Sun_member0", "Sim_Sun_member1"] if engine == "ensemble" else ["Sim_Sun"]
+    for name in datasets:
+        assert len(_check_driver_run(adrf, ci, out, tmp_path, dataset=name)) == 1
+    assert hmc_calls == ([200] if engine == "fullmcmc" else [])
+    if engine == "fullmcmc":
+        assert "HMC for f_net finished." in out
 
 
 # -- the CLI -----------------------------------------------------------------------
