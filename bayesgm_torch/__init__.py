@@ -11,6 +11,7 @@ importing the package stays cheap.
 __version__ = "0.1.0"
 
 _SYMBOL_TO_MODULE = {
+    "BGM": "bayesgm_torch.models.bgm",
     "CausalBGM": "bayesgm_torch.models.causalbgm",
     "IdentifiableCausalBGM": "bayesgm_torch.models.identifiable",
     "FullMCMCCausalBGM": "bayesgm_torch.models.fullmcmc",
@@ -18,8 +19,18 @@ _SYMBOL_TO_MODULE = {
     "Sim_Hirano_Imbens_sampler": "bayesgm_torch.datasets.causal_samplers",
     "Sim_Sun_sampler": "bayesgm_torch.datasets.causal_samplers",
     "Sim_Colangelo_sampler": "bayesgm_torch.datasets.causal_samplers",
+    "Base_sampler": "bayesgm_torch.datasets.base_sampler",
+    "Gaussian_sampler": "bayesgm_torch.datasets.prior_samplers",
+    "GMM_indep_sampler": "bayesgm_torch.datasets.prior_samplers",
+    "Swiss_roll_sampler": "bayesgm_torch.datasets.prior_samplers",
+    "simulate_regression": "bayesgm_torch.datasets.simulators",
+    "simulate_low_rank_data": "bayesgm_torch.datasets.simulators",
+    "simulate_heteroskedastic_data": "bayesgm_torch.datasets.simulators",
+    "simulate_z_hetero": "bayesgm_torch.datasets.simulators",
     "get_ADRF": "bayesgm_torch.utils.helpers",
+    "parse_file": "bayesgm_torch.utils.data_io",
     "parse_file_triplet": "bayesgm_torch.utils.data_io",
+    "save_data": "bayesgm_torch.utils.data_io",
 }
 
 __all__ = sorted(_SYMBOL_TO_MODULE) + ["__version__"]

@@ -15,7 +15,11 @@
   reads a model the port trained;
 - :func:`net_from_numpy` / :func:`net_to_numpy` carry one net (such as the
   identifiable model's prior net) both ways, and :func:`flat_weight_samples`
-  takes JAX ``FullMCMCCausalBGM``'s flat weight samples.
+  takes JAX ``FullMCMCCausalBGM``'s flat weight samples;
+- BGM's decoders (``VariationalMLP``, ``FlipoutVariationalMLP``) go both
+  ways as their parameter trees; their running statistics are JAX's
+  ``g_state = {"norm": {"mean", "var"}}`` (:func:`bn_state_to_numpy`,
+  :func:`bn_state_from_numpy`).
 """
 
 from __future__ import annotations
@@ -25,7 +29,14 @@ import re
 import numpy as np
 import torch
 
-from bayesgm_torch.ops.nn import MLP, Critic, FlipoutMLP
+from bayesgm_torch.ops.nn import (
+    MLP,
+    Critic,
+    FlipoutMLP,
+    FlipoutVariationalMLP,
+    VariationalMLP,
+    _VariationalBase,
+)
 
 # keystr parts: ['key'] (dict), [0] (list) and .name (a NamedTuple field,
 # as in the Adam states .m, .v and .t of a JAX full-state checkpoint)
@@ -93,9 +104,48 @@ def mlp_from_numpy(tree) -> MLP:
     return net
 
 
+def _is_variational(tree) -> bool:
+    return isinstance(tree, dict) and {"norm", "mean", "var"} <= set(tree)
+
+
+def variational_from_numpy(tree):
+    """One ``VariationalMLP`` from ``{"norm": {gamma, beta}, "layers":
+    [{w, b}], "mean": {w, b}, "var": {w, b}}``, or a ``FlipoutVariationalMLP``
+    where the layers and heads hold ``loc``, ``rho`` and ``b``.  The running
+    statistics keep their initial values (see :func:`bn_state_from_numpy`)."""
+    flipout = "loc" in tree["mean"]
+    kernel = "loc" if flipout else "w"
+    layers = tree.get("layers", [])
+    dims = ([np.shape(tree["norm"]["gamma"])[0]] + [np.shape(l[kernel])[1] for l in layers]
+            + [np.shape(tree["mean"][kernel])[1]])
+    net = (FlipoutVariationalMLP if flipout else VariationalMLP)(dims[0], dims[-1], dims[1:-1])
+    with torch.no_grad():
+        for name, param in net.named_parameters():
+            node = tree
+            for part in _param_path(net, name):
+                node = node[part]
+            param.copy_(torch.tensor(np.asarray(node), dtype=torch.float32))
+    return net
+
+
+def bn_state_to_numpy(net: _VariationalBase) -> dict:
+    """A decoder's running statistics as JAX's ``g_state``."""
+    return {"norm": {"mean": net.bn_mean.detach().cpu().numpy(),
+                     "var": net.bn_var.detach().cpu().numpy()}}
+
+
+def bn_state_from_numpy(tree, device=None) -> tuple:
+    """``(mean, var)`` float32 tensors from JAX's ``g_state``."""
+    return tuple(torch.as_tensor(np.asarray(tree["norm"][k]), dtype=torch.float32, device=device)
+                 for k in ("mean", "var"))
+
+
 def net_from_numpy(tree):
-    """One ``FlipoutMLP``, ``Critic`` or ``MLP`` from its JAX pytree, or None
-    for a tree of another kind."""
+    """One ``VariationalMLP``, ``FlipoutVariationalMLP``, ``FlipoutMLP``,
+    ``Critic`` or ``MLP`` from its JAX pytree, or None for a tree of another
+    kind."""
+    if _is_variational(tree):
+        return variational_from_numpy(tree)
     if _is_flipout_net(tree):
         return flipout_mlp_from_numpy(tree)
     if _is_critic(tree):
@@ -127,8 +177,10 @@ def flat_weight_samples(samples, net: MLP) -> np.ndarray:
 
 
 def net_to_numpy(net) -> dict:
-    """The JAX pytree of one port net (inverse of the two readers above)."""
+    """The JAX pytree of one port net (inverse of the readers above)."""
     a = lambda t: t.detach().cpu().numpy().astype(np.float32)
+    if isinstance(net, _VariationalBase):
+        return params_to_tree(net, [p for _, p in net.named_parameters()])
     if isinstance(net, FlipoutMLP):
         return {"norm": {"gamma": a(net.gamma), "beta": a(net.beta)},
                 "layers": [{"loc": a(loc), "rho": a(rho), "b": a(b)}
@@ -150,8 +202,10 @@ def _param_path(net, name: str) -> list:
     """The JAX pytree path, below the net, of the port parameter ``name``
     (a ``named_parameters`` name such as ``loc.2`` or ``bn_gamma.0``)."""
     field, _, index = name.partition(".")
-    if isinstance(net, FlipoutMLP) and field in ("gamma", "beta"):
+    if isinstance(net, (FlipoutMLP, _VariationalBase)) and field in ("gamma", "beta"):
         return ["norm", field]
+    if isinstance(net, _VariationalBase) and not index:  # a head: mean_w, var_rho, ...
+        return field.split("_", 1)
     if isinstance(net, Critic) and field in ("bn_gamma", "bn_beta"):
         return ["bn", int(index), field[3:]]
     if index:
@@ -220,10 +274,14 @@ def table_adam_from_jax(tree, device):
                       v=torch.as_tensor(tree.v, device=device), t=int(tree.t))
 
 
-def save_npz(path: str, nets: dict, data_z=None) -> str:
-    """Write ``{"nets": nets, "data_z": data_z}`` as JAX ``save_weights``
-    does: one ``.npz`` keyed by ``keystr`` paths, renamed into place."""
+def save_npz(path: str, nets: dict, data_z=None, g_state=None) -> str:
+    """Write ``{"nets": nets, "g_state": g_state, "data_z": data_z}`` (the
+    last two where given; ``g_state`` in JAX's form, BGM's bundle) as JAX
+    ``save_weights`` does: one ``.npz`` keyed by ``keystr`` paths, renamed
+    into place."""
     tree = {"nets": nets_to_numpy(nets)}
+    if g_state is not None:
+        tree["g_state"] = g_state
     if data_z is not None:
         tree["data_z"] = (data_z.detach().cpu().numpy() if torch.is_tensor(data_z)
                           else np.asarray(data_z, np.float32))
@@ -273,8 +331,9 @@ def npz_tree(path: str) -> dict:
 
 
 def load_npz(path: str) -> dict:
-    """``{"nets": {name: net}, **other arrays}`` from a JAX
-    ``CausalBGM.save_weights`` file (``data_z`` stays a numpy array)."""
+    """``{"nets": {name: net}, **other arrays}`` from a JAX ``save_weights``
+    file of CausalBGM or BGM (``data_z`` stays a numpy array, BGM's
+    ``g_state`` a nested dict of them)."""
     tree = npz_tree(path)
     out = {k: v for k, v in tree.items() if k != "nets"}
     out["nets"] = nets_from_numpy(tree["nets"])

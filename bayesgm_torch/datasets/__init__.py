@@ -1,0 +1,35 @@
+"""Data layer: the mini-batch sampler, the causal simulations, the prior
+samplers and the simulators (numpy copies of ``bayesgm_tpu/datasets``; the
+semi-synthetic CSV loaders are not ported)."""
+
+from bayesgm_torch.datasets.base_sampler import Base_sampler
+from bayesgm_torch.datasets.causal_samplers import (
+    Sim_Colangelo_sampler,
+    Sim_Hirano_Imbens_sampler,
+    Sim_Sun_sampler,
+)
+from bayesgm_torch.datasets.prior_samplers import (
+    Gaussian_sampler,
+    GMM_indep_sampler,
+    Swiss_roll_sampler,
+)
+from bayesgm_torch.datasets.simulators import (
+    simulate_heteroskedastic_data,
+    simulate_low_rank_data,
+    simulate_regression,
+    simulate_z_hetero,
+)
+
+__all__ = [
+    "Base_sampler",
+    "Sim_Hirano_Imbens_sampler",
+    "Sim_Sun_sampler",
+    "Sim_Colangelo_sampler",
+    "Gaussian_sampler",
+    "GMM_indep_sampler",
+    "Swiss_roll_sampler",
+    "simulate_regression",
+    "simulate_low_rank_data",
+    "simulate_heteroskedastic_data",
+    "simulate_z_hetero",
+]

@@ -1,14 +1,17 @@
-"""Run a causal recipe from ``configs/*.yaml`` on the port (counterpart of
-the root ``main.py``, CausalBGM branch).
+"""Run a recipe from ``configs/*.yaml`` on the port (counterpart of the
+root ``main.py``, CausalBGM and BGM branches).
 
     python -m bayesgm_torch.main -c configs/Sim_Colangelo.yaml [-e EPOCHS] [-b EGM_ITERS]
         [--device cuda|cpu]
 
 The config is read by :mod:`bayesgm_torch.utils.config_io` (no PyYAML).  The
-simulated datasets are Sim_Hirano_Imbens, Sim_Sun and Sim_Colangelo, each
-with its closed-form ADRF, against which the RMSE and MAPE of the predicted
-ADRF are printed.  The optional ``predict:`` and ``fit:`` blocks override
-predict's and fit's keyword arguments and are checked against the engine's
+causal datasets are Sim_Hirano_Imbens, Sim_Sun and Sim_Colangelo, each with
+its closed-form ADRF, against which the RMSE and MAPE of the predicted ADRF
+are printed.  The BGM datasets are Sim_low_rank (imputation RMSE and 95 %
+coverage of a hidden column) and Sim_heteroskedastic (Pearson correlations
+of the predicted outcome of a held-out split, interval coverage and
+length).  The optional ``predict:`` and ``fit:`` blocks override predict's
+and fit's keyword arguments and are checked against the engine's
 signatures before the fit.  What the port does not have yet raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
@@ -17,15 +20,15 @@ from __future__ import annotations
 
 import argparse
 import inspect
+import os
 
 import numpy as np
 
 SIMULATED = ("Sim_Hirano_Imbens", "Sim_Sun", "Sim_Colangelo")
+BGM_DATASETS = ("Sim_heteroskedastic", "Sim_low_rank")
 _NOT_PORTED_DATASETS = {
     "Semi_Twins": "Semi_Twins needs external CSVs and pandas (ROADMAP Queue 1 item 5)",
     "Semi_acic": "Semi_acic needs external CSVs and pandas (ROADMAP Queue 1 item 5)",
-    "Sim_heteroskedastic": "BGM is not ported yet (ROADMAP Queue 1 item 9)",
-    "Sim_low_rank": "BGM is not ported yet (ROADMAP Queue 1 item 9)",
     "MNIST": "MNISTBGM is not ported yet (ROADMAP Queue 1 item 10)",
 }
 
@@ -153,6 +156,81 @@ def run_causal(params, epochs, egm_iters, device="cuda"):
     return causal_pre, pos_intervals
 
 
+def _load_bgm_dataset(params):
+    """``(train, X_test, Y_test)`` at the JAX driver's sizes: Sim_low_rank's
+    10000 rows (no test split: None, None), or Sim_heteroskedastic's 20000
+    rows of ``simulate_z_hetero`` (``z_dim`` factors, ``x_dim - 1``
+    covariates) with the last 10 % held out and the outcome as the train
+    matrix's last column."""
+    from bayesgm_torch.datasets.simulators import simulate_low_rank_data, simulate_z_hetero
+
+    if params["dataset"] == "Sim_low_rank":
+        data, _ = simulate_low_rank_data(n_samples=10000, z_dim=params["z_dim"],
+                                         x_dim=params["x_dim"])
+        return data, None, None
+    X, Y = simulate_z_hetero(n=20000, k=params.get("z_dim", 3), d=params["x_dim"] - 1)
+    n_test = len(X) // 10
+    train = np.hstack([X[:-n_test], Y[:-n_test].reshape(-1, 1)]).astype("float32")
+    return train, X[-n_test:], Y[-n_test:]
+
+
+def run_bgm(params, epochs, egm_iters, device="cuda"):
+    """Fit BGM on the config's dataset and evaluate its imputation.
+
+    Sim_low_rank: hide column 0 of the first 1000 training rows, impute it
+    (3000 + 3000 HMC steps) and print the RMSE and the 95 % interval's
+    coverage; returns ``(imputed, intervals)``.  Sim_heteroskedastic: NaN the
+    outcome of the held-out split, predict it (5000 + 5000 steps, ``bs=500``)
+    and print the Pearson correlations of the posterior mean and median with
+    the truth and the interval's coverage and mean length; writes
+    ``data_pred_heter.npz`` to the results folder and returns ``(y_mean,
+    intervals)``.  An optional ``predict:`` block overrides ``burn_in``,
+    ``n_mcmc`` and ``alpha``."""
+    from bayesgm_torch.models.bgm import BGM
+
+    predict_overrides = _predict_overrides(params)
+    _check_overrides_against_engine(BGM, "bgm", predict_overrides)
+    fit_overrides = _fit_overrides(params, BGM, "bgm")
+    data, X_test, Y_test = _load_bgm_dataset(params)
+    model = BGM(params=params, random_seed=123, device=device)
+    fit_kwargs = dict(epochs=epochs, epochs_per_eval=10, use_egm_init=True,
+                      egm_n_iter=egm_iters, egm_batches_per_eval=500, verbose=1)
+    fit_kwargs.update(fit_overrides)
+    model.fit(data=data, **fit_kwargs)
+
+    if X_test is None:
+        test = np.array(data[:1000])
+        truth = test[:, 0].copy()
+        test[:, 0] = np.nan
+        kwargs = dict(alpha=0.05, n_mcmc=3000, burn_in=3000)
+        kwargs.update(predict_overrides)
+        imputed, intervals = model.predict(test, **kwargs)
+        rmse = float(np.sqrt(np.mean((imputed[:, 0] - truth) ** 2)))
+        covered = np.mean((intervals[:, 0, 0] <= truth) & (truth <= intervals[:, 0, 1]))
+        print(f"Imputation RMSE: {rmse:.4f}  95%-interval coverage: {covered:.3f}")
+        return imputed, intervals
+
+    from scipy.stats import pearsonr
+
+    data_test = np.hstack([X_test, np.full((len(X_test), 1), np.nan)]).astype("float32")
+    kwargs = dict(alpha=0.05, n_mcmc=5000, burn_in=5000)
+    kwargs.update(predict_overrides)
+    cube, intervals = model.predict(data_test, bs=500, return_samples=True, **kwargs)
+    y_draws = cube[:, :, -1]  # (n_mcmc, n_test)
+    y_mean, y_median = y_draws.mean(axis=0), np.median(y_draws, axis=0)
+    corr_mean = pearsonr(Y_test, y_mean)[0]
+    corr_median = pearsonr(Y_test, y_median)[0]
+    covered = np.mean((intervals[:, 0, 0] <= Y_test) & (Y_test <= intervals[:, 0, 1]))
+    length = float(np.mean(intervals[:, 0, 1] - intervals[:, 0, 0]))
+    print(f"Pearson corr (posterior mean): {corr_mean:.4f}")
+    print(f"Pearson corr (posterior median): {corr_median:.4f}")
+    print(f"95%-interval coverage: {covered:.3f}  mean length: {length:.3f}")
+    os.makedirs(model.save_dir, exist_ok=True)
+    np.savez(f"{model.save_dir}/data_pred_heter.npz",
+             y_mean=y_mean, y_median=y_median, pred_interval=intervals)
+    return y_mean, intervals
+
+
 def main(argv=None):
     from bayesgm_torch.utils import config_io
 
@@ -167,6 +245,8 @@ def main(argv=None):
     dataset = params["dataset"]
     if dataset in SIMULATED:
         return run_causal(params, args.epochs, args.batches, device=args.device)
+    if dataset in BGM_DATASETS:
+        return run_bgm(params, args.epochs, args.batches, device=args.device)
     if dataset in _NOT_PORTED_DATASETS:
         raise NotImplementedError(_NOT_PORTED_DATASETS[dataset])
     raise ValueError(f"Unknown dataset {dataset}")

@@ -380,17 +380,9 @@ def _leapfrog(value_and_grad_fn, state, momentum, grad, step_size, num_steps: in
     return state, momentum, logp, grad
 
 
-def _hmc_step(carry, generator, value_and_grad_fn, num_leapfrog: int, target_accept: float,
-              n_adapt: int, adaptation_rate: float):
-    """One HMC step.  ``carry = (state, logp, grad, step_size, t)``: the
-    current state's target value and gradient are carried, so a step costs
-    ``num_leapfrog`` evaluations; ``t`` is a host int.  Returns ``(carry,
-    accept)``."""
-    state, logp, grad, step_size, t = carry
-    momentum = torch.randn(state.shape, generator=generator, device=state.device,
-                           dtype=state.dtype)
-    new_state, new_momentum, new_logp, new_grad = _leapfrog(
-        value_and_grad_fn, state, momentum, grad, step_size, num_leapfrog, generator)
+def _metropolis_accept(generator, state, logp, new_state, new_logp, momentum, new_momentum):
+    """The HMC accept test per chain: draws the uniforms, returns ``(accept,
+    log_accept_ratio, state, logp)`` with the accepted chains moved."""
     ke_old = 0.5 * torch.sum(momentum**2, dim=-1)
     ke_new = 0.5 * torch.sum(new_momentum**2, dim=-1)
     log_accept_ratio = (new_logp - ke_new) - (logp - ke_old)
@@ -398,38 +390,97 @@ def _hmc_step(carry, generator, value_and_grad_fn, num_leapfrog: int, target_acc
     accept = torch.log(u) < log_accept_ratio
     state = torch.where(accept[..., None], new_state, state)
     logp = torch.where(accept, new_logp, logp)
+    return accept, log_accept_ratio, state, logp
+
+
+def _adapt_step_size(step_size, log_accept_ratio, t: int, n_adapt: int, target_accept: float,
+                     adaptation_rate: float):
+    """Scalar step-size adaptation toward the target acceptance (the
+    SimpleStepSizeAdaptation recipe): one multiplicative nudge per step
+    while ``t < n_adapt``."""
+    if t >= n_adapt:
+        return step_size
+    accept_prob = torch.mean(torch.exp(torch.clamp_max(log_accept_ratio, 0.0)))
+    return torch.where(accept_prob > target_accept, step_size * (1.0 + adaptation_rate),
+                       step_size / (1.0 + adaptation_rate))
+
+
+def _momentum(state, generator):
+    return torch.randn(state.shape, generator=generator, device=state.device, dtype=state.dtype)
+
+
+def _hmc_step(carry, generator, value_and_grad_fn, num_leapfrog: int, target_accept: float,
+              n_adapt: int, adaptation_rate: float):
+    """One HMC step on a deterministic target.  ``carry = (state, logp,
+    grad, step_size, t)``: the current state's target value and gradient
+    are carried, so a step costs ``num_leapfrog`` evaluations; ``t`` is a
+    host int.  Returns ``(carry, accept)``."""
+    state, logp, grad, step_size, t = carry
+    momentum = _momentum(state, generator)
+    new_state, new_momentum, new_logp, new_grad = _leapfrog(
+        value_and_grad_fn, state, momentum, grad, step_size, num_leapfrog, generator)
+    accept, log_accept_ratio, state, logp = _metropolis_accept(
+        generator, state, logp, new_state, new_logp, momentum, new_momentum)
     grad = torch.where(accept[..., None], new_grad, grad)
-    if t < n_adapt:
-        # Scalar step-size adaptation toward the target acceptance (the
-        # SimpleStepSizeAdaptation recipe): one multiplicative nudge per step.
-        accept_prob = torch.mean(torch.exp(torch.clamp_max(log_accept_ratio, 0.0)))
-        step_size = torch.where(accept_prob > target_accept, step_size * (1.0 + adaptation_rate),
-                                step_size / (1.0 + adaptation_rate))
+    step_size = _adapt_step_size(step_size, log_accept_ratio, t, n_adapt, target_accept,
+                                 adaptation_rate)
     return (state, logp, grad, step_size, t + 1), accept
+
+
+def _hmc_step_stochastic(carry, generator, log_prob_fn, noise, num_leapfrog: int,
+                         target_accept: float, n_adapt: int, adaptation_rate: float):
+    """One HMC step on a stochastic target ``log_prob_fn(state, draws)``,
+    with JAX's law (``bayesgm_tpu/ops/mcmc.py`` ``_hmc_step``): after the
+    momentum, one draw ``noise(generator)`` is shared by every gradient of
+    the step's leapfrog (``num_leapfrog + 1`` evaluations: the current
+    state's carried value came from another draw, so its gradient is taken
+    again), then an independent draw values the end point (no autograd),
+    then the uniforms.  ``carry = (state, logp, step_size, t)``: the current
+    state's value is carried from the step that reached it.  Returns
+    ``(carry, accept)``."""
+    state, logp, step_size, t = carry
+    momentum = _momentum(state, generator)
+    d_grad = noise(generator)
+    value_and_grad_fn = partial(_value_and_grad, lambda s, g: log_prob_fn(s, d_grad))
+    _, grad = value_and_grad_fn(state, generator)
+    new_state, new_momentum, _, _ = _leapfrog(
+        value_and_grad_fn, state, momentum, grad, step_size, num_leapfrog, generator)
+    d_lp = noise(generator)
+    with torch.no_grad():
+        new_logp = log_prob_fn(new_state, d_lp)
+    accept, log_accept_ratio, state, logp = _metropolis_accept(
+        generator, state, logp, new_state, new_logp, momentum, new_momentum)
+    step_size = _adapt_step_size(step_size, log_accept_ratio, t, n_adapt, target_accept,
+                                 adaptation_rate)
+    return (state, logp, step_size, t + 1), accept
 
 
 def hmc(log_prob_fn: Callable, init_state, generator: torch.Generator, *, burn_in: int = 5000,
         n_keep: int = 3000, step_size: float = 0.01, num_leapfrog: int = 10,
         target_accept: float = 0.75, adapt_fraction: float = 0.8,
         adaptation_rate: float = 0.01, collect: Optional[Callable] = None,
-        params=None) -> HMCResult:
+        params=None, noise: Optional[Callable] = None) -> HMCResult:
     """HMC over ``n`` independent chains (axis 0 of ``init_state``), with
     the step size adapted toward ``target_accept`` over the first
     ``int(burn_in * adapt_fraction)`` steps (times ``1 + adaptation_rate``
     when the step's mean acceptance probability is above it, divided by it
     otherwise).
 
-    ``log_prob_fn(state, g) -> (n,)`` must be differentiable in ``state``
-    and a deterministic function of it: the value and gradient at the
-    current state are carried from the step that reached it, where the JAX
-    package evaluates them again (the same numbers).  With ``params`` given,
-    ``log_prob_fn`` and ``collect`` take ``(params, state, g)`` instead.
-    ``collect(state, g)`` is the per-kept-step statistic (the raw state by
-    default); ``samples`` stacks it along a leading ``n_keep`` axis (None
-    when ``n_keep == 0``).  The step size and the acceptance sum stay on the
-    device: a step reads nothing back to the host.  Each step draws the
-    momentum, then (through the target) the evaluations, then the accept
-    uniforms, then the collected statistic."""
+    Without ``noise``, ``log_prob_fn(state, g) -> (n,)`` must be
+    differentiable in ``state`` and a deterministic function of it: the
+    value and gradient at the current state are carried from the step that
+    reached it, where the JAX package evaluates them again (the same
+    numbers), so a step costs ``num_leapfrog`` evaluations.  With
+    ``noise(g) -> draws`` the target is stochastic, ``log_prob_fn(state,
+    draws)``: see :func:`_hmc_step_stochastic` (``num_leapfrog + 1``
+    gradients and one value per step; the initial value under a draw of its
+    own).  With ``params`` given, ``log_prob_fn`` and ``collect`` take
+    ``params`` first.  ``collect(state, g)`` is the per-kept-step statistic
+    (the raw state by default); ``samples`` stacks it along a leading
+    ``n_keep`` axis (None when ``n_keep == 0``).  The step size and the
+    acceptance sum stay on the device: a step reads nothing back to the
+    host.  Each step draws the momentum, then (through the target) the
+    evaluations, then the accept uniforms, then the collected statistic."""
     if num_leapfrog < 1:
         raise ValueError(f"num_leapfrog must be at least 1, got {num_leapfrog}")
     if params is None:
@@ -438,14 +489,20 @@ def hmc(log_prob_fn: Callable, init_state, generator: torch.Generator, *, burn_i
         lp = lambda s, g: log_prob_fn(params, s, g)
         col = None if collect is None else (lambda s, g: collect(params, s, g))
     collect_fn = (lambda s, g: s) if col is None else col
-    step = partial(_hmc_step, value_and_grad_fn=partial(_value_and_grad, lp),
-                   num_leapfrog=num_leapfrog, target_accept=target_accept,
-                   n_adapt=int(burn_in * adapt_fraction), adaptation_rate=adaptation_rate)
+    kw = dict(num_leapfrog=num_leapfrog, target_accept=target_accept,
+              n_adapt=int(burn_in * adapt_fraction), adaptation_rate=adaptation_rate)
 
     dev = init_state.device
-    logp0, grad0 = _value_and_grad(lp, init_state, generator)
-    carry = (init_state.detach(), logp0, grad0,
-             torch.tensor(step_size, dtype=torch.float32, device=dev), 0)
+    step0 = torch.tensor(step_size, dtype=torch.float32, device=dev)
+    if noise is None:
+        step = partial(_hmc_step, value_and_grad_fn=partial(_value_and_grad, lp), **kw)
+        logp0, grad0 = _value_and_grad(lp, init_state, generator)
+        carry = (init_state.detach(), logp0, grad0, step0, 0)
+    else:
+        step = partial(_hmc_step_stochastic, log_prob_fn=lp, noise=noise, **kw)
+        with torch.no_grad():
+            logp0 = lp(init_state, noise(generator))
+        carry = (init_state.detach(), logp0, step0, 0)
     for _ in range(burn_in):
         carry, _ = step(carry, generator)
     samples = []
@@ -455,7 +512,7 @@ def hmc(log_prob_fn: Callable, init_state, generator: torch.Generator, *, burn_i
         acc_sum = acc_sum + accept.to(torch.float32).mean()
         samples.append(collect_fn(carry[0], generator))
     stacked = torch.stack(samples) if samples else None
-    return HMCResult(samples=stacked, step_size=carry[3], accept_rate=acc_sum / max(n_keep, 1))
+    return HMCResult(samples=stacked, step_size=carry[-2], accept_rate=acc_sum / max(n_keep, 1))
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,8 @@
-"""Plain and flipout Bayesian MLPs, the WGAN critic and a plain MLP's flat
-weights (port of the plain MLP, the flipout subset, the critic and the
-flat-weight helpers of ``bayesgm_tpu/ops/nn.py``).
+"""Plain and flipout Bayesian MLPs, the WGAN critic, BGM's two variational
+decoders and a plain MLP's flat weights (port of the plain MLP, the flipout
+subset, the critic, BatchNorm with running statistics, the variational and
+flipout-variational MLPs and the flat-weight helpers of
+``bayesgm_tpu/ops/nn.py``).
 
 Conventions kept from the JAX package for numerical parity:
 
@@ -14,7 +16,11 @@ Conventions kept from the JAX package for numerical parity:
 - mean-field Gaussian kernel posterior ``N(loc, softplus(rho)^2)`` with a
   deterministic bias, initialised ``loc ~ 0.1 N(0,1)``,
   ``rho ~ -3 + 0.1 N(0,1)``, ``b = 0`` (the ``tfp.layers.DenseFlipout``
-  family).
+  family);
+- the variational decoders' input norm is BatchNorm with running
+  statistics (Keras ``BatchNormalization``: eps ``BN_EPS``, momentum
+  ``BN_MOMENTUM``), kept as module buffers ``bn_mean``/``bn_var``; their
+  variance head is ``softplus(raw) + 1e-6``.
 
 Randomness comes from an explicit ``torch.Generator``.  Every apply accepts
 inputs with leading batch axes ``(..., n, in)``: each leading index gets its
@@ -35,6 +41,8 @@ from bayesgm_torch.ops.distributions import softplus
 
 LEAKY_SLOPE = 0.2
 BN_EPS = 1e-3
+BN_MOMENTUM = 0.99
+BVN_PRIOR_SCALE = 0.1  # the flipout-variational decoder's kernel and bias prior
 
 
 def leaky_relu(x):
@@ -125,6 +133,14 @@ def critic_apply(net: Critic, x):
     return dense_apply(net.w[-1], net.b[-1], x)
 
 
+def _flipout_init(d_in: int, d_out: int, generator):
+    """``(loc, rho, b)`` of one flipout layer: ``loc ~ 0.1 N(0,1)``, then
+    ``rho ~ -3 + 0.1 N(0,1)``, ``b = 0``."""
+    return (nn.Parameter(0.1 * torch.randn((d_in, d_out), generator=generator)),
+            nn.Parameter(-3.0 + 0.1 * torch.randn((d_in, d_out), generator=generator)),
+            nn.Parameter(torch.zeros(d_out)))
+
+
 class FlipoutMLP(nn.Module):
     """``[input norm, flipout dense x L]`` with ``dims = [in, *hidden, out]``.
 
@@ -144,11 +160,10 @@ class FlipoutMLP(nn.Module):
         self.rho = nn.ParameterList()
         self.b = nn.ParameterList()
         for d_in, d_out in zip(dims[:-1], dims[1:]):
-            self.loc.append(nn.Parameter(
-                0.1 * torch.randn((d_in, d_out), generator=generator)))
-            self.rho.append(nn.Parameter(
-                -3.0 + 0.1 * torch.randn((d_in, d_out), generator=generator)))
-            self.b.append(nn.Parameter(torch.zeros(d_out)))
+            loc, rho, b = _flipout_init(d_in, d_out, generator)
+            self.loc.append(loc)
+            self.rho.append(rho)
+            self.b.append(b)
 
     @property
     def dims(self) -> list:
@@ -244,6 +259,156 @@ def flipout_mlp_mean_apply(net: FlipoutMLP, x):
         x = leaky_relu(x @ loc + b)
     loc, _, b = layers[-1]
     return x @ loc + b
+
+
+# ---------------------------------------------------------------------------
+# BGM's variational decoders: input BatchNorm with running statistics, then
+# mean and softplus-variance heads
+# ---------------------------------------------------------------------------
+
+
+def batchnorm_apply(gamma, beta, x, state, train: bool):
+    """BatchNorm over axis 0; ``state`` is ``(running_mean, running_var)``.
+
+    In ``train`` mode it normalises with the batch's mean and biased
+    variance and returns the running statistics moved toward them
+    (``momentum * old + (1 - momentum) * batch``, detached); in eval mode it
+    normalises with ``state`` and returns it.  Returns ``(y, new_state)``."""
+    if train:
+        mean = torch.mean(x, dim=0)
+        var = torch.mean((x - mean) ** 2, dim=0)
+        new_state = tuple(BN_MOMENTUM * s + (1.0 - BN_MOMENTUM) * b.detach()
+                          for s, b in zip(state, (mean, var)))
+    else:
+        (mean, var), new_state = state, state
+    return (x - mean) * torch.rsqrt(var + BN_EPS) * gamma + beta, new_state
+
+
+class _VariationalBase(nn.Module):
+    """The input norm's affine (``gamma``, ``beta``) and running statistics
+    (buffers ``bn_mean``, ``bn_var``, initialised 0 and 1)."""
+
+    def _init_norm(self, input_dim: int):
+        self.gamma = nn.Parameter(torch.ones(input_dim))
+        self.beta = nn.Parameter(torch.zeros(input_dim))
+        self.register_buffer("bn_mean", torch.zeros(input_dim))
+        self.register_buffer("bn_var", torch.ones(input_dim))
+
+    def bn_state(self) -> tuple:
+        return (self.bn_mean, self.bn_var)
+
+    @torch.no_grad()
+    def set_bn_state(self, state):
+        """Copy ``(mean, var)`` into the running statistics, in place."""
+        self.bn_mean.copy_(state[0])
+        self.bn_var.copy_(state[1])
+
+
+class VariationalMLP(_VariationalBase):
+    """BGM's plain decoder ``dims = [in, *hidden, out]``: input BatchNorm,
+    dense layers ``w[i]``, ``b[i]`` with LeakyReLU, then two dense heads,
+    ``mean_w``/``mean_b`` and ``var_w``/``var_b`` (Glorot-uniform kernels,
+    zero biases, drawn on the CPU from ``generator``)."""
+
+    def __init__(self, input_dim: int, output_dim: int, hidden: Sequence[int],
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        dims = [int(input_dim), *map(int, hidden)]
+        self._init_norm(dims[0])
+        self.w = nn.ParameterList()
+        self.b = nn.ParameterList()
+        for d_in, d_out in zip(dims[:-1], dims[1:]):
+            w, b = _glorot_dense(d_in, d_out, generator)
+            self.w.append(w)
+            self.b.append(b)
+        self.mean_w, self.mean_b = _glorot_dense(dims[-1], int(output_dim), generator)
+        self.var_w, self.var_b = _glorot_dense(dims[-1], int(output_dim), generator)
+
+    @property
+    def dims(self) -> list:
+        return [self.gamma.shape[0]] + [w.shape[1] for w in self.w] + [self.mean_w.shape[1]]
+
+
+def variational_mlp_apply(net: VariationalMLP, x, train: bool = True, state=None,
+                          eps: float = 1e-6):
+    """``(mean, var, new_state)``: per-dimension mean and variance of x, and
+    the input norm's running statistics after this call (see
+    :func:`batchnorm_apply`; ``state`` defaults to the net's buffers, which
+    are not written)."""
+    x, new_state = batchnorm_apply(net.gamma, net.beta, x,
+                                   net.bn_state() if state is None else state, train)
+    for w, b in zip(net.w, net.b):
+        x = leaky_relu(dense_apply(w, b, x))
+    mean = dense_apply(net.mean_w, net.mean_b, x)
+    var = softplus(dense_apply(net.var_w, net.var_b, x)) + eps
+    return mean, var, new_state
+
+
+class FlipoutVariationalMLP(_VariationalBase):
+    """BGM's flipout decoder: input BatchNorm, flipout hidden layers
+    ``loc[i]``, ``rho[i]``, ``b[i]`` with LeakyReLU, and flipout ``mean_*``
+    and ``var_*`` heads (``loc ~ 0.1 N(0,1)``, ``rho ~ -3 + 0.1 N(0,1)``,
+    ``b = 0``, drawn on the CPU from ``generator``)."""
+
+    def __init__(self, input_dim: int, output_dim: int, hidden: Sequence[int],
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        dims = [int(input_dim), *map(int, hidden)]
+        self._init_norm(dims[0])
+        self.loc = nn.ParameterList()
+        self.rho = nn.ParameterList()
+        self.b = nn.ParameterList()
+        for d_in, d_out in zip(dims[:-1], dims[1:]):
+            loc, rho, b = _flipout_init(d_in, d_out, generator)
+            self.loc.append(loc)
+            self.rho.append(rho)
+            self.b.append(b)
+        self.mean_loc, self.mean_rho, self.mean_b = _flipout_init(dims[-1], int(output_dim),
+                                                                  generator)
+        self.var_loc, self.var_rho, self.var_b = _flipout_init(dims[-1], int(output_dim),
+                                                               generator)
+
+    @property
+    def dims(self) -> list:
+        return ([self.gamma.shape[0]] + [loc.shape[1] for loc in self.loc]
+                + [self.mean_loc.shape[1]])
+
+    def layers(self) -> list:
+        """``[(loc, rho, b), ...]``: the hidden layers, then the mean and
+        variance heads (the order of the fused draw)."""
+        return [*zip(self.loc, self.rho, self.b), (self.mean_loc, self.mean_rho, self.mean_b),
+                (self.var_loc, self.var_rho, self.var_b)]
+
+
+def flipout_variational_mlp_apply(net: FlipoutVariationalMLP, x, generator, train: bool = True,
+                                  state=None, draws=None, eps: float = 1e-6):
+    """:func:`variational_mlp_apply` through flipout layers: one fused draw
+    over ``[*hidden, mean, var]`` from ``generator``, or ``draws`` (an
+    earlier ``_fused_flipout_draws`` result for the same layers and rows)."""
+    x, new_state = batchnorm_apply(net.gamma, net.beta, x,
+                                   net.bn_state() if state is None else state, train)
+    layers = net.layers()
+    if draws is None:
+        draws = _fused_flipout_draws(layers, x.shape, generator)
+    e, r_in, r_out = draws
+    for j, layer in enumerate(layers[:-2]):
+        x = leaky_relu(_flipout_dense_pre(layer, x, e[j], r_in[j], r_out[j]))
+    mean = _flipout_dense_pre(layers[-2], x, e[-2], r_in[-2], r_out[-2])
+    var = softplus(_flipout_dense_pre(layers[-1], x, e[-1], r_in[-1], r_out[-1])) + eps
+    return mean, var, new_state
+
+
+def flipout_variational_mlp_kl(net: FlipoutVariationalMLP):
+    """KL of every layer's kernel against N(0, 0.1^2), plus each bias's
+    cross-entropy under the same prior."""
+    return sum(flipout_dense_kl(layer, BVN_PRIOR_SCALE, BVN_PRIOR_SCALE)
+               for layer in net.layers())
+
+
+def reparameterize(mean, var, generator):
+    """``mean + sqrt(var) * eps``, ``eps ~ N(0, I)`` from ``generator``."""
+    return mean + torch.sqrt(var) * torch.randn(mean.shape, generator=generator,
+                                                device=mean.device, dtype=mean.dtype)
 
 
 # ---------------------------------------------------------------------------

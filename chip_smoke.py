@@ -165,6 +165,25 @@ CausalBGM's three variants:
               equal a lone CausalBGM's (phases 8 and 9), the pooled draws
               have shape (20, 400) and the ADRF is their mean.
 
+BGM, the second model family (no kernel: its JAX counterpart launches no
+Pallas kernel):
+
+29. BGM     - (a) configs/Sim_heteroskedastic.yaml (plain variational
+              decoder, n=18000 training rows, x_dim 100, z_dim 10) through
+              bayesgm_torch.main.main, cut by -e 2 -b 200 and a predict:
+              block (100 + 100 HMC steps, L = 10) on the 2000 held-out rows
+              at bs=500: ms per EGM iteration, per training step and per
+              HMC step, peak GiB, the correlation lines, finite outputs;
+              (b) configs/Sim_low_rank.yaml (flipout decoder, n=10000) cut
+              alike, imputing column 0 of 1000 rows: ms per HMC step and
+              L + 2 target evaluations per step (the stochastic target's
+              L + 1 gradients and one value); (c) a BGM fit on 2000
+              Sim_heteroskedastic rows killed in the evaluate of epoch 2
+              and resumed, its last checkpoint equal bit for bit to an
+              uninterrupted run's; (d) python -m bayesgm_torch bgm in a new
+              process on a .npz with NaN holes.  No kernel wrapper is
+              called in any of them.
+
 Launch counts are set to 0 just before each driven path and read just
 after; the launches of the comparisons do not count.  The last lines are a
 JSON object with the kernels' numbers (each with its bound: the larger of
@@ -208,6 +227,8 @@ DRIVER_N_MCMC, CLI_N = 1500, 2000  # phases 25's and 26's driver cap (one gate c
 HMC_STEPS = 100  # phase 27's HMC burn-in and kept steps per net (the JAX defaults: 1000, 2000)
 INFER_CHUNK_DRAWS = 64  # one chunk of FullMCMC's infer_from_latent_posterior
 ENS_EGM, ENS_EPOCHS = 100, 0  # phase 28's member fits: EGM iterations, passes - 1
+BGM_EPOCHS, BGM_EGM, BGM_HMC = 2, 200, 100  # phase 29's cut: -e, -b, HMC burn-in = kept steps
+BGM_LEAPFROG, BGM_BS = 10, 500  # the driver's HMC leapfrog steps and subject batch (hetero)
 SPIN_CYCLES = 5_000_000  # ~2.5 ms of spin ahead of a timed call: longer than any wrapper's host time
 
 
@@ -334,6 +355,288 @@ def device_ms(fn, n_warm=3, n_iter=20):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _counting_kernel_calls():
+    """Patch every kernel wrapper class's ``__call__`` to count its calls;
+    returns ``(counts, restore)``."""
+    from bayesgm_torch.benchmarks import mxu_probe as mp
+    from bayesgm_torch.ops import _pk_bnn_hosteps as hk
+    from bayesgm_torch.ops import _pk_bnn_inkernel as ik
+    from bayesgm_torch.ops import _pk_plain as pk
+
+    classes = [hk.FusedCausalLogpBnnHosteps, hk.FusedCausalLogpAndGradBnnHosteps,
+               pk.FusedCausalLogp, pk.FusedCausalLogpAndGrad, ik.FusedCausalLogpBnn,
+               ik.FusedCausalLogpAndGradBnn, ik.FusedMhStepsBnn, mp.ProbeKernel]
+    counts = {cls.__name__: 0 for cls in classes}
+    saved = {cls: cls.__call__ for cls in classes}
+    for cls, call in saved.items():
+        def counted(self, *a, _call=call, _name=cls.__name__, **kw):
+            counts[_name] += 1
+            return _call(self, *a, **kw)
+        cls.__call__ = counted
+
+    def restore():
+        for cls, call in saved.items():
+            cls.__call__ = call
+    return counts, restore
+
+
+def bgm_phase() -> dict:
+    """Phase 29: BGM through its entry points at the two configs' widths
+    (see the module docstring); raises on any failed check.  Returns the
+    measured numbers."""
+    import numpy as np
+    import torch
+
+    from bayesgm_torch import main as driver
+    from bayesgm_torch.datasets.simulators import simulate_z_hetero
+    from bayesgm_torch.models import bgm as bgm_mod
+    from bayesgm_torch.ops import mcmc
+    from bayesgm_torch.utils import checkpoint as ckpt_mod
+    from bayesgm_torch.utils import config_io
+
+    out = {}
+    calls, restore = _counting_kernel_calls()
+    root = tempfile.mkdtemp(prefix="chip_smoke_bgm_")
+    try:
+        for name in ("Sim_heteroskedastic", "Sim_low_rank"):
+            text = (open(f"configs/{name}.yaml").read()
+                    .replace("output_dir: '.'", f"output_dir: '{root}'"))
+            cfg_path = os.path.join(root, f"{name}.yaml")
+            with open(cfg_path, "w") as f:
+                f.write(text + f"predict:\n  burn_in: {BGM_HMC}\n  n_mcmc: {BGM_HMC}\n")
+            out[name] = _bgm_driver_run(driver, bgm_mod, mcmc, ckpt_mod, config_io, cfg_path,
+                                        name)
+        out["resume"] = _bgm_resume(bgm_mod, config_io, simulate_z_hetero, root)
+        out["cli"] = _bgm_cli(root)
+    finally:
+        restore()
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[29 BGM] kernel wrapper calls over phase 29: {calls}", flush=True)
+    if sum(calls.values()):
+        raise AssertionError("[29 BGM] a kernel wrapper was called")
+    return out
+
+
+def _bgm_driver_run(driver, bgm_mod, mcmc, ckpt_mod, config_io, cfg_path, name):
+    """29 (a) or (b): one config through bayesgm_torch.main.main, its spans
+    timed (host clock, synchronized) and its checks made."""
+    import numpy as np
+    import torch
+
+    tag = "[29a hetero]" if name == "Sim_heteroskedastic" else "[29b low-rank]"
+    print(f"{tag} config {config_io.load(cfg_path)}", flush=True)
+    spans, built, chains = {}, [], []
+    init, hmc, save_ckpt = bgm_mod.BGM.__init__, mcmc.hmc, ckpt_mod.save_checkpoint
+
+    def recording_init(self, *a, **kw):
+        init(self, *a, **kw)
+        for method in ("fit", "evaluate", "_save_generated", "predict"):
+            setattr(self, method, timed_call(spans, method, getattr(self, method)))
+        egm = timed_call(spans, "egm_init", self.egm_init)
+
+        def egm_init(*a, **kw):  # its logging slot's evaluate and writes count as EGM time
+            before = {k: spans.get(k, 0.0) for k in ("evaluate", "_save_generated")}
+            try:
+                return egm(*a, **kw)
+            finally:
+                spans.update(before)
+        self.egm_init = egm_init
+        built.append(self)
+
+    def recording_hmc(log_prob_fn, init_state, *a, **kw):
+        evals = [0]
+
+        def counted(p, z, d):
+            evals[0] += 1
+            return log_prob_fn(p, z, d)
+        res = timed_call(spans, "chain", hmc)(counted, init_state, *a, **kw)
+        chains.append((init_state.shape[0], kw["burn_in"] + kw["n_keep"], evals[0]))
+        return res
+
+    bgm_mod.BGM.__init__, mcmc.hmc = recording_init, recording_hmc
+    ckpt_mod.save_checkpoint = timed_call(spans, "checkpoint", save_ckpt)
+    printed = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30  # earlier phases' tensors still alive
+    t = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(printed):
+            result, intervals = driver.main(["-c", cfg_path, "-e", str(BGM_EPOCHS), "-b",
+                                             str(BGM_EGM), "--device", "cuda"])
+    finally:
+        bgm_mod.BGM.__init__, mcmc.hmc, ckpt_mod.save_checkpoint = init, hmc, save_ckpt
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    lines = printed.getvalue().splitlines()
+    m = built[0]
+    n_train = len(m.data_z)
+    steps = (BGM_EPOCHS + 1) * (n_train // 32)
+    egm_s = spans["egm_init"]
+    train_s = (spans["fit"] - egm_s - spans.get("checkpoint", 0.0) - spans["evaluate"]
+               - spans.get("_save_generated", 0.0))
+    n_chain_steps = sum(s for _, s, _ in chains)
+    evals_per_step = [(e - 1) / s for _, s, e in chains]
+    res = {"wall_s": wall, "peak_gib": peak, "held_gib": held, "fit_s": spans["fit"], "egm_s": egm_s,
+           "ms_per_egm_iter": 1e3 * egm_s / (BGM_EGM + 1),
+           "ms_per_train_step": 1e3 * train_s / steps, "train_steps": steps,
+           "predict_s": spans["predict"],
+           "ms_per_hmc_step": 1e3 * spans["chain"] / n_chain_steps,
+           "hmc_rows": [r for r, _, _ in chains], "evals_per_hmc_step": evals_per_step}
+    report = [l for l in lines if l.startswith(("Pearson", "95%", "Imputation", "HMC Acceptance"))]
+    print(f"{tag} n={n_train} train rows: wall {wall:.3f} s; fit {spans['fit']:.3f} s (EGM "
+          f"{egm_s:.3f} s = {res['ms_per_egm_iter']:.3f} ms per iteration incl. its "
+          f"{-(-(BGM_EGM + 1) // 500)} logging slot; training {1e3 * train_s / steps:.3f} ms per "
+          f"step over {steps}); predict {spans['predict']:.3f} s, chains {chains} (rows, steps, "
+          f"target evaluations) = {res['ms_per_hmc_step']:.3f} ms per HMC step incl. the kept "
+          f"steps' decode; peak {peak:.3f} GiB ({held:.3f} GiB held before it); {report}", flush=True)
+    checks = {"one model built": len(built) == 1,
+              "outputs finite": bool(np.all(np.isfinite(result))),
+              "a checkpoint of epoch 0": os.path.exists(os.path.join(m.checkpoint_path,
+                                                                     "ckpt-0.npz"))}
+    if name == "Sim_heteroskedastic":
+        checks.update({
+            "decoder plain": type(m.nets["g"]).__name__ == "VariationalMLP",
+            "2000 predictions, (2000, 1, 2) ordered intervals": (
+                result.shape == (2000,) and intervals.shape == (2000, 1, 2)
+                and bool(np.all(intervals[:, 0, 0] <= intervals[:, 0, 1]))),
+            f"four chains of {BGM_BS} rows": [r for r, _, _ in chains] == [BGM_BS] * 4,
+            f"{BGM_LEAPFROG} target evaluations per step (deterministic)": all(
+                e == 1 + s * BGM_LEAPFROG for _, s, e in chains),
+            "correlations finite": sum(1 for l in report if l.startswith("Pearson")) == 2
+                                   and all(np.isfinite(float(l.split()[-1]))
+                                           for l in report if l.startswith("Pearson")),
+        })
+    else:
+        checks.update({
+            "decoder flipout": type(m.nets["g"]).__name__ == "FlipoutVariationalMLP",
+            "1000 rows imputed, (1000, 1, 2) intervals": (
+                result.shape == (1000, 4) and intervals.shape == (1000, 1, 2)),
+            "one chain of 1000 rows": [r for r, _, _ in chains] == [1000],
+            f"L + 2 = {BGM_LEAPFROG + 2} target evaluations per step (stochastic)": (
+                evals_per_step == [BGM_LEAPFROG + 2]),
+            "RMSE line printed": any(l.startswith("Imputation RMSE") for l in report),
+        })
+    for check, ok in checks.items():
+        print(f"{tag} {check}: {'ok' if ok else 'FAIL'}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"{tag} checks failed")
+    return res
+
+
+def _bgm_resume(bgm_mod, config_io, simulate_z_hetero, root):
+    """29 (c): Sim_heteroskedastic's widths on N_RESUME rows (EGM 50, epochs
+    0..3, lr_decay cosine), killed in the evaluate of epoch 2 and resumed by
+    a new instance, against an uninterrupted run."""
+    import numpy as np
+    import torch
+
+    params = config_io.load("configs/Sim_heteroskedastic.yaml")
+    params.update(save_res=False)
+    X, Y = simulate_z_hetero(n=N_RESUME, k=params["z_dim"], d=params["x_dim"] - 1, seed=3)
+    data = np.hstack([X, Y[:, None]]).astype("float32")
+
+    def run(folder, die_at=None):
+        m = bgm_mod.BGM(dict(params, output_dir=os.path.join(root, folder)), timestamp="resume",
+                        random_seed=5, device="cuda")
+        if die_at is not None:
+            n_calls, evaluate = [0], m.evaluate
+
+            def dying(*a, **kw):
+                n_calls[0] += 1
+                if n_calls[0] == die_at:
+                    raise RuntimeError("simulated kill")
+                return evaluate(*a, **kw)
+            m.evaluate = dying
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        try:
+            m.fit(data, epochs=RESUME_EPOCHS, epochs_per_eval=1, batch_size=32,
+                  egm_n_iter=RESUME_EGM, egm_batches_per_eval=RESUME_EGM, verbose=0)
+        except RuntimeError as e:
+            if die_at is None or "simulated kill" not in str(e):
+                raise
+        torch.cuda.synchronize()
+        return m, time.perf_counter() - t
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        ma, wall_a = run("a")
+        mb1, wall_b1 = run("b", die_at=3)
+        saved = sorted(os.listdir(mb1.checkpoint_path))
+        mb2, wall_b2 = run("b")
+    last = f"ckpt-{RESUME_EPOCHS}.npz"
+    with np.load(os.path.join(ma.checkpoint_path, last)) as fa, \
+            np.load(os.path.join(mb2.checkpoint_path, last)) as fb:
+        keys = sorted(fa.files)
+        differ = [k for k in keys if not np.array_equal(fa[k], fb[k])]
+        same_keys = keys == sorted(fb.files)
+    print(f"[29c resume] n={N_RESUME}: uninterrupted {wall_a:.3f} s, killed {wall_b1:.3f} s "
+          f"(checkpoints {saved}), resumed {wall_b2:.3f} s; {len(keys)} leaves in {last}, "
+          f"differing: {differ[:8]}", flush=True)
+    checks = {
+        "killed run wrote epochs 0 and 1": saved == ["ckpt-0.npz", "ckpt-1.npz"],
+        "last checkpoints equal bit for bit": same_keys and not differ,
+        "g_state, both generators and the latent moments in the file": {
+            "['g_state']['norm']['var']", "['gen']", "['host_gen']", "['z_opt'].v"} <= set(keys),
+        "nets, running statistics and data_z equal": (
+            all(torch.equal(p, q) for k in ma.nets
+                for p, q in zip(ma.nets[k].parameters(), mb2.nets[k].parameters()))
+            and torch.equal(ma.nets["g"].bn_var, mb2.nets["g"].bn_var)
+            and torch.equal(ma.data_z, mb2.data_z)),
+    }
+    for check, ok in checks.items():
+        print(f"[29c resume] {check}: {'ok' if ok else 'FAIL'}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError("[29c resume] checks failed")
+    return {"uninterrupted_s": wall_a, "killed_s": wall_b1, "resumed_s": wall_b2}
+
+
+def _bgm_cli(root):
+    """29 (d): python -m bayesgm_torch bgm in a new process on a 400-row
+    .npz with NaN holes (the flipout decoder and the gradient penalty, the
+    CLI's defaults)."""
+    import numpy as np
+
+    rng = np.random.RandomState(4)
+    data = (rng.randn(400, 6) @ rng.randn(6, 6)).astype("float32")
+    holes = rng.rand(*data.shape) < 0.05
+    data[holes] = np.nan
+    path = os.path.join(root, "holes.npz")
+    np.savez(path, data=data)
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "bayesgm_torch", "bgm", "-o", root, "-i", path, "-d", "cli",
+         "--device", "cuda", "--z_dim", "3", "-N", "20", "--egm_batches_per_eval", "20",
+         "-E", "1", "--epochs_per_eval", "1", "-M", "20", "--burn_in", "20"],
+        capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t
+    res_dirs = glob.glob(os.path.join(root, "results", "cli", "*"))
+    imputed = None
+    if proc.returncode == 0 and len(res_dirs) == 1:
+        imputed = np.loadtxt(os.path.join(res_dirs[0], "imputed_data.txt"))
+        with np.load(os.path.join(res_dirs[0], "prediction_intervals.npz"),
+                     allow_pickle=True) as f:
+            n_intervals = len(f["intervals"])
+    std = np.nanstd(data, axis=0)
+    scaled = (data - np.nanmean(data, axis=0)) / std
+    print(f"[29d CLI] python -m bayesgm_torch bgm on 400 rows, {int(holes.sum())} holes: rc "
+          f"{proc.returncode} in {wall:.3f} s; stderr tail {proc.stderr[-300:]!r}", flush=True)
+    checks = {"rc 0 and one results folder": proc.returncode == 0 and len(res_dirs) == 1}
+    if imputed is not None:
+        checks.update({
+            "imputed (400, 6), finite": imputed.shape == (400, 6) and bool(np.all(np.isfinite(imputed))),
+            "observed entries kept (standardised)": bool(np.allclose(imputed[~holes],
+                                                                     scaled[~holes], atol=1e-5)),
+            "one interval entry per row": n_intervals == 400,
+        })
+    for check, ok in checks.items():
+        print(f"[29d CLI] {check}: {'ok' if ok else 'FAIL'}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError("[29d CLI] checks failed")
+    return {"wall_s": wall}
 
 
 def main() -> int:
@@ -1518,6 +1821,9 @@ def main() -> int:
     if not all(checks.values()):
         raise AssertionError("[28 ensemble] checks failed")
     del ens
+
+    # 29. BGM: both configs through the driver, a resumed fit and the CLI
+    bgm_phase()
 
     # Bounds at the main path's shapes: K1 paired at 2N, K2 and K3 at the fit
     # batch, K4 at a predict batch.

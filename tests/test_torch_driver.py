@@ -297,11 +297,30 @@ def test_unported_datasets_name_their_item(params, match):
         driver.run_causal(dict(params), epochs=0, egm_iters=0, device="cpu")
 
 
-@pytest.mark.parametrize("config,match", [("Sim_heteroskedastic.yaml", "item 9"),
-                                          ("Mnist.yaml", "item 10")])
-def test_main_names_the_item_of_unported_models(config, match):
-    with pytest.raises(NotImplementedError, match=match):
-        driver.main(["-c", os.path.join(REPO, "configs", config), "--device", "cpu"])
+@pytest.mark.parametrize("config,match", [
+    # BGM is ported: the config now runs, cut by the monkeypatches below
+    pytest.param("Sim_heteroskedastic.yaml", None, id="Sim_heteroskedastic.yaml-item 9"),
+    ("Mnist.yaml", "item 10")])
+def test_main_names_the_item_of_unported_models(config, match, monkeypatch, tmp_path, capsys):
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            driver.main(["-c", os.path.join(REPO, "configs", config), "--device", "cpu"])
+        return
+    load = config_io.load
+
+    def cut_config(path):  # narrow nets, results under tmp_path, a shallow predict
+        return dict(load(path), output_dir=str(tmp_path), g_units=[8], e_units=[8],
+                    dz_units=[8], dx_units=[8], predict=dict(burn_in=5, n_mcmc=10))
+
+    X, Y = np.random.RandomState(0).randn(80, 99), np.random.RandomState(1).randn(80)
+    small = (np.hstack([X[:64], Y[:64, None]]).astype("float32"), X[64:], Y[64:])
+    monkeypatch.setattr(config_io, "load", cut_config)
+    monkeypatch.setattr(driver, "_load_bgm_dataset", lambda params: small)
+    y_mean, intervals = driver.main(["-c", os.path.join(REPO, "configs", config), "-e", "0",
+                                     "-b", "2", "--device", "cpu"])
+    assert y_mean.shape == (16,) and np.all(np.isfinite(y_mean))
+    assert intervals.shape == (16, 1, 2)
+    assert "Pearson corr (posterior mean)" in capsys.readouterr().out
 
 
 def _small_sim_sun(monkeypatch, tmp_path, **overrides):
@@ -434,10 +453,11 @@ def test_version_help_and_no_bgm_subcommand(capsys):
     with pytest.raises(SystemExit):
         cli.main(["--version"])
     assert "0.1.0" in capsys.readouterr().out
-    cli.main([])  # no subcommand -> help
-    assert "causalbgm" in capsys.readouterr().out
-    with pytest.raises(SystemExit):
-        cli.main(["bgm", "-o", "x", "-i", "y"])
+    cli.main([])  # no subcommand -> help, listing both subcommands now that BGM is ported
+    assert "{causalbgm,bgm}" in capsys.readouterr().out
+    with pytest.raises(SystemExit):  # the bgm subcommand parses its flags: -i is required
+        cli.main(["bgm", "-o", "x"])
+    assert "the following arguments are required: -i/--input" in capsys.readouterr().err
 
 
 def test_legacy_causalbgm_entry(triplet, tmp_path):
