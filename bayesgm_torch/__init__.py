@@ -12,6 +12,7 @@ __version__ = "0.1.0"
 
 _SYMBOL_TO_MODULE = {
     "BGM": "bayesgm_torch.models.bgm",
+    "MNISTBGM": "bayesgm_torch.models.mnist",
     "CausalBGM": "bayesgm_torch.models.causalbgm",
     "IdentifiableCausalBGM": "bayesgm_torch.models.identifiable",
     "FullMCMCCausalBGM": "bayesgm_torch.models.fullmcmc",
@@ -28,6 +29,9 @@ _SYMBOL_TO_MODULE = {
     "simulate_heteroskedastic_data": "bayesgm_torch.datasets.simulators",
     "simulate_z_hetero": "bayesgm_torch.datasets.simulators",
     "get_ADRF": "bayesgm_torch.utils.helpers",
+    "mnist_mask_indices": "bayesgm_torch.utils.helpers",
+    "make_ellipse_images": "bayesgm_torch.datasets.images",
+    "load_mnist_images": "bayesgm_torch.datasets.images",
     "parse_file": "bayesgm_torch.utils.data_io",
     "parse_file_triplet": "bayesgm_torch.utils.data_io",
     "save_data": "bayesgm_torch.utils.data_io",

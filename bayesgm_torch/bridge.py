@@ -19,7 +19,12 @@
 - BGM's decoders (``VariationalMLP``, ``FlipoutVariationalMLP``) go both
   ways as their parameter trees; their running statistics are JAX's
   ``g_state = {"norm": {"mean", "var"}}`` (:func:`bn_state_to_numpy`,
-  :func:`bn_state_from_numpy`).
+  :func:`bn_state_from_numpy`);
+- MNISTBGM's conv nets (``ops/conv.py``: encoder, plain or flipout
+  generator, image critic) go both ways as their parameter trees, each
+  4-D kernel carried between JAX's HWIO and the port's layout
+  (:func:`~bayesgm_torch.ops.conv.kernel_to_hwio`; a transposed
+  convolution's kernel is flipped there, once).
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import re
 import numpy as np
 import torch
 
+from bayesgm_torch.ops import conv
 from bayesgm_torch.ops.nn import (
     MLP,
     Critic,
@@ -140,10 +146,59 @@ def bn_state_from_numpy(tree, device=None) -> tuple:
                  for k in ("mean", "var"))
 
 
+_CONV_NETS = {  # the JAX tree's keys of each MNIST net
+    frozenset({"c1", "bn1", "c2", "bn2", "c3", "bn3", "d1", "d2"}): "encoder",
+    frozenset({"fc", "u1", "bn1", "u2", "bn2", "c3", "bn3", "mean", "var"}): "generator",
+    frozenset({"c1", "c2", "c3", "d1", "logit"}): "discriminator",
+}
+
+
+def conv_net_from_numpy(tree):
+    """One ``MNISTEncoder``, ``MNISTGenerator`` (plain, or flipout where its
+    layers hold ``loc`` and ``rho``) or ``MNISTDiscriminator`` from its JAX
+    pytree, its widths read from the kernels' shapes; None for a tree of
+    another kind."""
+    kind = _CONV_NETS.get(frozenset(tree)) if isinstance(tree, dict) else None
+    if kind == "encoder":
+        net = conv.MNISTEncoder(np.shape(tree["d2"]["w"])[1], np.shape(tree["c1"]["w"])[3])
+    elif kind == "generator":
+        z_dim, width = np.shape(tree["fc"]["w"])
+        net = conv.MNISTGenerator(z_dim, width // 196, use_bnn="rho" in tree["u1"])
+    elif kind == "discriminator":
+        net = conv.MNISTDiscriminator(np.shape(tree["c1"]["w"])[3])
+    else:
+        return None
+    with torch.no_grad():
+        for name, param in net.named_parameters():
+            node = tree
+            for part in _param_path(net, name):
+                node = node[part]
+            param.copy_(torch.as_tensor(_from_jax_layout(net, name, node), dtype=torch.float32))
+    return net
+
+
+def _to_jax_layout(net, name: str, a: np.ndarray) -> np.ndarray:
+    """The JAX layout of the value ``a`` of parameter ``name`` (a conv
+    kernel's HWIO; every other parameter as it is)."""
+    if isinstance(net, conv.ConvNet) and a.ndim == 4:
+        return conv.kernel_to_hwio(a, net.get_submodule(name.rpartition(".")[0]).transpose)
+    return a
+
+
+def _from_jax_layout(net, name: str, a) -> np.ndarray:
+    a = np.asarray(a)
+    if isinstance(net, conv.ConvNet) and a.ndim == 4:
+        return conv.kernel_from_hwio(a, net.get_submodule(name.rpartition(".")[0]).transpose)
+    return a
+
+
 def net_from_numpy(tree):
     """One ``VariationalMLP``, ``FlipoutVariationalMLP``, ``FlipoutMLP``,
-    ``Critic`` or ``MLP`` from its JAX pytree, or None for a tree of another
-    kind."""
+    ``Critic``, ``MLP`` or MNIST conv net from its JAX pytree, or None for a
+    tree of another kind."""
+    conv_net = conv_net_from_numpy(tree)
+    if conv_net is not None:
+        return conv_net
     if _is_variational(tree):
         return variational_from_numpy(tree)
     if _is_flipout_net(tree):
@@ -156,8 +211,8 @@ def net_from_numpy(tree):
 
 
 def nets_from_numpy(tree) -> dict:
-    """``{name: FlipoutMLP, Critic or MLP}`` for every flipout-, critic- or
-    plain-MLP-shaped entry of ``tree`` (nets of other kinds are left out)."""
+    """``{name: net}`` for every entry of ``tree`` that :func:`net_from_numpy`
+    reads (nets of other kinds are left out)."""
     nets = {name: net_from_numpy(sub) for name, sub in tree.items()}
     return {name: net for name, net in nets.items() if net is not None}
 
@@ -179,7 +234,7 @@ def flat_weight_samples(samples, net: MLP) -> np.ndarray:
 def net_to_numpy(net) -> dict:
     """The JAX pytree of one port net (inverse of the readers above)."""
     a = lambda t: t.detach().cpu().numpy().astype(np.float32)
-    if isinstance(net, _VariationalBase):
+    if isinstance(net, (_VariationalBase, conv.ConvNet)):
         return params_to_tree(net, [p for _, p in net.named_parameters()])
     if isinstance(net, FlipoutMLP):
         return {"norm": {"gamma": a(net.gamma), "beta": a(net.beta)},
@@ -201,6 +256,8 @@ def nets_to_numpy(nets: dict) -> dict:
 def _param_path(net, name: str) -> list:
     """The JAX pytree path, below the net, of the port parameter ``name``
     (a ``named_parameters`` name such as ``loc.2`` or ``bn_gamma.0``)."""
+    if isinstance(net, conv.ConvNet):  # named by its JAX path: "c1.w", "bn1.gamma"
+        return name.split(".")
     field, _, index = name.partition(".")
     if isinstance(net, (FlipoutMLP, _VariationalBase)) and field in ("gamma", "beta"):
         return ["norm", field]
@@ -229,7 +286,8 @@ def params_to_tree(nets, values):
             for part in parents:
                 node = node.setdefault(part, {})
             v = next(values)
-            node[leaf] = v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+            v = v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+            node[leaf] = _to_jax_layout(net, name, v)
     root = _listify(root)
     return root if isinstance(nets, dict) else root[None]
 
@@ -244,7 +302,8 @@ def tree_to_params(nets, tree, device) -> list:
             node = tree[k] if isinstance(nets, dict) else tree
             for part in _param_path(net, name):
                 node = node[part]
-            out.append(torch.as_tensor(np.asarray(node), dtype=torch.float32, device=device))
+            out.append(torch.as_tensor(_from_jax_layout(net, name, node), dtype=torch.float32,
+                                       device=device))
     return out
 
 
@@ -332,8 +391,8 @@ def npz_tree(path: str) -> dict:
 
 def load_npz(path: str) -> dict:
     """``{"nets": {name: net}, **other arrays}`` from a JAX ``save_weights``
-    file of CausalBGM or BGM (``data_z`` stays a numpy array, BGM's
-    ``g_state`` a nested dict of them)."""
+    file of CausalBGM or BGM, or the port's of MNISTBGM (``data_z`` stays a
+    numpy array, BGM's ``g_state`` a nested dict of them)."""
     tree = npz_tree(path)
     out = {k: v for k, v in tree.items() if k != "nets"}
     out["nets"] = nets_from_numpy(tree["nets"])

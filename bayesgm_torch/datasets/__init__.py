@@ -1,6 +1,6 @@
 """Data layer: the mini-batch sampler, the causal simulations, the prior
-samplers and the simulators (numpy copies of ``bayesgm_tpu/datasets``; the
-semi-synthetic CSV loaders are not ported)."""
+samplers, the simulators (numpy copies of ``bayesgm_tpu/datasets``; the
+semi-synthetic CSV loaders are not ported) and MNIST-shaped images."""
 
 from bayesgm_torch.datasets.base_sampler import Base_sampler
 from bayesgm_torch.datasets.causal_samplers import (
@@ -8,6 +8,7 @@ from bayesgm_torch.datasets.causal_samplers import (
     Sim_Hirano_Imbens_sampler,
     Sim_Sun_sampler,
 )
+from bayesgm_torch.datasets.images import load_mnist_images, make_ellipse_images
 from bayesgm_torch.datasets.prior_samplers import (
     Gaussian_sampler,
     GMM_indep_sampler,
@@ -32,4 +33,6 @@ __all__ = [
     "simulate_low_rank_data",
     "simulate_heteroskedastic_data",
     "simulate_z_hetero",
+    "make_ellipse_images",
+    "load_mnist_images",
 ]

@@ -1,5 +1,5 @@
 """Run a recipe from ``configs/*.yaml`` on the port (counterpart of the
-root ``main.py``, CausalBGM and BGM branches).
+root ``main.py``: its CausalBGM, BGM and MNIST branches).
 
     python -m bayesgm_torch.main -c configs/Sim_Colangelo.yaml [-e EPOCHS] [-b EGM_ITERS]
         [--device cuda|cpu]
@@ -10,7 +10,10 @@ its closed-form ADRF, against which the RMSE and MAPE of the predicted ADRF
 are printed.  The BGM datasets are Sim_low_rank (imputation RMSE and 95 %
 coverage of a hidden column) and Sim_heteroskedastic (Pearson correlations
 of the predicted outcome of a held-out split, interval coverage and
-length).  The optional ``predict:`` and ``fit:`` blocks override predict's
+length).  MNIST fits MNISTBGM on MNIST's training images (a local
+``mnist.npz``, else 8192 seeded ellipse images) and inpaints 64 of them
+under four masks, printing the mean pixel error and the binarised accuracy
+of each.  The optional ``predict:`` and ``fit:`` blocks override predict's
 and fit's keyword arguments and are checked against the engine's
 signatures before the fit.  What the port does not have yet raises
 ``NotImplementedError`` naming its ROADMAP item.
@@ -29,8 +32,14 @@ BGM_DATASETS = ("Sim_heteroskedastic", "Sim_low_rank")
 _NOT_PORTED_DATASETS = {
     "Semi_Twins": "Semi_Twins needs external CSVs and pandas (ROADMAP Queue 1 item 5)",
     "Semi_acic": "Semi_acic needs external CSVs and pandas (ROADMAP Queue 1 item 5)",
-    "MNIST": "MNISTBGM is not ported yet (ROADMAP Queue 1 item 10)",
 }
+MNIST_TEST_IMAGES = 64  # the inpainting sweep's test images
+MNIST_MODES = (  # the inpainting sweep's masks (the JAX driver's)
+    dict(mode="lower_half"),
+    dict(mode="upper_half"),
+    dict(mode="edge_stripe", orientation="horizontal", stripe_pos=14, stripe_width=5),
+    dict(mode="hole", center=(14, 14), hole_size=5),
+)
 
 
 def _load_causal_dataset(name):
@@ -231,6 +240,54 @@ def run_bgm(params, epochs, egm_iters, device="cuda"):
     return y_mean, intervals
 
 
+def _load_mnist_images():
+    from bayesgm_torch.datasets.images import load_mnist_images
+
+    return load_mnist_images()
+
+
+def run_mnist(params, epochs, egm_iters, device="cuda"):
+    """Fit MNISTBGM on the training images, then inpaint the first 64 under
+    each of :data:`MNIST_MODES` (one subject batch, 2000 + 2000 HMC steps,
+    or a ``predict:`` block's ``burn_in``, ``n_mcmc`` and ``alpha``): prints
+    each mask's mean absolute pixel error and binarised accuracy over the
+    missing pixels, writes ``data_pred_mnist_{mode}.npz`` to the results
+    folder and returns ``{mode: (error, accuracy)}``."""
+    from bayesgm_torch.models.mnist import MNISTBGM
+    from bayesgm_torch.utils.helpers import mnist_mask_indices
+
+    predict_overrides = _predict_overrides(params)
+    _check_overrides_against_engine(MNISTBGM, "mnist", predict_overrides)
+    fit_overrides = _fit_overrides(params, MNISTBGM, "mnist")
+    data = _load_mnist_images()
+    model = MNISTBGM(params=params, random_seed=123, device=device)
+    fit_kwargs = dict(epochs=epochs, epochs_per_eval=10, use_egm_init=True,
+                      egm_n_iter=egm_iters, egm_batches_per_eval=500, verbose=1)
+    fit_kwargs.update(fit_overrides)
+    model.fit(data=data, **fit_kwargs)
+
+    n_test = MNIST_TEST_IMAGES
+    kwargs = dict(alpha=0.05, n_mcmc=2000, burn_in=2000)
+    kwargs.update(predict_overrides)
+    os.makedirs(model.save_dir, exist_ok=True)
+    results = {}
+    for mk in MNIST_MODES:
+        _, miss = mnist_mask_indices(**mk)
+        test = np.array(data[:n_test]).reshape(n_test, -1)
+        truth = test[:, miss].copy()
+        test[:, miss] = np.nan
+        imputed, intervals = model.predict(test.reshape(n_test, 28, 28, 1), bs=n_test, **kwargs)
+        pred = imputed.reshape(n_test, -1)[:, miss]
+        err = float(np.mean(np.abs(pred - truth)))
+        acc = float(np.mean((pred > 0.5) == (truth > 0.5)))
+        results[mk["mode"]] = (err, acc)
+        print(f"Inpainting [{mk['mode']}]: mean pixel error {err:.4f}, "
+              f"binarized accuracy {acc:.3f}")
+        np.savez(f"{model.save_dir}/data_pred_mnist_{mk['mode']}.npz",
+                 imputed=imputed, pred_interval=np.asarray(intervals, dtype=object))
+    return results
+
+
 def main(argv=None):
     from bayesgm_torch.utils import config_io
 
@@ -247,6 +304,8 @@ def main(argv=None):
         return run_causal(params, args.epochs, args.batches, device=args.device)
     if dataset in BGM_DATASETS:
         return run_bgm(params, args.epochs, args.batches, device=args.device)
+    if dataset == "MNIST":
+        return run_mnist(params, args.epochs, args.batches, device=args.device)
     if dataset in _NOT_PORTED_DATASETS:
         raise NotImplementedError(_NOT_PORTED_DATASETS[dataset])
     raise ValueError(f"Unknown dataset {dataset}")

@@ -3,6 +3,7 @@ not import the others."""
 
 _SYMBOL_TO_MODULE = {
     "BGM": "bayesgm_torch.models.bgm",
+    "MNISTBGM": "bayesgm_torch.models.mnist",
     "CausalBGM": "bayesgm_torch.models.causalbgm",
     "IdentifiableCausalBGM": "bayesgm_torch.models.identifiable",
     "FullMCMCCausalBGM": "bayesgm_torch.models.fullmcmc",

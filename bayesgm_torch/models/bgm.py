@@ -237,17 +237,19 @@ def _egm_gen_step(cfg: BGMConfig, nets, opt_ge, z, x, generator):
     return opt_ge, {k: t.detach() for k, t in losses.items()}
 
 
-def _egm_iter(cfg: BGMConfig, nets, opt_d, opt_ge, data_x, generator, batch_size):
+def _egm_iter(cfg: BGMConfig, nets, opt_d, opt_ge, data_x, generator, batch_size,
+              disc_step=_egm_disc_step, gen_step=_egm_gen_step):
     """One EGM iteration: ``g_d_freq`` critic steps, then one generator
     step; each step draws its own batch indices and batch z.  Returns
-    ``(opt_d, opt_ge, losses)``."""
+    ``(opt_d, opt_ge, losses)``.  (A model's ``egm_init`` passes its own
+    two steps.)"""
     n = data_x.shape[0]
     d_losses = {}
     for _ in range(cfg.g_d_freq):
         idx, batch_z = _egm_batch(generator, n, batch_size, cfg.z_dim, data_x.device)
-        opt_d, d_losses = _egm_disc_step(cfg, nets, opt_d, batch_z, data_x[idx], generator)
+        opt_d, d_losses = disc_step(cfg, nets, opt_d, batch_z, data_x[idx], generator)
     idx, batch_z = _egm_batch(generator, n, batch_size, cfg.z_dim, data_x.device)
-    opt_ge, g_losses = _egm_gen_step(cfg, nets, opt_ge, batch_z, data_x[idx], generator)
+    opt_ge, g_losses = gen_step(cfg, nets, opt_ge, batch_z, data_x[idx], generator)
     return opt_d, opt_ge, {**d_losses, **g_losses}
 
 
@@ -306,17 +308,19 @@ class BGM:
         floats.
     """
 
+    # the model's steps, which MNISTBGM replaces
+    _train_batch_step = staticmethod(_train_batch_step)
+    _egm_iter = staticmethod(_egm_iter)
+    _egm_disc_step = staticmethod(_egm_disc_step)
+    _egm_gen_step = staticmethod(_egm_gen_step)
+
     def __init__(self, params, timestamp=None, random_seed=None, device="cuda"):
         merged = dict(DEFAULTS)
         merged.update(params)
         self.params = merged
         p = merged
         self.device = resolve_device(device)
-        self.cfg = BGMConfig(
-            x_dim=int(p["x_dim"]), z_dim=int(p["z_dim"]), use_bnn=bool(p["use_bnn"]),
-            kl_weight=float(p["kl_weight"]), lr=float(p["lr"]), lr_theta=float(p["lr_theta"]),
-            lr_z=float(p["lr_z"]), gamma=float(p["gamma"]), alpha=float(p["alpha"]),
-            g_d_freq=int(p["g_d_freq"]))
+        self.cfg = self._make_config(p)
         self.seed = 42 if random_seed is None else int(random_seed)
         self._gen = torch.Generator(device=self.device).manual_seed(self.seed)
         # Host-side stream: epoch permutations and the seeds of forked
@@ -349,16 +353,27 @@ class BGM:
 
     # -- construction -----------------------------------------------------
 
-    def _build_nets(self):
+    @staticmethod
+    def _make_config(p):
+        return BGMConfig(
+            x_dim=int(p["x_dim"]), z_dim=int(p["z_dim"]), use_bnn=bool(p["use_bnn"]),
+            kl_weight=float(p["kl_weight"]), lr=float(p["lr"]), lr_theta=float(p["lr_theta"]),
+            lr_z=float(p["lr_z"]), gamma=float(p["gamma"]), alpha=float(p["alpha"]),
+            g_d_freq=int(p["g_d_freq"]))
+
+    def _make_nets(self, init_gen) -> dict:
+        """The four nets, drawn on the CPU from ``init_gen``."""
         cfg, p = self.cfg, self.params
-        init_gen = torch.Generator().manual_seed(self.seed)
         decoder = FlipoutVariationalMLP if cfg.use_bnn else VariationalMLP
-        nets = {
+        return {
             "g": decoder(cfg.z_dim, cfg.x_dim, p["g_units"], init_gen),
             "e": MLP(cfg.x_dim, cfg.z_dim, p["e_units"], init_gen),
             "dz": Critic(cfg.z_dim, p["dz_units"], init_gen),
             "dx": Critic(cfg.x_dim, p["dx_units"], init_gen),
         }
+
+    def _build_nets(self):
+        nets = self._make_nets(torch.Generator().manual_seed(self.seed))
         self.nets = {k: nets[k].to(self.device) for k in NET_NAMES}
         self.opt_g = optim.adam_init(self.nets["g"].parameters())
         self._opt_d = optim.adam_init(_params(self.nets, ("dz", "dx")))
@@ -394,6 +409,18 @@ class BGM:
         return torch.as_tensor(data if torch.is_tensor(data) else np.asarray(data, np.float32),
                                dtype=torch.float32, device=self.device)
 
+    _train_data = _data  # the fit's data on the device (MNISTBGM: images)
+
+    @torch.no_grad()
+    def _encode(self, data):
+        """``e(data)``, the latent table's start after the EGM."""
+        return mlp_apply(self.nets["e"], data)
+
+    def _g_state(self):
+        """g's running statistics in JAX's form (``g_state``), or None where
+        g keeps none."""
+        return bridge.bn_state_to_numpy(self.nets["g"])
+
     def get_config(self):
         """Return ``{"params": params}``."""
         return {"params": self.params}
@@ -402,8 +429,7 @@ class BGM:
         """Save the nets, g's running statistics and (if fitted) the latent
         table as the ``.npz`` JAX ``BGM.save_weights`` writes; JAX
         ``load_weights`` reads it."""
-        return bridge.save_npz(path, self.nets, self.data_z,
-                               g_state=bridge.bn_state_to_numpy(self.nets["g"]))
+        return bridge.save_npz(path, self.nets, self.data_z, g_state=self._g_state())
 
     def load_weights(self, path: str):
         """Restore the nets, g's running statistics and the latent table (if
@@ -427,9 +453,8 @@ class BGM:
         """The full training state in the JAX package's schema (numpy
         leaves), with the device and host generators' states (uint8) under
         ``['gen']`` and ``['host_gen']`` where JAX keeps its PRNG key."""
-        return {
+        bundle = {
             "nets": bridge.nets_to_numpy(self.nets),
-            "g_state": bridge.bn_state_to_numpy(self.nets["g"]),
             "opt_g": bridge.adam_to_jax(self.opt_g, self.nets["g"]),
             "opt_d": bridge.adam_to_jax(self._opt_d, self._sub(("dz", "dx"))),
             "opt_ge": bridge.adam_to_jax(self._opt_ge, self._sub(("g", "e"))),
@@ -439,12 +464,16 @@ class BGM:
             "host_gen": self._host_gen.get_state().numpy(),
             "epoch": np.asarray(epoch, np.int32),
         }
+        g_state = self._g_state()
+        if g_state is not None:
+            bundle["g_state"] = g_state
+        return bundle
 
     def _apply_full_state(self, state):
         """Load a restored bundle into the model; returns ``(z_opt, epoch)``."""
         dev = self.device
         self._copy_nets(bridge.nets_from_numpy(state["nets"]), self._resume_ckpt,
-                        state["g_state"])
+                        state.get("g_state"))
         self.opt_g = bridge.adam_from_jax(state["opt_g"], self.nets["g"], dev)
         self._opt_d = bridge.adam_from_jax(state["opt_d"], self._sub(("dz", "dx")), dev)
         self._opt_ge = bridge.adam_from_jax(state["opt_ge"], self._sub(("g", "e")), dev)
@@ -482,15 +511,16 @@ class BGM:
         evaluation generator is forked whether or not it is used; with
         ``verbose`` the slot prints the losses and the reconstruction MSE,
         with ``save_res`` it writes ``init_data_gen_at_{iter}.npz``."""
-        data = self._data(data)
+        data = self._train_data(data)
         print("EGM Initialization Starts ...")
         done, total = 0, egm_n_iter + 1
         losses = None
         while done < total:
             n_eval = min(egm_batches_per_eval, total - done)
             for _ in range(n_eval):
-                self._opt_d, self._opt_ge, losses = _egm_iter(
-                    self.cfg, self.nets, self._opt_d, self._opt_ge, data, self._gen, batch_size)
+                self._opt_d, self._opt_ge, losses = self._egm_iter(
+                    self.cfg, self.nets, self._opt_d, self._opt_ge, data, self._gen, batch_size,
+                    disc_step=self._egm_disc_step, gen_step=self._egm_gen_step)
             done += n_eval
             eval_gen = self._fork_generator()
             if verbose:
@@ -505,11 +535,14 @@ class BGM:
                 mse = float(self.evaluate(data, generator=eval_gen))
                 print("iter [%d/%d]: MSE_x: %.4f\n" % (done - 1, egm_n_iter, mse))
             if self.params["save_res"]:
-                with torch.no_grad():
-                    z_enc = mlp_apply(self.nets["e"], data).cpu().numpy()
-                self._save_generated(f"{self.save_dir}/init_data_gen_at_{done - 1}.npz", z_enc)
+                self._save_egm_generated(f"{self.save_dir}/init_data_gen_at_{done - 1}.npz", data)
         self.egm_losses = {k: float(t) for k, t in losses.items()}
         print("EGM Initialization Ends.")
+
+    def _save_egm_generated(self, path, data):
+        """An EGM logging slot's ``save_res`` file: :meth:`_save_generated`
+        with ``e(data)``."""
+        self._save_generated(path, self._encode(data).cpu().numpy())
 
     def _save_generated(self, path, z):
         """Write two ``generate(5000)`` draws (with and without the x noise),
@@ -539,7 +572,7 @@ class BGM:
         ``mesh`` is not ported yet and raises ``NotImplementedError``."""
         if mesh is not None:
             raise NotImplementedError("fit(mesh=...) is not ported yet (ROADMAP Queue 1 item 12)")
-        data = self._data(data)
+        data = self._train_data(data)
         n = data.shape[0]
         cfg = self.cfg
         if self.params["save_res"]:
@@ -556,8 +589,7 @@ class BGM:
                               batch_size=egm_batch_size or batch_size,
                               egm_batches_per_eval=egm_batches_per_eval, verbose=verbose)
                 print("Initialize latent variables Z with e(V)...")
-                with torch.no_grad():
-                    self.data_z = mlp_apply(self.nets["e"], data)
+                self.data_z = self._encode(data)
             else:
                 print("Random initialization of latent variables Z...")
                 self.data_z = torch.randn((n, cfg.z_dim), generator=self._gen,
@@ -566,8 +598,8 @@ class BGM:
 
         n_full = n // batch_size
         if n_full == 0:
-            raise ValueError(f"batch_size={batch_size} exceeds n={n}; the BGM fit "
-                             "skips incomplete batches (as the reference does).")
+            raise ValueError(f"batch_size={batch_size} exceeds n={n}; the {type(self).__name__} "
+                             "fit skips incomplete batches (as the reference does).")
         self.history_loss = []
         decay = self.params.get("lr_decay")
         print("Iterative Updating Starts ...")
@@ -577,7 +609,7 @@ class BGM:
             scale = optim.lr_schedule_scale(decay, epoch, epochs)
             for b in range(n_full):
                 idx = perm[b * batch_size:(b + 1) * batch_size]
-                self.opt_g, z_opt, losses = _train_batch_step(
+                self.opt_g, z_opt, losses = self._train_batch_step(
                     cfg, g, self.opt_g, self.data_z, z_opt, idx, self._gen, data, scale)
             self.fit_losses = {k: float(t) for k, t in losses.items()}
 
@@ -727,6 +759,25 @@ class BGM:
             loss_px = torch.sum(ll, dim=1)
         return -(dist.standard_normal_neg_log_prior(z) + loss_px)
 
+    def _hmc_target(self, n: int):
+        """``(log_prob, noise)`` of :meth:`tfp_mcmc_sampler`'s chain over
+        ``n`` rows: ``log_prob(params, z, g)`` (g a generator; with
+        ``noise(g)`` given, that draw instead), see :func:`mcmc.hmc`."""
+        cfg = self.cfg
+        if not cfg.use_bnn:
+            def log_prob(p, z, generator):
+                return _masked_log_prob(cfg, p["nets"]["g"], z, p["data"], p["mask"],
+                                        generator=generator)
+            return log_prob, None
+        layers = self.nets["g"].layers()
+
+        def noise(generator):
+            return nn_ops._fused_flipout_draws(layers, (n, cfg.z_dim), generator)
+
+        def log_prob(p, z, draws):
+            return _masked_log_prob(cfg, p["nets"]["g"], z, p["data"], p["mask"], draws=draws)
+        return log_prob, noise
+
     def tfp_mcmc_sampler(self, data, ind_x1=None, n_mcmc=3000, burn_in=5000, step_size=0.01,
                          num_leapfrog_steps=10, seed=42, collect=None, mesh=None,
                          collect_p=None):
@@ -750,24 +801,10 @@ class BGM:
         cfg = self.cfg
         data_np = np.asarray(data, np.float32)
         n = data_np.shape[0]
-        params = {"nets": self.nets, "data": self._data(data_np),
-                  "mask": self._prep_obs_dense_mask(data_np, ind_x1, data_np.shape[1])}
-        if cfg.use_bnn:
-            layers = self.nets["g"].layers()
-
-            def noise(generator):
-                return nn_ops._fused_flipout_draws(layers, (n, cfg.z_dim), generator)
-
-            def log_prob(p, z, draws):
-                return _masked_log_prob(cfg, p["nets"]["g"], z, p["data"], p["mask"],
-                                        draws=draws)
-        else:
-            noise = None
-
-            def log_prob(p, z, generator):
-                return _masked_log_prob(cfg, p["nets"]["g"], z, p["data"], p["mask"],
-                                        generator=generator)
-
+        flat = data_np.reshape(n, -1)
+        params = {"nets": self.nets, "data": self._data(flat),
+                  "mask": self._prep_obs_dense_mask(flat, ind_x1, flat.shape[1])}
+        log_prob, noise = self._hmc_target(n)
         if collect_p is None and collect is not None:
             collect_p = lambda p, z, generator: collect(z, generator)
         init_gen = torch.Generator(device=self.device).manual_seed(int(seed))
@@ -800,56 +837,57 @@ class BGM:
         ``mesh`` is not ported yet and raises ``NotImplementedError``."""
         if not 0 < alpha < 1:
             raise ValueError("The significance level 'alpha' must be greater than 0 and less than 1.")
-        cfg = self.cfg
         data_np = np.asarray(data, np.float32)
         n = data_np.shape[0]
-        bs = self._resolve_impute_bs(bs, n, n_mcmc, data_np.shape[1])
+        bs = self._resolve_impute_bs(bs, n, n_mcmc, int(data_np[0].size))
         is_nan = np.isnan(data_np)
         data_clean = np.nan_to_num(data_np, nan=0.0)
-
-        def decode_p(params, z, generator):
-            mu, sigma_sq, _ = _g_apply(cfg, params["nets"]["g"], z, generator, train=False)
-            return reparameterize(mu, sigma_sq, generator)
+        miss_flat = is_nan.reshape(n, -1)
 
         cubes = []
         for start in range(0, n, bs):
             end = min(start + bs, n)
-            ind_x1_list = [np.where(~row)[0].tolist() for row in is_nan[start:end]]
+            ind_x1_list = [np.where(~row)[0].tolist() for row in miss_flat[start:end]]
             cubes.append(self.tfp_mcmc_sampler(
                 data=data_clean[start:end], ind_x1=ind_x1_list, n_mcmc=n_mcmc,
                 burn_in=burn_in, step_size=step_size, num_leapfrog_steps=num_leapfrog_steps,
-                seed=seed, collect_p=decode_p, mesh=mesh))
-        data_x_pred_all = np.concatenate(cubes, axis=1)  # (n_mcmc, n, x_dim)
+                seed=seed, collect_p=self._decode_p, mesh=mesh))
+        data_x_pred_all = np.concatenate(cubes, axis=1)  # (n_mcmc, n, *data.shape[1:])
+        flat_pred = data_x_pred_all.reshape(data_x_pred_all.shape[0], n, -1)
 
-        miss_mask = is_nan
-        if bool(np.all(miss_mask == miss_mask[0])):
-            miss_idx = np.where(miss_mask[0])[0]
+        if bool(np.all(miss_flat == miss_flat[0])):
+            miss_idx = np.where(miss_flat[0])[0]
             if miss_idx.size == 0:
                 pred_interval = np.zeros((n, 0, 2), np.float32)
             else:
-                dim_samples = data_x_pred_all[:, :, miss_idx]
+                dim_samples = flat_pred[:, :, miss_idx]
                 lower = np.quantile(dim_samples, alpha / 2.0, axis=0)
                 upper = np.quantile(dim_samples, 1.0 - alpha / 2.0, axis=0)
                 pred_interval = np.stack([lower, upper], axis=-1)
         else:
             pred_interval = []
             for i in range(n):
-                miss_idx_i = np.where(miss_mask[i])[0]
+                miss_idx_i = np.where(miss_flat[i])[0]
                 if miss_idx_i.size == 0:
                     pred_interval.append(np.zeros((0, 2), np.float32))
                     continue
-                dim_samples_i = data_x_pred_all[:, i, miss_idx_i]
+                dim_samples_i = flat_pred[:, i, miss_idx_i]
                 lower_i = np.quantile(dim_samples_i, alpha / 2.0, axis=0)
                 upper_i = np.quantile(dim_samples_i, 1.0 - alpha / 2.0, axis=0)
                 pred_interval.append(np.stack([lower_i, upper_i], axis=-1))
 
-        diag = (self._imputation_diagnostics(
-                    data_x_pred_all.reshape(data_x_pred_all.shape[0], -1),
-                    miss_mask.reshape(-1), miss_mask.shape)
+        diag = (self._imputation_diagnostics(flat_pred.reshape(flat_pred.shape[0], -1),
+                                             miss_flat.reshape(-1), is_nan.shape)
                 if return_diagnostics else None)
         if return_samples:
             out = (data_x_pred_all, pred_interval)
         else:
-            data_imputed = np.where(miss_mask, data_x_pred_all.mean(axis=0), data_clean)
+            data_imputed = np.where(is_nan, data_x_pred_all.mean(axis=0), data_clean)
             out = (data_imputed, pred_interval)
         return out + (diag,) if return_diagnostics else out
+
+    def _decode_p(self, params, z, generator):
+        """predict's per-kept-step statistic: one reparameterised ``x`` draw
+        of g (eval mode, fresh flipout noise)."""
+        mu, sigma_sq, _ = _g_apply(self.cfg, params["nets"]["g"], z, generator, train=False)
+        return reparameterize(mu, sigma_sq, generator)

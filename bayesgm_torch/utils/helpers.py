@@ -1,5 +1,6 @@
-"""Closed-form ADRF oracles (port of ``get_ADRF`` in
-``bayesgm_tpu/utils/helpers.py``, plain numpy)."""
+"""Closed-form ADRF oracles and MNIST's inpainting masks (port of
+``get_ADRF`` and ``mnist_mask_indices`` in ``bayesgm_tpu/utils/helpers.py``,
+plain numpy)."""
 
 from __future__ import annotations
 
@@ -41,3 +42,51 @@ def get_ADRF(x_values=None, x_min=None, x_max=None, nb_intervals=None, dataset: 
     if dataset == "Sun":
         return x_values - 0.5 + np.exp(-0.5) + 1.0
     return 1.2 * x_values + x_values**3
+
+
+def mnist_mask_indices(shape=(28, 28), mode="hole", center=(14, 14), num_holes=1,
+                       hole_size=3, orientation="horizontal", stripe_width=4,
+                       stripe_pos=14, seed=None):
+    """Pixel masks as ``(observed, missing)`` flat index arrays.
+
+    Modes: ``'hole'``/``'holes'`` (a square of ``hole_size`` at ``center``, or
+    at a seeded random centre where ``center`` is None), ``'edge_stripe'``
+    (``stripe_width`` rows or columns at ``stripe_pos``), and the four half
+    images ``'upper_half'``, ``'lower_half'``, ``'left_half'``,
+    ``'right_half'``.  ``num_holes`` is accepted and unused, as in the JAX
+    package.
+    """
+    H, W = shape
+    mask = np.zeros((H, W), dtype=bool)  # True = missing
+
+    if mode in ("hole", "holes"):
+        rng = np.random.default_rng(seed)
+        r = hole_size
+        r2 = r // 2
+        if center is None:
+            valid_rows = np.arange(r2, H - (r - r2 - 1))
+            valid_cols = np.arange(r2, W - (r - r2 - 1))
+            center = (rng.choice(valid_rows), rng.choice(valid_cols))
+        cy, cx = center
+        mask[cy - r2:cy - r2 + r, cx - r2:cx - r2 + r] = True
+    elif mode == "edge_stripe":
+        w = int(stripe_width)
+        start = stripe_pos - w // 2
+        end = start + w
+        if orientation == "horizontal":
+            mask[start:end, :] = True
+        elif orientation == "vertical":
+            mask[:, start:end] = True
+        else:
+            raise ValueError(f"Unknown orientation: {orientation}")
+    elif mode == "upper_half":
+        mask[:H // 2, :] = True
+    elif mode == "lower_half":
+        mask[H // 2:, :] = True
+    elif mode == "left_half":
+        mask[:, :W // 2] = True
+    elif mode == "right_half":
+        mask[:, W // 2:] = True
+    else:
+        raise ValueError(f"Unknown mode: {mode}")
+    return np.flatnonzero(~mask), np.flatnonzero(mask)

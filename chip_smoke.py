@@ -184,6 +184,33 @@ Pallas kernel):
               process on a .npz with NaN holes.  No kernel wrapper is
               called in any of them.
 
+MNISTBGM, BGM on images (no kernel: its JAX counterpart launches no Pallas
+kernel; its convolutions are cuDNN's):
+
+30. MNIST   - (a) configs/Mnist.yaml (plain generator, z_dim 10, filters
+              32/32/64, cosine decay, save_res and save_model) through
+              bayesgm_torch.main.main on the 8192 seeded ellipse images,
+              cut by -e 1 -b 200, a fit: block (an evaluation every epoch)
+              and a predict: block (100 + 100 HMC steps, L = 10) over the
+              driver's four masks on 64 images: ms per EGM iteration, per
+              training step and per HMC step, the losses finite, MSE_x after
+              the fit below the untrained model's, imputed pixels finite in
+              [0, 1] with the observed ones untouched, ordered intervals,
+              L + 2 target evaluations per HMC step; (b) use_bnn: true (the
+              flipout generator) at the same widths through the model's API:
+              EGM 100, one pass, the upper_half mask, the same checks; (c) a
+              fit on 512 images killed in the evaluate of epoch 1 and
+              resumed, its last checkpoint (nets, Adam states, data_z and
+              its moments, both generators) equal bit for bit to an
+              uninterrupted run's, under cuDNN's deterministic algorithms
+              (set for (c) alone: its default ones differed).  No kernel
+              wrapper is called in any of them.  The phase runs under
+              PyTorch's default cuDNN TF32 setting (on), as a user's
+              process does: every convolution must run with it off (the
+              model's entry points turn it off), and it must be on again
+              after.  Phase 30's peak memory is printed, with the part
+              earlier phases still hold.
+
 Launch counts are set to 0 just before each driven path and read just
 after; the launches of the comparisons do not count.  The last lines are a
 JSON object with the kernels' numbers (each with its bound: the larger of
@@ -229,6 +256,8 @@ INFER_CHUNK_DRAWS = 64  # one chunk of FullMCMC's infer_from_latent_posterior
 ENS_EGM, ENS_EPOCHS = 100, 0  # phase 28's member fits: EGM iterations, passes - 1
 BGM_EPOCHS, BGM_EGM, BGM_HMC = 2, 200, 100  # phase 29's cut: -e, -b, HMC burn-in = kept steps
 BGM_LEAPFROG, BGM_BS = 10, 500  # the driver's HMC leapfrog steps and subject batch (hetero)
+MNIST_EPOCHS, MNIST_EGM, MNIST_HMC = 1, 200, 100  # phase 30a's cut: -e, -b, HMC burn-in = kept steps
+MNIST_BNN_EGM, MNIST_RESUME_N, MNIST_LEAPFROG = 100, 512, 10  # 30b's EGM, 30c's images, HMC's L
 SPIN_CYCLES = 5_000_000  # ~2.5 ms of spin ahead of a timed call: longer than any wrapper's host time
 
 
@@ -637,6 +666,332 @@ def _bgm_cli(root):
     if not all(checks.values()):
         raise AssertionError("[29d CLI] checks failed")
     return {"wall_s": wall}
+
+
+def mnist_phase() -> dict:
+    """Phase 30: MNISTBGM through its entry points at the shipped widths
+    (see the module docstring); raises on any failed check.  Returns the
+    measured numbers."""
+    import torch
+
+    from bayesgm_torch.models import mnist as mnist_mod
+    from bayesgm_torch.ops import mcmc
+
+    out = {}
+    calls, restore = _counting_kernel_calls()
+    spans, chains = {}, []
+    names = ("_train_batch_step", "_egm_iter")  # _egm_iter is BGM's, with MNIST's two steps
+    saved = {name: vars(mnist_mod.MNISTBGM).get(name) for name in names}
+    hmc = mcmc.hmc
+    functional = torch.nn.functional
+    convs = {"f32": 0, "tf32": 0}  # convolution calls by cuDNN's TF32 setting at the call
+    conv_fns = {name: getattr(functional, name) for name in ("conv2d", "conv_transpose2d")}
+
+    def spying(fn):
+        def call(*a, **kw):
+            convs["tf32" if torch.backends.cudnn.allow_tf32 else "f32"] += 1
+            return fn(*a, **kw)
+        return call
+
+    def recording_hmc(log_prob_fn, init_state, *a, **kw):
+        evals = [0]
+
+        def counted(p, z, d):
+            evals[0] += 1
+            return log_prob_fn(p, z, d)
+        res = timed_call(spans, "chain", hmc)(counted, init_state, *a, **kw)
+        chains.append((init_state.shape[0], kw["burn_in"] + kw["n_keep"], evals[0]))
+        return res
+
+    for name in names:  # each step timed alone (host clock, synchronized)
+        fn = getattr(mnist_mod.MNISTBGM, name)
+        setattr(mnist_mod.MNISTBGM, name, staticmethod(timed_call(spans, name, fn)))
+    mcmc.hmc = recording_hmc
+    for name, fn in conv_fns.items():
+        setattr(functional, name, spying(fn))
+    # the phase runs under PyTorch's default, cuDNN's TF32 on, as a user's
+    # process does: the model's entry points must turn it off themselves
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    root = tempfile.mkdtemp(prefix="chip_smoke_mnist_")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30  # earlier phases' tensors still alive
+    try:
+        out["mnist"] = _mnist_driver_run(mnist_mod, root, spans, chains)
+        out["mnist-flipout"] = _mnist_flipout(mnist_mod, root, spans, chains)
+        out["mnist-resume"] = _mnist_resume(mnist_mod, root)
+        tf32_after = torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+        restore()
+        mcmc.hmc = hmc
+        for name, fn in conv_fns.items():
+            setattr(functional, name, fn)
+        for name, fn in saved.items():
+            if fn is None:
+                delattr(mnist_mod.MNISTBGM, name)
+            else:
+                setattr(mnist_mod.MNISTBGM, name, fn)
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.synchronize()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["held_gib"] = held
+    out["own_peak_gib"] = out["peak_gib"] - held
+    out["convolutions"] = dict(convs)
+    print(f"[30 MNIST] peak {out['peak_gib']:.3f} GiB allocated during phase 30, of which "
+          f"{held:.3f} GiB held from earlier phases and {out['own_peak_gib']:.3f} GiB its own; "
+          f"kernel wrapper calls: {calls}; convolution calls by cuDNN TF32 setting: {convs}, "
+          f"the setting after the phase {tf32_after}; {torch.cuda.get_device_name(0)}, "
+          f"nvidia-smi: {_card_line()}", flush=True)
+    if sum(calls.values()):
+        raise AssertionError("[30 MNIST] a kernel wrapper was called")
+    if convs["tf32"] or not convs["f32"] or tf32_after is not True:
+        raise AssertionError("[30 MNIST] a convolution ran in TF32, or the caller's TF32 "
+                             "setting was not restored")
+    return out
+
+
+def _card_line():
+    from bayesgm_torch.utils.device import card_info
+
+    return card_info()
+
+
+def _mnist_step_times(spans, before, egm_iters, chain_steps):
+    """Per-step ms from the spans added since ``before``."""
+    def added(name):
+        return spans.get(name, 0.0) - before.get(name, 0.0)
+    return {"ms_per_egm_iter": 1e3 * added("_egm_iter") / egm_iters["iters"],
+            "ms_per_train_step": 1e3 * added("_train_batch_step") / egm_iters["steps"],
+            "ms_per_hmc_step": 1e3 * added("chain") / chain_steps}
+
+
+def _mnist_checks(tag, model, mse0, predictions, new_chains):
+    """The checks 30a and 30b share; raises if one fails."""
+    import numpy as np
+
+    losses = {**model.egm_losses, **model.fit_losses}
+    checks = {
+        "EGM and training losses finite": all(np.isfinite(v) for v in losses.values()),
+        f"MSE_x after the fit {model.history_loss[-1]:.5f} below the untrained model's "
+        f"{mse0:.5f}": model.history_loss[-1] < mse0,
+        "imputed pixels finite, in [0, 1]": all(
+            bool(np.all(np.isfinite(imp)) and np.all((imp >= 0) & (imp <= 1)))
+            for _, imp, _ in predictions),
+        "observed pixels untouched": all(
+            bool(np.array_equal(imp[~np.isnan(test)], test[~np.isnan(test)]))
+            for test, imp, _ in predictions),
+        "intervals ordered": all(bool(np.all(iv[..., 0] <= iv[..., 1])) for _, _, iv in predictions),
+        f"L + 2 = {MNIST_LEAPFROG + 2} target evaluations per HMC step": all(
+            e == 1 + s * (MNIST_LEAPFROG + 2) for _, s, e in new_chains),
+        "64 rows per chain": [r for r, _, _ in new_chains] == [64] * len(predictions),
+    }
+    for check, ok in checks.items():
+        print(f"{tag} {check}: {'ok' if ok else 'FAIL'}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"{tag} checks failed")
+
+
+def _recording_model(mnist_mod, built, predictions, mse0):
+    """Patch ``MNISTBGM.__init__`` to record each model, the untrained
+    model's reconstruction MSE (under a generator of its own, so the
+    model's streams are untouched) and every predict's input and output."""
+    import numpy as np
+    import torch
+
+    init = mnist_mod.MNISTBGM.__init__
+
+    def recording_init(self, *a, **kw):
+        init(self, *a, **kw)
+        fit, predict = self.fit, self.predict
+
+        def fit_(data, **kw_):
+            gen = torch.Generator(device=self.device).manual_seed(0)
+            mse0.append(float(self.evaluate(data, generator=gen)))
+            return fit(data, **kw_)
+
+        def predict_(data, **kw_):
+            imputed, iv = predict(data, **kw_)
+            predictions.append((np.asarray(data), imputed, iv))
+            return imputed, iv
+        self.fit, self.predict = fit_, predict_
+        built.append(self)
+    mnist_mod.MNISTBGM.__init__ = recording_init
+    return init
+
+
+def _mnist_driver_run(mnist_mod, root, spans, chains):
+    """30 (a): configs/Mnist.yaml through bayesgm_torch.main.main."""
+    import torch
+
+    from bayesgm_torch import main as driver
+
+    text = (open("configs/Mnist.yaml").read().replace("output_dir: '.'", f"output_dir: '{root}'")
+            + f"fit:\n  epochs_per_eval: 1\npredict:\n  burn_in: {MNIST_HMC}\n"
+            f"  n_mcmc: {MNIST_HMC}\n")
+    cfg_path = os.path.join(root, "Mnist.yaml")
+    with open(cfg_path, "w") as f:
+        f.write(text)
+    built, predictions, mse0 = [], [], []
+    before, n_chains = dict(spans), len(chains)
+    init = _recording_model(mnist_mod, built, predictions, mse0)
+    printed = io.StringIO()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(printed):
+            results = driver.main(["-c", cfg_path, "-e", str(MNIST_EPOCHS), "-b", str(MNIST_EGM),
+                                   "--device", "cuda"])
+    finally:
+        mnist_mod.MNISTBGM.__init__ = init
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    m, new_chains = built[0], chains[n_chains:]
+    steps = (MNIST_EPOCHS + 1) * (len(m.data_z) // 32)
+    res = {"wall_s": wall, "train_steps": steps, "untrained_mse": mse0[0],
+           "mse_x": m.history_loss, "results": results,
+           **_mnist_step_times(spans, before, {"iters": MNIST_EGM + 1, "steps": steps},
+                               sum(s for _, s, _ in new_chains))}
+    lines = [l for l in printed.getvalue().splitlines()
+             if l.startswith(("Inpainting", "HMC Acceptance", "MNIST unavailable", "Loaded MNIST"))]
+    print(f"[30a mnist] {len(m.data_z)} images: wall {wall:.3f} s; EGM iteration "
+          f"{res['ms_per_egm_iter']:.3f} ms, training step {res['ms_per_train_step']:.3f} ms over "
+          f"{steps}, HMC step at 64 images {res['ms_per_hmc_step']:.3f} ms incl. the kept steps' "
+          f"decode, chains {new_chains} (rows, steps, target evaluations); MSE_x {m.history_loss} "
+          f"(untrained {mse0[0]:.5f}); {lines}", flush=True)
+    if len(built) != 1 or type(m.nets["g"]).__name__ != "MNISTGenerator" or m.cfg.use_bnn:
+        raise AssertionError("[30a mnist] expected one plain-generator MNISTBGM")
+    _mnist_checks("[30a mnist]", m, mse0[0], predictions, new_chains)
+    if len(predictions) != 4 or not os.path.exists(os.path.join(m.checkpoint_path, "ckpt-1.npz")):
+        raise AssertionError("[30a mnist] four masks and a checkpoint of epoch 1 expected")
+    return res
+
+
+def _mnist_flipout(mnist_mod, root, spans, chains):
+    """30 (b): the flipout generator through the model's API."""
+    import numpy as np
+    import torch
+
+    from bayesgm_torch.datasets.images import load_mnist_images
+    from bayesgm_torch.utils import config_io
+    from bayesgm_torch.utils.helpers import mnist_mask_indices
+
+    params = config_io.load("configs/Mnist.yaml")
+    params.update(use_bnn=True, output_dir=os.path.join(root, "b"), save_res=False,
+                  save_model=False)
+    with contextlib.redirect_stdout(io.StringIO()):
+        data = load_mnist_images()
+    built, predictions, mse0 = [], [], []
+    before, n_chains = dict(spans), len(chains)
+    init = _recording_model(mnist_mod, built, predictions, mse0)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    try:
+        m = mnist_mod.MNISTBGM(params, random_seed=123, device="cuda")
+        with contextlib.redirect_stdout(io.StringIO()):
+            m.fit(data, epochs=0, epochs_per_eval=1, egm_n_iter=MNIST_BNN_EGM,
+                  egm_batches_per_eval=MNIST_BNN_EGM + 1, verbose=0)
+            _, miss = mnist_mask_indices(mode="upper_half")
+            test = np.array(data[:64]).reshape(64, -1)
+            test[:, miss] = np.nan
+            m.predict(test.reshape(64, 28, 28, 1), bs=64, n_mcmc=MNIST_HMC, burn_in=MNIST_HMC)
+    finally:
+        mnist_mod.MNISTBGM.__init__ = init
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    new_chains = chains[n_chains:]
+    steps = len(m.data_z) // 32
+    res = {"wall_s": wall, "train_steps": steps, "untrained_mse": mse0[0], "mse_x": m.history_loss,
+           **_mnist_step_times(spans, before, {"iters": MNIST_BNN_EGM + 1, "steps": steps},
+                               sum(s for _, s, _ in new_chains))}
+    print(f"[30b mnist-flipout] wall {wall:.3f} s; EGM iteration {res['ms_per_egm_iter']:.3f} ms, "
+          f"training step {res['ms_per_train_step']:.3f} ms over {steps}, HMC step at 64 images "
+          f"{res['ms_per_hmc_step']:.3f} ms, chains {new_chains}; MSE_x {m.history_loss} "
+          f"(untrained {mse0[0]:.5f})", flush=True)
+    if type(m.nets["g"].u1).__name__ != "FlipoutConv":
+        raise AssertionError("[30b mnist-flipout] expected the flipout generator")
+    _mnist_checks("[30b mnist-flipout]", m, mse0[0], predictions, new_chains)
+    return res
+
+
+def _mnist_resume(mnist_mod, root):
+    """30 (c): Mnist.yaml's widths on MNIST_RESUME_N ellipse images (EGM
+    50, epochs 0..2, cosine decay), killed in the evaluate of epoch 1 and
+    resumed by a new instance, against an uninterrupted run."""
+    import numpy as np
+    import torch
+
+    from bayesgm_torch.datasets.images import make_ellipse_images
+    from bayesgm_torch.utils import config_io
+
+    params = config_io.load("configs/Mnist.yaml")
+    params.update(save_res=False)
+    data = make_ellipse_images(MNIST_RESUME_N, seed=5)
+
+    def run(folder, die_at=None):
+        m = mnist_mod.MNISTBGM(dict(params, output_dir=os.path.join(root, folder)),
+                               timestamp="resume", random_seed=5, device="cuda")
+        if die_at is not None:
+            n_calls, evaluate = [0], m.evaluate
+
+            def dying(*a, **kw):
+                n_calls[0] += 1
+                if n_calls[0] == die_at:
+                    raise RuntimeError("simulated kill")
+                return evaluate(*a, **kw)
+            m.evaluate = dying
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        try:
+            m.fit(data, epochs=2, epochs_per_eval=1, batch_size=32, egm_n_iter=50,
+                  egm_batches_per_eval=51, verbose=0)
+        except RuntimeError as e:
+            if die_at is None or "simulated kill" not in str(e):
+                raise
+        torch.cuda.synchronize()
+        return m, time.perf_counter() - t
+
+    # cuDNN's default convolution backward algorithms may accumulate with
+    # atomics, in another order each run: bit-equal resume needs its
+    # deterministic algorithms (this phase only)
+    modes = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            ma, wall_a = run("a")
+            mb1, wall_b1 = run("b", die_at=2)
+            saved = sorted(os.listdir(mb1.checkpoint_path))
+            mb2, wall_b2 = run("b")
+        with np.load(os.path.join(ma.checkpoint_path, "ckpt-2.npz")) as fa, \
+                np.load(os.path.join(mb2.checkpoint_path, "ckpt-2.npz")) as fb:
+            keys = sorted(fa.files)
+            differ = [k for k in keys if not np.array_equal(fa[k], fb[k])]
+            same_keys = keys == sorted(fb.files)
+        deterministic = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = modes
+    print(f"[30c mnist-resume] {MNIST_RESUME_N} images: uninterrupted {wall_a:.3f} s, killed "
+          f"{wall_b1:.3f} s (checkpoints {saved}), resumed {wall_b2:.3f} s; {len(keys)} leaves, "
+          f"differing: {differ[:8]} ({len(differ)}); cudnn.deterministic, benchmark "
+          f"{deterministic}", flush=True)
+    checks = {
+        "killed run wrote epoch 0": saved == ["ckpt-0.npz"],
+        "last checkpoints equal bit for bit": same_keys and not differ,
+        "Adam states, both generators and the latent moments in the file": {
+            "['opt_g'].m['u1']['w']", "['opt_ge'].v['e']['c1']['w']", "['gen']", "['host_gen']",
+            "['z_opt'].v", "['data_z']"} <= set(keys),
+        "nets and data_z equal": (
+            all(torch.equal(p, q) for k in ma.nets
+                for p, q in zip(ma.nets[k].parameters(), mb2.nets[k].parameters()))
+            and torch.equal(ma.data_z, mb2.data_z)),
+    }
+    for check, ok in checks.items():
+        print(f"[30c mnist-resume] {check}: {'ok' if ok else 'FAIL'}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError("[30c mnist-resume] checks failed")
+    return {"uninterrupted_s": wall_a, "killed_s": wall_b1, "resumed_s": wall_b2,
+            "leaves": len(keys)}
 
 
 def main() -> int:
@@ -1824,6 +2179,9 @@ def main() -> int:
 
     # 29. BGM: both configs through the driver, a resumed fit and the CLI
     bgm_phase()
+
+    # 30. MNISTBGM: Mnist.yaml through the driver, the flipout generator, a resumed fit
+    mnist_phase()
 
     # Bounds at the main path's shapes: K1 paired at 2N, K2 and K3 at the fit
     # batch, K4 at a predict batch.

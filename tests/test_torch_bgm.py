@@ -558,6 +558,9 @@ def test_load_bgm_dataset_matches_the_jax_driver():
 
 
 def test_port_bgm_never_imports_jax(tmp_path):
+    """BGM with each decoder, the samplers, and MNISTBGM with each generator
+    fit and predict in a new process that imports neither JAX nor the JAX
+    package."""
     code = textwrap.dedent(f"""
         import sys
         import numpy as np
@@ -581,6 +584,20 @@ def test_port_bgm_never_imports_jax(tmp_path):
             assert imputed.shape == (6, 4) and iv.shape == (6, 1, 2)
             assert np.all(np.isfinite(imputed))
         GMM_indep_sampler(N=20, sd=0.1, dim=2, n_components=3).get_density(np.zeros((2, 2)))
+        from bayesgm_torch import MNISTBGM, make_ellipse_images, mnist_mask_indices
+        images = make_ellipse_images(16)
+        _, miss = mnist_mask_indices(mode="upper_half")
+        for bnn in (False, True):
+            m = MNISTBGM(dict(z_dim=3, dataset="m", output_dir={str(tmp_path)!r} + "m" + str(bnn),
+                              use_bnn=bnn, dz_units=[8], save_res=False, save_model=True),
+                         random_seed=0, device="cpu")
+            m.fit(images, epochs=0, epochs_per_eval=1, batch_size=16, egm_n_iter=1,
+                  egm_batches_per_eval=1, verbose=0)
+            test = images[:2].reshape(2, -1).copy()
+            test[:, miss] = np.nan
+            imputed, iv = m.predict(test.reshape(2, 28, 28, 1), n_mcmc=2, burn_in=2)
+            assert imputed.shape == (2, 28, 28, 1) and iv.shape == (2, 392, 2)
+            assert np.all(np.isfinite(imputed))
         bad = [m for m in ("yaml", "pandas", "sklearn", "bayesgm_tpu") if m in sys.modules]
         print("OTHERS_IMPORTED", bad)
         print("JAX_IMPORTED", "jax" in sys.modules)

@@ -298,14 +298,12 @@ def test_unported_datasets_name_their_item(params, match):
 
 
 @pytest.mark.parametrize("config,match", [
-    # BGM is ported: the config now runs, cut by the monkeypatches below
+    # BGM and MNISTBGM are ported: the configs now run, cut by the monkeypatches below
     pytest.param("Sim_heteroskedastic.yaml", None, id="Sim_heteroskedastic.yaml-item 9"),
-    ("Mnist.yaml", "item 10")])
+    pytest.param("Mnist.yaml", None, id="Mnist.yaml-item 10")])
 def test_main_names_the_item_of_unported_models(config, match, monkeypatch, tmp_path, capsys):
-    if match is not None:
-        with pytest.raises(NotImplementedError, match=match):
-            driver.main(["-c", os.path.join(REPO, "configs", config), "--device", "cpu"])
-        return
+    if config == "Mnist.yaml":
+        return _cut_mnist_run(monkeypatch, tmp_path, capsys)
     load = config_io.load
 
     def cut_config(path):  # narrow nets, results under tmp_path, a shallow predict
@@ -321,6 +319,47 @@ def test_main_names_the_item_of_unported_models(config, match, monkeypatch, tmp_
     assert y_mean.shape == (16,) and np.all(np.isfinite(y_mean))
     assert intervals.shape == (16, 1, 2)
     assert "Pearson corr (posterior mean)" in capsys.readouterr().out
+
+
+def _cut_mnist_run(monkeypatch, tmp_path, capsys):
+    """configs/Mnist.yaml through main(): fit on 32 images (EGM 2 + 1
+    iterations, epoch 0) at narrow widths, then the four masks on 4 images
+    with 3 + 3 HMC steps; results and checkpoints under tmp_path."""
+    from bayesgm_torch.datasets.images import make_ellipse_images
+    from bayesgm_torch.models import mnist as tmn
+
+    load = config_io.load
+    monkeypatch.setattr(config_io, "load", lambda path: dict(
+        load(path), output_dir=str(tmp_path), predict=dict(burn_in=3, n_mcmc=3)))
+    monkeypatch.setattr(driver, "_load_mnist_images", lambda: make_ellipse_images(32, seed=1))
+    monkeypatch.setattr(driver, "MNIST_TEST_IMAGES", 4)
+    for name, width in (("GEN_FILTERS", 4), ("ENC_FILTERS", 4), ("DISC_FILTERS", 8),
+                        ("GEN_SAMPLES", 8)):
+        monkeypatch.setattr(tmn, name, width)
+    results = driver.main(["-c", os.path.join(REPO, "configs", "Mnist.yaml"), "-e", "0", "-b", "2",
+                           "--device", "cpu"])
+    assert list(results) == [m["mode"] for m in driver.MNIST_MODES]
+    for err, acc in results.values():
+        assert 0.0 <= err <= 1.0 and 0.0 <= acc <= 1.0
+    printed = capsys.readouterr().out
+    assert printed.count("Inpainting [") == 4 and "HMC Acceptance Rate" in printed
+    res, = glob.glob(os.path.join(str(tmp_path), "results", "MNIST", "*"))
+    with np.load(os.path.join(res, "data_pred_mnist_hole.npz"), allow_pickle=True) as f:
+        assert f["imputed"].shape == (4, 28, 28, 1) and np.asarray(f["pred_interval"]).shape == (4, 25, 2)
+    assert os.path.exists(os.path.join(res, "init_data_gen_at_2.npz"))
+    assert glob.glob(os.path.join(str(tmp_path), "checkpoints", "MNIST", "*", "ckpt-0.npz"))
+
+
+def test_run_mnist_checks_its_overrides_before_the_fit():
+    params = config_io.load(os.path.join(REPO, "configs", "Mnist.yaml"))
+    with mock.patch.object(driver, "_load_mnist_images") as load:
+        with pytest.raises(ValueError, match="not supported by model 'mnist'"):
+            driver.run_mnist(dict(params, predict=dict(q_sd=1.0)), epochs=0, egm_iters=0,
+                             device="cpu")
+        with pytest.raises(ValueError, match="not supported by model 'mnist'"):
+            driver.run_mnist(dict(params, fit=dict(startoff=1)), epochs=0, egm_iters=0,
+                             device="cpu")
+    load.assert_not_called()
 
 
 def _small_sim_sun(monkeypatch, tmp_path, **overrides):

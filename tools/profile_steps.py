@@ -3,7 +3,7 @@
 
 Run from the root of a checkout:
 
-    python3 tools/profile_steps.py [--nets plain bnn] [--steps 50] [--warmup 10]
+    python3 tools/profile_steps.py [--nets plain bnn mnist] [--steps 50] [--warmup 10]
 
 For each kind of nets, at the width of the repo's training benchmark
 (Sim_Hirano_Imbens, n=20000, v_dim=200, z_dims [1,1,1,7], default units,
@@ -23,6 +23,12 @@ and the paired 2n) and K2 (32 and n rows); for plain nets, single launches
 of K3 (32 and n rows) and K4 (10000, n and 1000 rows).  The
 script imports the package from the working directory, so run from the
 root of another checkout it measures that checkout's kernels.
+
+``--nets mnist`` profiles MNISTBGM at the widths of ``configs/Mnist.yaml``
+(plain generator, and the flipout one), random weights from seed 123, on
+the 8192 seeded ellipse images: a training step (batch 32), an EGM
+iteration (batch 32), and an HMC step over 64 images with the upper half
+hidden (L = 10), without and with the kept step's decode.
 
 A training step or an EGM iteration runs ``--warmup`` times, then
 ``--steps`` times under the host clock (synchronized), then ``--steps`` times
@@ -151,6 +157,51 @@ def _units(model, data, plain, steps):
     return units
 
 
+def _mnist_units(model, images):
+    """``[(name, zero-argument function, steps per call)]`` of MNISTBGM."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from bayesgm_torch.models import mnist as mn
+    from bayesgm_torch.ops import optim
+    from bayesgm_torch.utils.helpers import mnist_mask_indices
+
+    cfg, dev = model.cfg, model.device
+    data = model._train_data(images)
+    n = data.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    model.data_z = torch.randn((n, cfg.z_dim), generator=gen, device=dev)
+    state = {"z_opt": optim.table_adam_init(model.data_z)}
+
+    def train_step():
+        idx = torch.randint(0, n, (32,), generator=gen, device=dev)
+        model.opt_g, state["z_opt"], _ = mn._train_batch_step(
+            cfg, model.nets["g"], model.opt_g, model.data_z, state["z_opt"], idx, gen, data)
+
+    def egm_iter():
+        model._opt_d, model._opt_ge, _ = model._egm_iter(
+            cfg, model.nets, model._opt_d, model._opt_ge, data, gen, 32,
+            disc_step=mn._egm_disc_step, gen_step=mn._egm_gen_step)
+
+    _, miss = mnist_mask_indices(mode="upper_half")
+    test = np.array(images[:64]).reshape(64, -1)
+    observed = [np.setdiff1d(np.arange(784), miss).tolist()] * 64
+
+    def hmc(n_burn, n_keep):
+        def run():
+            with contextlib.redirect_stdout(io.StringIO()):  # the acceptance line
+                model.tfp_mcmc_sampler(test, ind_x1=observed, n_mcmc=n_keep, burn_in=n_burn,
+                                       num_leapfrog_steps=10, collect_p=model._decode_p)
+        return run
+
+    return lambda steps: [("training step", train_step, 1), ("EGM iteration", egm_iter, 1),
+                          ("HMC burn-in step (64 images)", hmc(steps, 0), steps),
+                          ("HMC kept step (64 images, decode)", hmc(0, steps), steps)]
+
+
 def profile(label, fn, calls, per_call, warmup):
     """Time ``calls`` calls of ``fn`` (``per_call`` steps each), then profile
     as many; per-step numbers."""
@@ -189,7 +240,8 @@ def profile(label, fn, calls, per_call, warmup):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--nets", nargs="+", default=["plain", "bnn"], choices=["plain", "bnn"])
+    ap.add_argument("--nets", nargs="+", default=["plain", "bnn"],
+                    choices=["plain", "bnn", "mnist"])
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--warmup", type=int, default=10)
     args = ap.parse_args()
@@ -209,6 +261,9 @@ def main() -> int:
     print(f"{torch.cuda.get_device_name(0)}; nvidia-smi: {card_info()}", flush=True)
     data = Sim_Hirano_Imbens_sampler(batch_size=32, N=N, v_dim=V_DIM, seed=0).load_all()
     for nets in args.nets:
+        if nets == "mnist":
+            _profile_mnist(args)
+            continue
         with tempfile.TemporaryDirectory() as out_dir:
             model = CausalBGM(dict(v_dim=V_DIM, z_dims=list(Z_DIMS), binary_treatment=False,
                                    dataset="profile", output_dir=out_dir,
@@ -221,6 +276,25 @@ def main() -> int:
             else:
                 profile(f"{nets}: {label}", fn, 1, per_call, 1)
     return 0
+
+
+def _profile_mnist(args):
+    from bayesgm_torch.datasets.images import make_ellipse_images
+    from bayesgm_torch.models.mnist import MNISTBGM
+    from bayesgm_torch.utils import config_io
+
+    images = make_ellipse_images(8192, seed=0)
+    for use_bnn in (False, True):
+        label = "mnist-flipout" if use_bnn else "mnist"
+        with tempfile.TemporaryDirectory() as out_dir:
+            params = dict(config_io.load("configs/Mnist.yaml"), use_bnn=use_bnn,
+                          output_dir=out_dir, save_res=False, save_model=False)
+            model = MNISTBGM(params, random_seed=123, device="cuda")
+        for name, fn, per_call in _mnist_units(model, images)(args.steps):
+            if per_call == 1:
+                profile(f"{label}: {name}", fn, args.steps, 1, args.warmup)
+            else:
+                profile(f"{label}: {name}", fn, 1, per_call, 1)
 
 
 if __name__ == "__main__":
