@@ -17,6 +17,8 @@ _SYMBOL_TO_MODULE = {
     "IdentifiableCausalBGM": "bayesgm_torch.models.identifiable",
     "FullMCMCCausalBGM": "bayesgm_torch.models.fullmcmc",
     "EnsembleCausalBGM": "bayesgm_torch.models.ensemble",
+    "Semi_acic_sampler": "bayesgm_torch.datasets.causal_samplers",
+    "Semi_Twins_sampler": "bayesgm_torch.datasets.causal_samplers",
     "Sim_Hirano_Imbens_sampler": "bayesgm_torch.datasets.causal_samplers",
     "Sim_Sun_sampler": "bayesgm_torch.datasets.causal_samplers",
     "Sim_Colangelo_sampler": "bayesgm_torch.datasets.causal_samplers",
@@ -29,6 +31,7 @@ _SYMBOL_TO_MODULE = {
     "simulate_heteroskedastic_data": "bayesgm_torch.datasets.simulators",
     "simulate_z_hetero": "bayesgm_torch.datasets.simulators",
     "get_ADRF": "bayesgm_torch.utils.helpers",
+    "estimate_latent_dims": "bayesgm_torch.utils.helpers",
     "mnist_mask_indices": "bayesgm_torch.utils.helpers",
     "make_ellipse_images": "bayesgm_torch.datasets.images",
     "load_mnist_images": "bayesgm_torch.datasets.images",

@@ -16,8 +16,10 @@
 - :func:`net_from_numpy` / :func:`net_to_numpy` carry one net (such as the
   identifiable model's prior net) both ways, and :func:`flat_weight_samples`
   takes JAX ``FullMCMCCausalBGM``'s flat weight samples;
-- BGM's decoders (``VariationalMLP``, ``FlipoutVariationalMLP``) go both
-  ways as their parameter trees; their running statistics are JAX's
+- BGM's decoders (``VariationalMLP``, ``FlipoutVariationalMLP``) and the
+  low-rank nets (``LowRankVariationalMLP``, ``FlipoutLowRankVariationalMLP``:
+  ``norm``, ``layers``, ``mean``, ``var``, ``lowrank``) go both ways as
+  their parameter trees; their running statistics are JAX's
   ``g_state = {"norm": {"mean", "var"}}`` (:func:`bn_state_to_numpy`,
   :func:`bn_state_from_numpy`);
 - MNISTBGM's conv nets (``ops/conv.py``: encoder, plain or flipout
@@ -38,8 +40,10 @@ from bayesgm_torch.ops import conv
 from bayesgm_torch.ops.nn import (
     MLP,
     Critic,
+    FlipoutLowRankVariationalMLP,
     FlipoutMLP,
     FlipoutVariationalMLP,
+    LowRankVariationalMLP,
     VariationalMLP,
     _VariationalBase,
 )
@@ -117,14 +121,22 @@ def _is_variational(tree) -> bool:
 def variational_from_numpy(tree):
     """One ``VariationalMLP`` from ``{"norm": {gamma, beta}, "layers":
     [{w, b}], "mean": {w, b}, "var": {w, b}}``, or a ``FlipoutVariationalMLP``
-    where the layers and heads hold ``loc``, ``rho`` and ``b``.  The running
-    statistics keep their initial values (see :func:`bn_state_from_numpy`)."""
+    where the layers and heads hold ``loc``, ``rho`` and ``b``; with a
+    ``"lowrank"`` head, the ``LowRankVariationalMLP`` or
+    ``FlipoutLowRankVariationalMLP`` of its rank.  The running statistics
+    keep their initial values (see :func:`bn_state_from_numpy`)."""
     flipout = "loc" in tree["mean"]
     kernel = "loc" if flipout else "w"
     layers = tree.get("layers", [])
     dims = ([np.shape(tree["norm"]["gamma"])[0]] + [np.shape(l[kernel])[1] for l in layers]
             + [np.shape(tree["mean"][kernel])[1]])
-    net = (FlipoutVariationalMLP if flipout else VariationalMLP)(dims[0], dims[-1], dims[1:-1])
+    if "lowrank" in tree:
+        rank = np.shape(tree["lowrank"][kernel])[1] // dims[-1]
+        cls = FlipoutLowRankVariationalMLP if flipout else LowRankVariationalMLP
+        net = cls(dims[0], dims[-1], dims[1:-1], rank=rank)
+    else:
+        net = (FlipoutVariationalMLP if flipout else VariationalMLP)(dims[0], dims[-1],
+                                                                     dims[1:-1])
     with torch.no_grad():
         for name, param in net.named_parameters():
             node = tree
@@ -193,7 +205,7 @@ def _from_jax_layout(net, name: str, a) -> np.ndarray:
 
 
 def net_from_numpy(tree):
-    """One ``VariationalMLP``, ``FlipoutVariationalMLP``, ``FlipoutMLP``,
+    """One ``VariationalMLP``, ``FlipoutVariationalMLP``, low-rank net, ``FlipoutMLP``,
     ``Critic``, ``MLP`` or MNIST conv net from its JAX pytree, or None for a
     tree of another kind."""
     conv_net = conv_net_from_numpy(tree)

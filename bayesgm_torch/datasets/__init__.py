@@ -1,9 +1,12 @@
-"""Data layer: the mini-batch sampler, the causal simulations, the prior
-samplers, the simulators (numpy copies of ``bayesgm_tpu/datasets``; the
-semi-synthetic CSV loaders are not ported) and MNIST-shaped images."""
+"""Data layer: the mini-batch sampler, the causal simulations and the
+semi-synthetic ACIC-2018 and Twins loaders, the prior samplers, the
+simulators (numpy copies of ``bayesgm_tpu/datasets``) and MNIST-shaped
+images."""
 
 from bayesgm_torch.datasets.base_sampler import Base_sampler
 from bayesgm_torch.datasets.causal_samplers import (
+    Semi_acic_sampler,
+    Semi_Twins_sampler,
     Sim_Colangelo_sampler,
     Sim_Hirano_Imbens_sampler,
     Sim_Sun_sampler,
@@ -23,6 +26,8 @@ from bayesgm_torch.datasets.simulators import (
 
 __all__ = [
     "Base_sampler",
+    "Semi_acic_sampler",
+    "Semi_Twins_sampler",
     "Sim_Hirano_Imbens_sampler",
     "Sim_Sun_sampler",
     "Sim_Colangelo_sampler",

@@ -8,20 +8,41 @@ from __future__ import annotations
 import numpy as np
 
 
+def make_low_rank_matrix(n_samples=100, n_features=100, *, effective_rank=10,
+                         tail_strength=0.5, random_state=None):
+    """scikit-learn's ``make_low_rank_matrix`` with numpy and scipy: random
+    orthonormal factors from the QR of ``(n_samples, k)`` normals, then of
+    ``(n_features, k)`` normals (``k = min(n_samples, n_features)``), drawn
+    in that order from ``RandomState(random_state)``, around the bell-shaped
+    singular profile ``(1 - tail_strength) exp(-(i / effective_rank)^2) +
+    tail_strength exp(-0.1 i / effective_rank)``."""
+    import scipy.linalg as linalg
+
+    generator = (random_state if isinstance(random_state, np.random.RandomState)
+                 else np.random.RandomState(random_state))
+    n = min(n_samples, n_features)
+    u, _ = linalg.qr(generator.standard_normal(size=(n_samples, n)), mode="economic",
+                     check_finite=False)
+    v, _ = linalg.qr(generator.standard_normal(size=(n_features, n)), mode="economic",
+                     check_finite=False)
+    singular_ind = np.arange(n, dtype=np.float64)
+    low_rank = (1 - tail_strength) * np.exp(-1.0 * (singular_ind / effective_rank) ** 2)
+    tail = tail_strength * np.exp(-0.1 * singular_ind / effective_rank)
+    s = np.identity(n) * (low_rank + tail)
+    return np.dot(np.dot(u, s), v.T)
+
+
 def simulate_regression(n_samples, n_features, n_targets, effective_rank=None, variance=None, random_state=123):
     """Linear regression generator with optional low-rank design
     (reference simulators.py:5-50).
 
     Returns ``(X, Y)`` with shapes ``(n, p)`` and ``(n, q)``.  The low-rank
-    design (``effective_rank``) imports scikit-learn when called; where it is
-    not installed (the GPU host has none) that branch raises ``ImportError``.
+    design (``effective_rank``) is :func:`make_low_rank_matrix`.
     """
     rng = np.random.RandomState(random_state)
     if effective_rank is None:
         X = rng.normal(size=(n_samples, n_features))
     else:
-        from sklearn.datasets import make_low_rank_matrix
-
         X = 100 * make_low_rank_matrix(
             n_samples=n_samples, n_features=n_features,
             effective_rank=effective_rank, random_state=random_state,

@@ -7,7 +7,9 @@ root ``main.py``: its CausalBGM, BGM and MNIST branches).
 The config is read by :mod:`bayesgm_torch.utils.config_io` (no PyYAML).  The
 causal datasets are Sim_Hirano_Imbens, Sim_Sun and Sim_Colangelo, each with
 its closed-form ADRF, against which the RMSE and MAPE of the predicted ADRF
-are printed.  The BGM datasets are Sim_low_rank (imputation RMSE and 95 %
+are printed, Semi_Twins (the Twins CSV trio; its ADRF is known too) and
+Semi_acic (the ACIC-2018 CSVs, binary treatment: the ATE estimate is
+printed), both read from ``$BAYESGM_DATA`` or ``../data``.  The BGM datasets are Sim_low_rank (imputation RMSE and 95 %
 coverage of a hidden column) and Sim_heteroskedastic (Pearson correlations
 of the predicted outcome of a held-out split, interval coverage and
 length).  MNIST fits MNISTBGM on MNIST's training images (a local
@@ -15,8 +17,7 @@ length).  MNIST fits MNISTBGM on MNIST's training images (a local
 under four masks, printing the mean pixel error and the binarised accuracy
 of each.  The optional ``predict:`` and ``fit:`` blocks override predict's
 and fit's keyword arguments and are checked against the engine's
-signatures before the fit.  What the port does not have yet raises
-``NotImplementedError`` naming its ROADMAP item.
+signatures before the fit.
 """
 
 from __future__ import annotations
@@ -28,11 +29,9 @@ import os
 import numpy as np
 
 SIMULATED = ("Sim_Hirano_Imbens", "Sim_Sun", "Sim_Colangelo")
+SEMI_SYNTHETIC = ("Semi_Twins", "Semi_acic")
 BGM_DATASETS = ("Sim_heteroskedastic", "Sim_low_rank")
-_NOT_PORTED_DATASETS = {
-    "Semi_Twins": "Semi_Twins needs external CSVs and pandas (ROADMAP Queue 1 item 5)",
-    "Semi_acic": "Semi_acic needs external CSVs and pandas (ROADMAP Queue 1 item 5)",
-}
+ACIC_UFID = "629e3d2c63914e45b227cc913c09cebe"  # the JAX driver's ACIC-2018 setting
 MNIST_TEST_IMAGES = 64  # the inpainting sweep's test images
 MNIST_MODES = (  # the inpainting sweep's masks (the JAX driver's)
     dict(mode="lower_half"),
@@ -43,9 +42,12 @@ MNIST_MODES = (  # the inpainting sweep's masks (the JAX driver's)
 
 
 def _load_causal_dataset(name):
-    """``(x, y, v, truth_fn)`` of a simulated dataset at the JAX driver's
-    sizes; ``truth_fn(x_grid)`` is the true ADRF."""
+    """``(x, y, v, truth_fn)`` of a causal dataset at the JAX driver's sizes;
+    ``truth_fn(x_grid)`` is the true ADRF (None for Semi_acic, whose
+    treatment is binary)."""
     from bayesgm_torch.datasets.causal_samplers import (
+        Semi_acic_sampler,
+        Semi_Twins_sampler,
         Sim_Colangelo_sampler,
         Sim_Hirano_Imbens_sampler,
         Sim_Sun_sampler,
@@ -61,8 +63,26 @@ def _load_causal_dataset(name):
     if name == "Sim_Colangelo":
         ds = Sim_Colangelo_sampler(N=20000, v_dim=100)
         return (*ds.load_all(), lambda g: get_ADRF(x_values=g, dataset="Lee"))
-    if name in _NOT_PORTED_DATASETS:
-        raise NotImplementedError(_NOT_PORTED_DATASETS[name])
+    if name == "Semi_Twins":
+        try:
+            ds = Semi_Twins_sampler()
+        except (FileNotFoundError, OSError) as e:
+            raise FileNotFoundError(
+                "Semi_Twins needs the Twins CSV trio under ../data/Twins "
+                "(twin_pairs_{X,T,Y}_3years_samesex.csv); not present in this "
+                f"environment: {e}") from e
+        # y = -2 sigmoid(3x) + V gamma + eps: the true dose-response is
+        # -2 sigmoid(3x) + mean(V gamma)
+        const = ds.auxiliary_constant
+        return (*ds.load_all(), lambda g: -2.0 / (1.0 + np.exp(-3.0 * np.asarray(g))) + const)
+    if name == "Semi_acic":
+        try:
+            ds = Semi_acic_sampler(ufid=ACIC_UFID)
+        except (FileNotFoundError, OSError) as e:
+            raise FileNotFoundError(
+                "Semi_acic needs the ACIC-2018 CSVs under ../data/ACIC_2018 "
+                f"(x.csv + scaling/factuals/<ufid>.csv); not present: {e}") from e
+        return (*ds.load_all(), None)
     raise ValueError(f"Unknown causal dataset {name}")
 
 
@@ -158,10 +178,11 @@ def run_causal(params, epochs, egm_iters, device="cuda"):
         x_grid = np.linspace(lo, hi, 20)
     causal_pre, pos_intervals = model.predict(data=(x, y, v), x_values=x_grid, bs=len(x),
                                               **kwargs)
-    true = np.asarray(truth_fn(x_grid.astype("float32")))
-    rmse = float(np.sqrt(np.mean((causal_pre - true) ** 2)))
-    mape = float(np.mean(np.abs((causal_pre - true) / true)))
-    print(f"ADRF RMSE: {rmse:.4f}  MAPE: {mape:.4f}")
+    if truth_fn is not None:
+        true = np.asarray(truth_fn(x_grid.astype("float32")))
+        rmse = float(np.sqrt(np.mean((causal_pre - true) ** 2)))
+        mape = float(np.mean(np.abs((causal_pre - true) / true)))
+        print(f"ADRF RMSE: {rmse:.4f}  MAPE: {mape:.4f}")
     return causal_pre, pos_intervals
 
 
@@ -300,14 +321,12 @@ def main(argv=None):
     args = parser.parse_args(argv)
     params = config_io.load(args.config)
     dataset = params["dataset"]
-    if dataset in SIMULATED:
+    if dataset in SIMULATED or dataset in SEMI_SYNTHETIC:
         return run_causal(params, args.epochs, args.batches, device=args.device)
     if dataset in BGM_DATASETS:
         return run_bgm(params, args.epochs, args.batches, device=args.device)
     if dataset == "MNIST":
         return run_mnist(params, args.epochs, args.batches, device=args.device)
-    if dataset in _NOT_PORTED_DATASETS:
-        raise NotImplementedError(_NOT_PORTED_DATASETS[dataset])
     raise ValueError(f"Unknown dataset {dataset}")
 
 

@@ -1,5 +1,6 @@
-"""The model engines.  Symbols resolve lazily, so importing one engine does
-not import the others."""
+"""The model engines and the network facade (``models/networks.py``).
+Symbols resolve lazily, so importing one engine does not import the
+others."""
 
 _SYMBOL_TO_MODULE = {
     "BGM": "bayesgm_torch.models.bgm",
@@ -8,6 +9,11 @@ _SYMBOL_TO_MODULE = {
     "IdentifiableCausalBGM": "bayesgm_torch.models.identifiable",
     "FullMCMCCausalBGM": "bayesgm_torch.models.fullmcmc",
     "EnsembleCausalBGM": "bayesgm_torch.models.ensemble",
+    **{name: "bayesgm_torch.models.networks" for name in (
+        "BaseFullyConnectedNet", "BayesianFullyConnectedNet", "BaseVariationalNet",
+        "BayesianVariationalNet", "BaseVariationalLowRankNet", "BayesianVariationalLowRankNet",
+        "Discriminator", "MCMCFullyConnectedNet", "run_mcmc_for_net", "MNISTEncoderConv",
+        "MNISTGenerator", "MNISTDiscriminator")},
 }
 
 __all__ = sorted(_SYMBOL_TO_MODULE)

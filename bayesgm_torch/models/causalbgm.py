@@ -769,9 +769,13 @@ class CausalBGM:
         return torch.Generator(device=self.device).manual_seed(seed)
 
     def _data(self, data):
-        """``(x, y, v)`` as float32 tensors on the model's device."""
-        return tuple(torch.as_tensor(a if torch.is_tensor(a) else np.asarray(a, np.float32),
-                                     dtype=torch.float32, device=self.device) for a in data)
+        """``(x, y, v)`` as row-major float32 tensors on the model's device
+        (the kernels take no other layout; a table read as pandas or
+        ``parse_file_triplet`` reads it is column-major)."""
+        return tuple(torch.as_tensor(a if torch.is_tensor(a)
+                                     else np.ascontiguousarray(a, np.float32),
+                                     dtype=torch.float32, device=self.device).contiguous()
+                     for a in data)
 
     def get_config(self):
         """Return ``{"params": params}``."""
@@ -1163,8 +1167,7 @@ class CausalBGM:
             fused_plain = self.kernels["plain"]
 
             def make_plain_params(nets, data, paired):
-                x, y, v = (torch.as_tensor(np.asarray(a, np.float32), device=self.device)
-                           for a in data)
+                x, y, v = self._data(data)
                 return {"nets": nets, "data": (x, y, v),
                         "w": tuple(flatten_mlp_params(nets[k]) for k in "ghf")}
 
@@ -1178,8 +1181,7 @@ class CausalBGM:
         anti = bool(self.params.get("antithetic_eps", False))
 
         def make_params(nets, data, paired):
-            x, y, v = (torch.as_tensor(np.asarray(a, np.float32), device=self.device)
-                       for a in data)
+            x, y, v = self._data(data)
             flat = tuple(flatten_flipout_params(nets[k]) for k in "ghf")
             ws, sigs = zip(*(split_flipout_flat(f) for f in flat))
             p = {"nets": nets, "data": (x, y, v), "flat": flat, "w": ws,

@@ -1,8 +1,11 @@
 """Build the CUDA sources of ``bayesgm_torch/csrc`` and load them.
 
 Each source is compiled on first use with ``nvcc`` into a shared library with
-a plain C interface under ``build/bayesgm_torch_kernels/`` at the root of the
-checkout, named by a hash of the source, and loaded with ``ctypes``.  A build
+a plain C interface in the kernel build directory, named by a hash of the
+source, and loaded with ``ctypes``.  The directory is
+``build/bayesgm_torch_kernels/`` at the root of the checkout unless
+:func:`bayesgm_torch.utils.cache.enable_compilation_cache` names another
+(or ``$BAYESGM_TORCH_KERNEL_CACHE`` does) before the first build.  A build
 that fails raises with the compiler's output; nothing falls back.  The
 kernel wrappers' launch helpers live here too: the argument check, the
 current stream and the check of a launch's return code.
@@ -24,7 +27,7 @@ import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG.parent / "build" / "bayesgm_torch_kernels"
+BUILD_DIR = _PKG.parent / "build" / "bayesgm_torch_kernels"  # the default build directory
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -42,6 +45,30 @@ class KernelLibrary:
 _GUARD = threading.Lock()
 _LOCKS: dict = {}  # one lock per source, so two sources build in parallel
 _LOADED: dict = {}
+_BUILD_DIR: list = []  # the directory the first build fixed, once set
+
+
+def build_dir() -> Path:
+    """The kernel build directory: the one set by :func:`set_build_dir`, else
+    (fixing it) ``$BAYESGM_TORCH_KERNEL_CACHE`` or :data:`BUILD_DIR`."""
+    with _GUARD:
+        if not _BUILD_DIR:
+            _BUILD_DIR.append(Path(os.environ.get("BAYESGM_TORCH_KERNEL_CACHE") or BUILD_DIR))
+        return _BUILD_DIR[0]
+
+
+def set_build_dir(path) -> Path:
+    """Point the kernel builds at ``path``.  Once a kernel library has
+    loaded, asking for another directory raises: the process keeps the
+    libraries it has and never switches quietly."""
+    path = Path(path).resolve()
+    with _GUARD:
+        if _LOADED and _BUILD_DIR and _BUILD_DIR[0].resolve() != path:
+            raise RuntimeError(
+                f"kernel build directory is {_BUILD_DIR[0]} and {sorted(_LOADED)} already "
+                f"loaded from it: cannot switch to {path}")
+        _BUILD_DIR[:] = [path]
+        return path
 
 
 def _nvcc() -> str:
@@ -63,11 +90,12 @@ def load_library(source: str) -> KernelLibrary:
             return _LOADED[source]
         src = CSRC / source
         digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        so = BUILD_DIR / f"{src.stem}_{digest}.so"
+        out_dir = build_dir()
+        so = out_dir / f"{src.stem}_{digest}.so"
         log, build_s = "(cached)", 0.0
         if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            out_dir.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
             os.close(fd)
             t0 = time.perf_counter()
             proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],

@@ -1,8 +1,8 @@
 """Plain and flipout Bayesian MLPs, the WGAN critic, BGM's two variational
-decoders and a plain MLP's flat weights (port of the plain MLP, the flipout
-subset, the critic, BatchNorm with running statistics, the variational and
-flipout-variational MLPs and the flat-weight helpers of
-``bayesgm_tpu/ops/nn.py``).
+decoders, the two low-rank variational nets and a plain MLP's flat weights
+(port of the plain MLP, the flipout subset, the critic, BatchNorm with
+running statistics, the variational, flipout-variational and low-rank
+(Woodbury) heads and the flat-weight helpers of ``bayesgm_tpu/ops/nn.py``).
 
 Conventions kept from the JAX package for numerical parity:
 
@@ -20,7 +20,10 @@ Conventions kept from the JAX package for numerical parity:
 - the variational decoders' input norm is BatchNorm with running
   statistics (Keras ``BatchNormalization``: eps ``BN_EPS``, momentum
   ``BN_MOMENTUM``), kept as module buffers ``bn_mean``/``bn_var``; their
-  variance head is ``softplus(raw) + 1e-6``.
+  variance head is ``softplus(raw) + 1e-6``;
+- the low-rank nets' input norm runs frozen, as the flipout MLP's (the
+  reference invokes it without a training flag); their heads give
+  ``Sigma = diag(var) + U U^T`` with ``U`` of shape ``(batch, out, rank)``.
 
 Randomness comes from an explicit ``torch.Generator``.  Every apply accepts
 inputs with leading batch axes ``(..., n, in)``: each leading index gets its
@@ -409,6 +412,180 @@ def reparameterize(mean, var, generator):
     """``mean + sqrt(var) * eps``, ``eps ~ N(0, I)`` from ``generator``."""
     return mean + torch.sqrt(var) * torch.randn(mean.shape, generator=generator,
                                                 device=mean.device, dtype=mean.dtype)
+
+
+# ---------------------------------------------------------------------------
+# The low-rank variational nets: mean, diagonal variance and a low-rank
+# factor U, Sigma = diag(var) + U U^T
+# ---------------------------------------------------------------------------
+
+
+class LowRankVariationalMLP(_VariationalBase):
+    """``BaseVariationalLowRankNet``: the input norm (frozen), dense layers
+    ``w[i]``, ``b[i]`` with LeakyReLU, then three dense heads: ``mean_*``
+    and ``var_*`` of width ``output_dim`` and ``lowrank_*`` of width
+    ``output_dim * rank`` (Glorot-uniform kernels, zero biases, drawn on the
+    CPU from ``generator``)."""
+
+    def __init__(self, input_dim: int, output_dim: int, hidden: Sequence[int], rank: int = 2,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        dims = [int(input_dim), *map(int, hidden)]
+        self.rank = int(rank)
+        self._init_norm(dims[0])
+        self.w = nn.ParameterList()
+        self.b = nn.ParameterList()
+        for d_in, d_out in zip(dims[:-1], dims[1:]):
+            w, b = _glorot_dense(d_in, d_out, generator)
+            self.w.append(w)
+            self.b.append(b)
+        self.mean_w, self.mean_b = _glorot_dense(dims[-1], int(output_dim), generator)
+        self.var_w, self.var_b = _glorot_dense(dims[-1], int(output_dim), generator)
+        self.lowrank_w, self.lowrank_b = _glorot_dense(dims[-1], int(output_dim) * self.rank,
+                                                       generator)
+
+    @property
+    def dims(self) -> list:
+        return [self.gamma.shape[0]] + [w.shape[1] for w in self.w] + [self.mean_w.shape[1]]
+
+
+def lowrank_variational_mlp_apply(net: LowRankVariationalMLP, x, state=None, train: bool = True,
+                                  eps: float = 1e-6):
+    """``(mean, var_diag, U, state)`` with ``U`` of shape ``(batch, out,
+    rank)``.  The input norm runs frozen whatever ``train`` is, and
+    ``state`` comes back as it was given (JAX's signature)."""
+    x = frozen_batchnorm_apply(net.gamma, net.beta, x)
+    for w, b in zip(net.w, net.b):
+        x = leaky_relu(dense_apply(w, b, x))
+    mean = dense_apply(net.mean_w, net.mean_b, x)
+    var_diag = softplus(dense_apply(net.var_w, net.var_b, x)) + eps
+    u = dense_apply(net.lowrank_w, net.lowrank_b, x).reshape(-1, mean.shape[-1], net.rank)
+    return mean, var_diag, u, state
+
+
+class FlipoutLowRankVariationalMLP(_VariationalBase):
+    """``BayesianVariationalLowRankNet``: the input norm (frozen), flipout
+    hidden layers ``loc[i]``, ``rho[i]``, ``b[i]`` with LeakyReLU, and
+    flipout ``mean_*``, ``var_*`` and ``lowrank_*`` heads (``loc ~ 0.1
+    N(0,1)``, ``rho ~ -3 + 0.1 N(0,1)``, ``b = 0``, drawn on the CPU from
+    ``generator``)."""
+
+    def __init__(self, input_dim: int, output_dim: int, hidden: Sequence[int], rank: int = 2,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        dims = [int(input_dim), *map(int, hidden)]
+        self.rank = int(rank)
+        self._init_norm(dims[0])
+        self.loc = nn.ParameterList()
+        self.rho = nn.ParameterList()
+        self.b = nn.ParameterList()
+        for d_in, d_out in zip(dims[:-1], dims[1:]):
+            loc, rho, b = _flipout_init(d_in, d_out, generator)
+            self.loc.append(loc)
+            self.rho.append(rho)
+            self.b.append(b)
+        out = int(output_dim)
+        self.mean_loc, self.mean_rho, self.mean_b = _flipout_init(dims[-1], out, generator)
+        self.var_loc, self.var_rho, self.var_b = _flipout_init(dims[-1], out, generator)
+        self.lowrank_loc, self.lowrank_rho, self.lowrank_b = _flipout_init(
+            dims[-1], out * self.rank, generator)
+
+    @property
+    def dims(self) -> list:
+        return ([self.gamma.shape[0]] + [loc.shape[1] for loc in self.loc]
+                + [self.mean_loc.shape[1]])
+
+    def layers(self) -> list:
+        """``[(loc, rho, b), ...]``: the hidden layers, then the mean,
+        variance and low-rank heads (the order of the fused draw)."""
+        return [*zip(self.loc, self.rho, self.b),
+                *((getattr(self, f"{h}_loc"), getattr(self, f"{h}_rho"), getattr(self, f"{h}_b"))
+                  for h in ("mean", "var", "lowrank"))]
+
+
+def flipout_lowrank_variational_mlp_apply(net: FlipoutLowRankVariationalMLP, x, generator,
+                                          state=None, train: bool = True, draws=None,
+                                          eps: float = 1e-6):
+    """:func:`lowrank_variational_mlp_apply` through flipout layers: one
+    fused draw over ``[*hidden, mean, var, lowrank]`` from ``generator``, or
+    ``draws`` (an earlier ``_fused_flipout_draws`` result for the same
+    layers and rows)."""
+    x = frozen_batchnorm_apply(net.gamma, net.beta, x)
+    layers = net.layers()
+    if draws is None:
+        draws = _fused_flipout_draws(layers, x.shape, generator)
+    e, r_in, r_out = draws
+    for j, layer in enumerate(layers[:-3]):
+        x = leaky_relu(_flipout_dense_pre(layer, x, e[j], r_in[j], r_out[j]))
+    mean = _flipout_dense_pre(layers[-3], x, e[-3], r_in[-3], r_out[-3])
+    var_diag = softplus(_flipout_dense_pre(layers[-2], x, e[-2], r_in[-2], r_out[-2])) + eps
+    u = _flipout_dense_pre(layers[-1], x, e[-1], r_in[-1], r_out[-1])
+    return mean, var_diag, u.reshape(-1, mean.shape[-1], net.rank), state
+
+
+def flipout_lowrank_variational_mlp_kl(net: FlipoutLowRankVariationalMLP):
+    """KL of every layer's kernel against N(0, 0.1^2); the biases carry no
+    prior (the reference's default bias)."""
+    return sum(flipout_dense_kl(layer, BVN_PRIOR_SCALE) for layer in net.layers())
+
+
+def lowrank_transfer_from_flipout(net: FlipoutLowRankVariationalMLP,
+                                  generator: torch.Generator | None = None
+                                  ) -> LowRankVariationalMLP:
+    """The deterministic low-rank net of a flipout twin
+    (``transfer_weights_from_bayesian``): each kernel is the posterior mean
+    ``loc``, or with ``generator`` one draw ``loc + softplus(rho) eps`` per
+    layer, in the order of :meth:`FlipoutLowRankVariationalMLP.layers`;
+    biases and the input norm are copied."""
+    out = LowRankVariationalMLP(net.dims[0], net.dims[-1], net.dims[1:-1], rank=net.rank)
+    out.to(net.gamma.device)
+    kernels = []
+    with torch.no_grad():
+        for loc, rho, _ in net.layers():
+            if generator is None:
+                kernels.append(loc)
+            else:
+                kernels.append(loc + softplus(rho) * torch.randn(
+                    loc.shape, generator=generator, device=loc.device, dtype=loc.dtype))
+        targets = [*zip(out.w, out.b), (out.mean_w, out.mean_b), (out.var_w, out.var_b),
+                   (out.lowrank_w, out.lowrank_b)]
+        for (w, b), kernel, (_, _, bias) in zip(targets, kernels, net.layers()):
+            w.copy_(kernel)
+            b.copy_(bias)
+        out.gamma.copy_(net.gamma)
+        out.beta.copy_(net.beta)
+    return out
+
+
+def lowrank_reparameterize(mean, var_diag, u, generator):
+    """``mean + sqrt(var_diag) eps1 + U eps2``, ``eps1 ~ N(0, I_p)`` drawn
+    first, then ``eps2 ~ N(0, I_rank)``, both from ``generator``."""
+    eps1 = torch.randn(mean.shape, generator=generator, device=mean.device, dtype=mean.dtype)
+    eps2 = torch.randn((mean.shape[0], u.shape[-1]), generator=generator, device=mean.device,
+                       dtype=mean.dtype)
+    return mean + torch.sqrt(var_diag) * eps1 + torch.einsum("bpr,br->bp", u, eps2)
+
+
+def _capacitance(var_diag, u):
+    """``(U^T D^-1, I + U^T D^-1 U)`` of ``Sigma = D + U U^T``."""
+    ut_dinv = u.transpose(-1, -2) / var_diag[:, None, :]  # (b, r, p)
+    eye = torch.eye(u.shape[-1], dtype=u.dtype, device=u.device)
+    return ut_dinv, eye + ut_dinv @ u
+
+
+def lowrank_covariance_inverse(var_diag, u):
+    """``Sigma^-1`` of ``Sigma = diag(var_diag) + U U^T`` by Woodbury:
+    ``D^-1 - D^-1 U (I + U^T D^-1 U)^-1 U^T D^-1``, batched: ``(b, p, p)``."""
+    ut_dinv, m = _capacitance(var_diag, u)
+    correction = ut_dinv.transpose(-1, -2) @ torch.linalg.inv(m) @ ut_dinv
+    return torch.diag_embed(1.0 / var_diag) - correction
+
+
+def lowrank_log_det(var_diag, u):
+    """``log det Sigma`` of ``Sigma = diag(var_diag) + U U^T`` by Sylvester:
+    ``sum log var_diag + log det (I + U^T D^-1 U)``, batched: ``(b,)``."""
+    _, m = _capacitance(var_diag, u)
+    return torch.sum(torch.log(var_diag), dim=-1) + torch.linalg.slogdet(m)[1]
 
 
 # ---------------------------------------------------------------------------

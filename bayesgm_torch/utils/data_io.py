@@ -1,11 +1,14 @@
 """Result files and input loaders (port of ``save_data``, ``parse_file`` and
 ``parse_file_triplet`` in ``bayesgm_tpu/utils/data_io.py``, with numpy alone:
 where the JAX package reads a ``.csv`` with pandas, this reads it with
-``np.loadtxt``, skipping the header row)."""
+``np.loadtxt``, skipping the header row), and :func:`read_csv_table`, the
+semi-synthetic loaders' reader of a table with named columns."""
 
 from __future__ import annotations
 
+import io
 import os
+import re
 
 import numpy as np
 
@@ -42,6 +45,40 @@ def _read_csv(path: str, sep: str, header) -> np.ndarray:
     else:
         raise ValueError(f"header={header!r}: expected None or a row number")
     return np.asfortranarray(np.loadtxt(path, delimiter=sep, skiprows=skip, ndmin=2))
+
+
+_EMPTY_FIELD = re.compile(r"(?<=,)(?=,|\r?\n|$)|^(?=,)", re.MULTILINE)
+
+
+def read_csv_table(path: str, key: str | None = None):
+    """A comma-separated table with a header row, as ``pd.read_csv`` reads
+    it: ``(names, keys, values)``.  ``names`` are the header's column names
+    (the key column's left out), ``values`` a float64 ``(rows, columns)``
+    array in which an empty field is NaN, and ``keys`` the ``key`` column's
+    strings (None without ``key``).
+
+    Each value is the decimal string correctly rounded (numpy's parser).
+    pandas' default parser keeps 17 digits, counting the zeros after the
+    point, and builds the value in double arithmetic, so it can differ from
+    this in the last bits: up to a relative 1e-12 for strings written with
+    ``%.17g`` or by ``to_csv`` (three zeros after the point are the most
+    either writes before it turns to an exponent)."""
+    with open(path, newline="") as f:
+        header = f.readline()
+        text = f.read()
+    names = [name.strip().strip('"') for name in header.rstrip("\r\n").split(",")]
+    if ",," in text or ",\n" in text or ",\r" in text or "\n," in text or text.startswith(","):
+        text = _EMPTY_FIELD.sub("nan", text)
+    cols = [i for i, name in enumerate(names) if name != key]
+    if key is not None and len(cols) == len(names):
+        raise ValueError(f"{path}: no column named {key!r} in {names}")
+    values = np.loadtxt(io.StringIO(text), delimiter=",", usecols=cols, ndmin=2,
+                        dtype=np.float64)
+    keys = None
+    if key is not None:
+        keys = np.loadtxt(io.StringIO(text), delimiter=",", usecols=names.index(key),
+                          dtype=str, ndmin=1)
+    return [names[i] for i in cols], keys, values
 
 
 def _unsupported(path: str):

@@ -1,8 +1,11 @@
-"""Closed-form ADRF oracles and MNIST's inpainting masks (port of
-``get_ADRF`` and ``mnist_mask_indices`` in ``bayesgm_tpu/utils/helpers.py``,
-plain numpy)."""
+"""Closed-form ADRF oracles, the latent-dimension estimator (sliced inverse
+regression and PCA) and MNIST's inpainting masks (port of
+``bayesgm_tpu/utils/helpers.py``, numpy and scipy: scikit-learn's
+``StandardScaler`` and ``PCA`` are replaced by their arithmetic)."""
 
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 
@@ -42,6 +45,142 @@ def get_ADRF(x_values=None, x_min=None, x_max=None, nb_intervals=None, dataset: 
     if dataset == "Sun":
         return x_values - 0.5 + np.exp(-0.5) + 1.0
     return 1.2 * x_values + x_values**3
+
+
+def slice_y(y, n_slices: int = 10):
+    """Assign each sample (in sorted-y order) to one of up to ``n_slices``
+    contiguous response slices, never splitting tied y values across slices
+    (the slicing step of sliced inverse regression).  Returns
+    ``(slice_ids (n,), counts_per_slice)``."""
+    n = np.asarray(y).shape[0]
+    _, tie_sizes = np.unique(y, return_counts=True)
+    if tie_sizes.size == 1:
+        raise ValueError(
+            "slice_y requires at least two distinct response values; a "
+            "constant target cannot be sliced for dimension reduction.")
+    group_ends = np.cumsum(tie_sizes)  # end offset (in sorted order) of each tie group
+
+    if n_slices >= tie_sizes.size:
+        if n_slices > tie_sizes.size:
+            warnings.warn(
+                f"Requested {n_slices} slices but only {tie_sizes.size} "
+                "distinct response values exist; using one slice per value.")
+        cuts = np.concatenate(([0], group_ends))
+    else:
+        # greedy fill: each slice takes at least floor(n / n_slices) samples,
+        # then extends to the end of the tie group it landed in
+        per_slice = np.floor(n / n_slices)
+        cuts = [0]
+        filled = 0
+        while filled < n - 2:
+            g = np.searchsorted(group_ends, filled + per_slice, side="left")
+            g = min(g, group_ends.size - 1)
+            filled = group_ends[g]
+            cuts.append(filled)
+        cuts = np.asarray(cuts)
+
+    slice_ids = np.zeros(n, dtype="int64")
+    last = len(cuts) - 2
+    for j in range(last + 1):
+        hi = n if j == last else cuts[j + 1]
+        slice_ids[cuts[j]:hi] = j
+    return slice_ids, np.bincount(slice_ids)
+
+
+def get_SDR_dim(X, y, n_slices: int = 10, ratio: float = 0.8):
+    """Sufficient-dimension-reduction rank of the X -> y relation by SIR:
+    whiten X with an economy QR, average the whitened rows within each
+    y-slice, and count the eigenvalues of the between-slice covariance that
+    reach ``ratio`` of its trace."""
+    import scipy.linalg as linalg
+
+    if y.ndim == 2:
+        if y.shape[1] != 1:
+            raise ValueError("The shape of y should be (n_samples, 1).")
+        y = np.squeeze(y)
+    n_samples = X.shape[0]
+    Q, _ = linalg.qr(X - X.mean(axis=0), mode="economic")
+    Z = np.sqrt(n_samples) * Q[np.argsort(y), :]
+
+    slice_ids, counts = slice_y(y, n_slices)
+    # per-slice sums by a one-hot contraction (Z's rows are in sorted-y order)
+    onehot = (slice_ids[:, None] == np.arange(counts.size)[None, :])
+    slice_means = (onehot.astype(Z.dtype).T @ Z) / np.sqrt(counts[:, None])
+    M = slice_means.T @ slice_means / n_samples
+
+    evals = linalg.eigh(M, eigvals_only=True)[::-1]
+    reached = np.cumsum(evals) >= ratio * evals.sum()
+    return int(np.argmax(reached) + 1)
+
+
+def _float_array(a) -> np.ndarray:
+    a = np.asarray(a)
+    return a if a.dtype.kind == "f" else a.astype(np.float64)
+
+
+def standard_scale(a) -> np.ndarray:
+    """``StandardScaler().fit_transform(a)`` by scikit-learn's arithmetic:
+    the mean and the population variance by its corrected two-pass sums in
+    float64 (Chan, Golub and LeVeque), a scale of 1 for a column
+    indistinguishable from a constant, and the result in ``a``'s float
+    type."""
+    a = _float_array(a)
+    n = a.shape[0]
+    total = np.sum(a, axis=0, dtype=np.float64)
+    mean = total / n
+    centred = a - total / n  # float64
+    correction = np.sum(centred, axis=0)
+    centred **= 2
+    var = (np.sum(centred, axis=0) - correction**2 / n) / n
+    eps = np.finfo(np.float64).eps
+    scale = np.sqrt(var)
+    scale[var <= n * eps * var + (n * mean * eps) ** 2] = 1.0
+    out = a.copy()
+    out -= mean.astype(out.dtype)
+    out /= scale.astype(out.dtype)
+    return out
+
+
+def pca_explained_variance_ratio(a) -> np.ndarray:
+    """``PCA().fit(a).explained_variance_ratio_`` by scikit-learn's
+    arithmetic and its ``svd_solver="auto"`` choice: for a tall matrix
+    (``p <= 1000`` and ``n >= 10 p``) the eigenvalues of the covariance
+    ``(X^T X - n m m^T) / (n - 1)``, clipped at 0, else the squared singular
+    values of the centred matrix over ``n - 1``; each over their sum."""
+    import scipy.linalg as linalg
+
+    a = _float_array(a)
+    n, p = a.shape
+    mean = np.mean(a, axis=0)
+    if p <= 1000 and n >= 10 * p:
+        cov = a.T @ a
+        cov -= n * mean.reshape(-1, 1) * mean.reshape(1, -1)
+        cov /= n - 1
+        explained = np.flip(np.linalg.eigh(cov)[0], axis=0)
+        explained[explained < 0.0] = 0.0
+    else:
+        s = linalg.svd(a - mean, full_matrices=False)[1]
+        explained = s**2 / (n - 1)
+    return explained / np.sum(explained)
+
+
+def estimate_latent_dims(x, y, v, v_ratio: float = 0.7, z0_dim: int = 3,
+                         max_total_dim: int = 64, min_z3_dim: int = 3):
+    """``[z0, z1, z2, z3]`` for CausalBGM: z1 and z2 by SIR of V -> y and
+    V -> x on standardised V and y, the total by the number of principal
+    components of V that explain ``v_ratio`` of its variance (at most
+    ``max_total_dim``), z3 the rest (at least ``min_z3_dim``)."""
+    v = standard_scale(v)
+    y = standard_scale(y)
+    z1_dim = get_SDR_dim(v, y, n_slices=10, ratio=0.8)
+    z2_dim = get_SDR_dim(v, x, n_slices=10, ratio=0.8)
+    cumulative = np.cumsum(pca_explained_variance_ratio(v))
+    total_z_dim = int(np.argmax(cumulative >= v_ratio) + 1)
+    total_z_dim = min(max_total_dim, total_z_dim)
+    z3_dim = total_z_dim - z0_dim - z1_dim - z2_dim
+    if z3_dim <= min_z3_dim:
+        z3_dim = min_z3_dim
+    return [z0_dim, z1_dim, z2_dim, z3_dim]
 
 
 def mnist_mask_indices(shape=(28, 28), mode="hole", center=(14, 14), num_holes=1,

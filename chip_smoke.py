@@ -211,6 +211,36 @@ kernel; its convolutions are cuDNN's):
               after.  Phase 30's peak memory is printed, with the part
               earlier phases still hold.
 
+The semi-synthetic CausalBGM configs (binary and continuous treatment at
+widths the flagship does not have), and the rest of the public surface:
+
+31. semi    - seeded fixtures with the real files' schema under
+              $BAYESGM_DATA (ACIC-2018: x.csv with sample_id and 177
+              covariates over 20000 rows, the factuals of 10000 of them
+              with binary z; Twins: 12000 pairs, 50 covariates after the
+              loader's drops, ~1 % NaN rows, ~5 % heavy first twins); then
+              (a) configs/Semi_acic.yaml (binary, v_dim 177, z_dims
+              [3,6,3,6]) and (b) configs/Semi_Twins.yaml (v_dim 50) through
+              bayesgm_torch.main.main, cut by -e 1 -b 200 and a predict:
+              block (200 + 200 MH steps): the CSV load, fit and predict
+              times, K2 launches == the fit's steps, K1 launches == the
+              predict schedule's (per subject batch: one unpaired, one
+              paired per step), the ITE (a) or the ADRF (b) finite with
+              ordered intervals, the ATE or RMSE line; then K1 (unpaired on
+              a predict batch and paired on two) and K2 (32 rows) against
+              their plain versions at each config's widths, timed as in
+              phase 7, each with its bound;
+32. surface - utils.roofline's f32 GEMM peak and HBM triad measured on the
+              card (each at most 1.05 x the datasheet's 67 TFLOP/s and
+              3.35 TB/s) and its report for K1 paired at 2N rows from phase
+              7's device time; every models/networks.py class built on cuda
+              with one forward; run_mcmc_for_net for 50 + 50 HMC steps
+              (finite samples, acceptance in (0, 1]); the low-rank heads at
+              p = 100, rank 2 (Woodbury within 1e-4 of I, Sylvester equal
+              to slogdet); estimate_latent_dims on a Sim_Hirano_Imbens
+              sample, timed; simulate_regression(effective_rank=...)
+              without scikit-learn.
+
 Launch counts are set to 0 just before each driven path and read just
 after; the launches of the comparisons do not count.  The last lines are a
 JSON object with the kernels' numbers (each with its bound: the larger of
@@ -258,6 +288,7 @@ BGM_EPOCHS, BGM_EGM, BGM_HMC = 2, 200, 100  # phase 29's cut: -e, -b, HMC burn-i
 BGM_LEAPFROG, BGM_BS = 10, 500  # the driver's HMC leapfrog steps and subject batch (hetero)
 MNIST_EPOCHS, MNIST_EGM, MNIST_HMC = 1, 200, 100  # phase 30a's cut: -e, -b, HMC burn-in = kept steps
 MNIST_BNN_EGM, MNIST_RESUME_N, MNIST_LEAPFROG = 100, 512, 10  # 30b's EGM, 30c's images, HMC's L
+ACIC_ROWS, ACIC_FACTUALS, TWINS_PAIRS = 20000, 10000, 12000  # phase 31's fixtures
 SPIN_CYCLES = 5_000_000  # ~2.5 ms of spin ahead of a timed call: longer than any wrapper's host time
 
 
@@ -749,6 +780,403 @@ def mnist_phase() -> dict:
     if convs["tf32"] or not convs["f32"] or tf32_after is not True:
         raise AssertionError("[30 MNIST] a convolution ran in TF32, or the caller's TF32 "
                              "setting was not restored")
+    return out
+
+
+def _write_table(path, header, values, fmt, key=None):
+    """A CSV with a header row, as the real files have it: the float matrix
+    ``values`` in ``fmt`` (one per column, or one for all; a NaN becomes an
+    empty field, as pandas writes it), after a first column of strings
+    ``key`` when given."""
+    import numpy as np
+
+    buf = io.StringIO()
+    np.savetxt(buf, values, fmt=fmt, delimiter=",")
+    lines = buf.getvalue().replace("nan", "").splitlines()
+    if key is not None:
+        lines = [f"{k},{line}" for k, line in zip(key.tolist(), lines)]
+    with open(path, "w") as f:
+        f.write(",".join(header) + "\n" + "\n".join(lines) + "\n")
+
+
+def _semi_fixtures(root, acic_ufid):
+    """Seeded stand-ins for the ACIC-2018 and Twins files with their schema
+    under ``root`` (the ``$BAYESGM_DATA`` layout).  ACIC: ``x.csv`` with
+    ``sample_id`` and 177 covariates (106 continuous, 71 integer-coded) over
+    ACIC_ROWS rows, the factuals ``sample_id,z,y`` of ACIC_FACTUALS of them
+    (binary z by a logistic propensity, y with a heterogeneous effect).
+    Twins: TWINS_PAIRS pairs, 50 covariates after the loader's drops, ~1 %
+    of pairs with a NaN covariate, ~5 % with a first twin of 2000 g or
+    more."""
+    import numpy as np
+
+    rng = np.random.RandomState(31)
+    acic = os.path.join(root, "ACIC_2018")
+    os.makedirs(os.path.join(acic, "scaling", "factuals"))
+    ids = np.char.add("s", np.char.zfill(rng.permutation(ACIC_ROWS).astype(str), 6))
+    cont = rng.randn(ACIC_ROWS, 106)
+    ints = rng.randint(0, 5, size=(ACIC_ROWS, 71))
+    _write_table(os.path.join(acic, "x.csv"), ["sample_id"] + [f"x_{i}" for i in range(177)],
+                 np.c_[cont, ints], ["%.6g"] * 106 + ["%d"] * 71, key=ids)
+    pick = rng.choice(ACIC_ROWS, size=ACIC_FACTUALS, replace=False)
+    logit = cont[pick, :4] @ np.array([0.8, -0.5, 0.3, 0.4]) + 0.2 * (ints[pick, 0] - 2)
+    z = (rng.uniform(size=ACIC_FACTUALS) < 1.0 / (1.0 + np.exp(-logit))).astype(np.int64)
+    y = (cont[pick, :6] @ rng.uniform(-1, 1, 6) + z * (1.0 + 0.5 * cont[pick, 0])
+         + 0.5 * rng.randn(ACIC_FACTUALS))
+    _write_table(os.path.join(acic, "scaling", "factuals", f"{acic_ufid}.csv"),
+                 ["sample_id", "z", "y"], np.c_[z, y], ["%d", "%.6g"], key=ids[pick])
+
+    twins = os.path.join(root, "Twins")
+    os.makedirs(twins)
+    n = TWINS_PAIRS
+    cov = np.c_[rng.randn(n, 30), rng.randint(0, 9, size=(n, 20)).astype(np.float64)]
+    cov[rng.choice(n, n // 100, replace=False), rng.randint(0, 30)] = np.nan
+    idx = np.arange(n)
+    _write_table(os.path.join(twins, "twin_pairs_X_3years_samesex.csv"),
+                 ["Unnamed: 0", "Unnamed: 0.1"] + [f"cov_{i}" for i in range(50)]
+                 + ["infant_id_0", "infant_id_1"],
+                 np.c_[idx, idx, cov, 2 * idx, 2 * idx + 1],
+                 ["%d", "%d"] + ["%.6g"] * 30 + ["%d"] * 20 + ["%d", "%d"])
+    w0 = rng.randint(600, 2000, size=n).astype(np.float64)
+    w1 = np.clip(w0 + rng.randint(-150, 150, size=n), 500, 1999).astype(np.float64)
+    w1[rng.choice(n, n // 20, replace=False)] = rng.randint(2000, 2600, size=n // 20)
+    _write_table(os.path.join(twins, "twin_pairs_T_3years_samesex.csv"),
+                 ["Unnamed: 0", "dbirwt_0", "dbirwt_1"], np.c_[idx, w0, w1], "%d")
+    _write_table(os.path.join(twins, "twin_pairs_Y_3years_samesex.csv"),
+                 ["Unnamed: 0", "mort_0", "mort_1"],
+                 np.c_[idx, rng.randint(0, 2, n), rng.randint(0, 2, n)], "%d")
+
+
+def semi_phase() -> dict:
+    """Phase 31: the semi-synthetic configs through the driver on seeded
+    fixtures with the real schema, then K1 and K2 against their plain
+    versions at their shapes (see the module docstring); raises on any
+    failed check.  Returns the measured numbers."""
+    import torch
+
+    from bayesgm_torch import main as driver
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_semi_")
+    data_env = os.environ.get("BAYESGM_DATA")
+    out = {}
+    try:
+        t = time.perf_counter()
+        _semi_fixtures(os.path.join(root, "data"), driver.ACIC_UFID)
+        print(f"[31 semi] fixtures written in {time.perf_counter() - t:.3f} s", flush=True)
+        os.environ["BAYESGM_DATA"] = os.path.join(root, "data")
+        for name in ("Semi_acic", "Semi_Twins"):
+            out[name] = _semi_driver_run(driver, root, name)
+    finally:
+        if data_env is None:
+            os.environ.pop("BAYESGM_DATA", None)
+        else:
+            os.environ["BAYESGM_DATA"] = data_env
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.synchronize()
+    return out
+
+
+def _semi_driver_run(driver, root, name):
+    """31a (Semi_acic) or 31b (Semi_Twins): the shipped config through
+    bayesgm_torch.main.main, cut to -e 1 -b 200 and BURN_IN + N_MCMC MH
+    steps, its spans timed and its launch counts checked; then K1 and K2
+    against their plain versions at the config's shapes, timed."""
+    import numpy as np
+    import torch
+
+    from bayesgm_torch.models.causalbgm import CausalBGM
+    from bayesgm_torch.ops._pk_bnn_hosteps import (
+        logp_and_grad_plain,
+        logp_plain,
+        make_fused_causal_logp_and_grad_bnn_hosteps,
+        make_fused_causal_logp_bnn_hosteps,
+    )
+    from bayesgm_torch.ops._pk_util import (
+        flatten_flipout_params,
+        flipout_step_perturbations,
+        split_flipout_flat,
+    )
+    from bayesgm_torch.utils import config_io
+
+    tag = "[31a semi-acic]" if name == "Semi_acic" else "[31b semi-twins]"
+    text = (open(f"configs/{name}.yaml").read()
+            .replace("output_dir: '.'", f"output_dir: '{os.path.join(root, 'out')}'")
+            .replace("predict:\n  burn_in: 1000\n", ""))
+    cfg_path = os.path.join(root, f"{name}.yaml")
+    with open(cfg_path, "w") as f:
+        f.write(text + f"predict:\n  burn_in: {BURN_IN}\n  n_mcmc: {N_MCMC}\n")
+    print(f"{tag} config {config_io.load(cfg_path)}", flush=True)
+
+    spans, built, loaded, after_fit = {}, [], [], {}
+    init, load = CausalBGM.__init__, driver._load_causal_dataset
+
+    def recording_init(self, *a, **kw):
+        init(self, *a, **kw)
+        fit = timed_call(spans, "fit", self.fit)
+
+        def fit_and_count(*fa, **fkw):
+            try:
+                return fit(*fa, **fkw)
+            finally:
+                after_fit.update({k: n.launches for k, n in self.kernels.items()})
+        self.fit = fit_and_count
+        self.predict = timed_call(spans, "predict", self.predict)
+        self.egm_init = timed_call(spans, "egm_init", self.egm_init)
+        built.append(self)
+
+    def recording_load(dataset):
+        res = timed_call(spans, "csv load", load)(dataset)
+        loaded.append(res)
+        return res
+
+    CausalBGM.__init__, driver._load_causal_dataset = recording_init, recording_load
+    printed = io.StringIO()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(printed):
+            est, ci = driver.main(["-c", cfg_path, "-e", "1", "-b", str(EGM_N_ITER),
+                                   "--device", "cuda"])
+    finally:
+        CausalBGM.__init__, driver._load_causal_dataset = init, load
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    lines = printed.getvalue().splitlines()
+    model = built[0]
+    x_np, y_np, v_np, _ = loaded[0]
+    n = len(x_np)
+    cfg = model.cfg
+    fit_k2 = after_fit.get("bnn_hosteps_grad", -1)
+    pred = {k: kern.launches - after_fit.get(k, 0) for k, kern in model.kernels.items()}
+    steps = 2 * -(-n // FIT_BATCH)
+    bs = 10000 if cfg.binary_treatment else n  # predict's subject batch (bs=None; the driver's n)
+    n_batches = -(-n // bs)
+    train_s = spans["fit"] - spans["egm_init"]
+    report = [l for l in lines if l.startswith(("ATE estimate:", "ADRF RMSE:"))]
+    res = {"n": n, "v_dim": v_np.shape[1], "z_dims": list(cfg.z_dims), "wall_s": wall,
+           "csv_load_s": spans["csv load"], "fit_s": spans["fit"], "egm_s": spans["egm_init"],
+           "ms_per_egm_iter": 1e3 * spans["egm_init"] / (EGM_N_ITER + 1),
+           "ms_per_train_step_incl_evals": 1e3 * train_s / steps, "train_steps": steps,
+           "predict_s": spans["predict"],
+           "ms_per_mh_step_incl_collector": 1e3 * spans["predict"] / (BURN_IN + N_MCMC),
+           "fit_launches": after_fit, "predict_launches": pred}
+    print(f"{tag} n={n} rows, v_dim {v_np.shape[1]}, z_dims {list(cfg.z_dims)}, binary "
+          f"{cfg.binary_treatment}: wall {wall:.3f} s; CSV load {spans['csv load']:.3f} s; fit "
+          f"{spans['fit']:.3f} s (EGM {spans['egm_init']:.3f} s = {res['ms_per_egm_iter']:.3f} "
+          f"ms per iteration; training and evaluations {train_s:.3f} s = "
+          f"{res['ms_per_train_step_incl_evals']:.3f} ms per step over {steps}); predict "
+          f"{spans['predict']:.3f} s ({res['ms_per_mh_step_incl_collector']:.3f} ms per MH step "
+          f"incl. the collector, {n_batches} batch(es) of {bs}); launches: fit {after_fit}, "
+          f"predict {pred}; {report}", flush=True)
+    checks = {
+        "one model built": len(built) == 1,
+        f"K2 launches in fit == {steps} (2 passes of {-(-n // FIT_BATCH)} batches)":
+            fit_k2 == steps and sum(after_fit.values()) == steps,
+        f"K1 launches in predict == {n_batches} + {n_batches} x {BURN_IN + N_MCMC}":
+            pred["bnn_hosteps"] == n_batches
+            and pred["bnn_hosteps_paired"] == n_batches * (BURN_IN + N_MCMC)
+            and sum(pred.values()) == n_batches * (1 + BURN_IN + N_MCMC),
+        "intervals finite and ordered": bool(np.all(np.isfinite(ci))
+                                             and np.all(ci[:, 0] <= ci[:, 1])),
+    }
+    if cfg.binary_treatment:
+        checks[f"ITE ({n},) finite, ATE line printed"] = (
+            est.shape == (n,) and bool(np.all(np.isfinite(est)))
+            and any(l.startswith("ATE estimate:") for l in report))
+    else:
+        checks["ADRF (20,) finite, RMSE line printed"] = (
+            est.shape == (20,) and bool(np.all(np.isfinite(est)))
+            and any(l.startswith("ADRF RMSE:") for l in report))
+    for check, ok in checks.items():
+        print(f"{tag} {check}: {'ok' if ok else 'FAIL'}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"{tag} checks failed")
+
+    # K1 and K2 against their plain versions at this config's shapes
+    dev = torch.device("cuda")
+    dims = [model.nets[k].dims for k in "ghf"]
+    ws, sigs = zip(*(split_flipout_flat(flatten_flipout_params(model.nets[k])) for k in "ghf"))
+    sigs = sum(sigs, [])
+    x, y, v = (torch.as_tensor(np.asarray(a, np.float32), device=dev) for a in (x_np, y_np, v_np))
+    gen = torch.Generator(device=dev).manual_seed(31)
+    z_dim = sum(cfg.z_dims)
+    z = torch.randn((n, z_dim), generator=gen, device=dev)
+    seed = torch.randint(0, 2**31 - 1, (2,), generator=gen, device=dev, dtype=torch.int32)
+    ps, ps2 = flipout_step_perturbations(sigs, gen), flipout_step_perturbations(sigs, gen,
+                                                                               n_sets=2)
+    k1 = make_fused_causal_logp_bnn_hosteps(cfg, *dims)
+    k1p = make_fused_causal_logp_bnn_hosteps(cfg, *dims, paired=True)
+    k2 = make_fused_causal_logp_and_grad_bnn_hosteps(cfg, *dims)
+    rows = [(r[:bs] if r.shape[0] > bs else r).contiguous() for r in (z, x, y, v)]
+    paired = (torch.cat([rows[0] + 0.1 * torch.randn(rows[0].shape, generator=gen, device=dev),
+                         rows[0]]), *(torch.cat([a, a]) for a in rows[1:]))
+    a1 = (*rows, seed, *ws, ps)
+    a1p = (*paired, seed, *ws, ps2)
+    a2 = (*(r[:FIT_BATCH].contiguous() for r in (z, x, y, v)), seed, *ws, ps)
+    b_rows = rows[0].shape[0]
+    errs = [compare(f"{tag} K1 unpaired N={b_rows}", k1(*a1), logp_plain(cfg, *a1)),
+            compare(f"{tag} K1 paired N={2 * b_rows}", k1p(*a1p), logp_plain(cfg, *a1p))]
+    (neg_k, grad_k), (neg_p, grad_p) = k2(*a2), logp_and_grad_plain(cfg, *a2)
+    errs_g = [compare(f"{tag} K2 value N={FIT_BATCH}", neg_k, neg_p),
+              compare(f"{tag} K2 grad N={FIT_BATCH}", grad_k, grad_p, GRAD_RTOL, GRAD_ATOL)]
+    macs = chain_macs(dims)
+    w_floats = sum(t_.numel() for w in ws for t_ in w)
+    p_floats = sum(p_.numel() for p_ in ps)
+
+    def io_bytes(r, grad):  # z, x, y, v read; the value (and the z-gradient) written
+        return 4 * r * (z_dim + 2 + v.shape[1] + 1 + (z_dim if grad else 0))
+
+    cases = {
+        "K1 unpaired": (k1, a1, lambda: logp_plain(cfg, *a1),
+                        bound(io_bytes(b_rows, False) + 4 * (w_floats + p_floats),
+                              b_rows * 4 * macs), b_rows),
+        "K1 paired": (k1p, a1p, lambda: logp_plain(cfg, *a1p),
+                      bound(io_bytes(2 * b_rows, False) + 4 * (w_floats + 2 * p_floats),
+                            2 * b_rows * 4 * macs), 2 * b_rows),
+        "K2": (k2, a2, lambda: logp_and_grad_plain(cfg, *a2),
+               bound(io_bytes(FIT_BATCH, True) + 4 * (w_floats + p_floats),
+                     FIT_BATCH * 8 * macs), FIT_BATCH),
+    }
+    res["kernels"] = {}
+    for label, (kern, args, plain, (b_ms, b_by), r) in cases.items():
+        tk, tp = time_ms(lambda: kern(*args)), time_ms(plain)
+        td = device_ms(lambda: kern(*args))
+        res["kernels"][label] = {"rows": r, "ms": tk, "device_ms": td, "plain_ms": tp,
+                                 "bound_ms": b_ms, "bound_by": b_by}
+        print(f"{tag} timing {label} N={r}: kernel {tk:.4f} ms (device {td:.4f} ms), plain "
+              f"{tp:.4f} ms, plain/kernel {tp / tk:.2f}x; bound {b_ms:.6f} ms ({b_by}), device "
+              f"time at {100 * b_ms / td:.2f} % of it; {torch.cuda.get_device_name(0)}, "
+              f"nvidia-smi: {_card_line()}", flush=True)
+    res["kernels"]["K1 paired"]["max_abs_err"] = max(errs)
+    res["kernels"]["K2"]["max_abs_err"] = max(errs_g)
+    res["kernels"]["K1 paired"]["launches"] = pred["bnn_hosteps_paired"]
+    res["kernels"]["K1 unpaired"]["launches"] = pred["bnn_hosteps"]
+    res["kernels"]["K2"]["launches"] = fit_k2
+    return res
+
+
+def roofline_phase(k1_paired_device_ms, flagship_nets) -> dict:
+    """Phase 32: the roofline anchors measured on the card, the report for
+    K1 paired at 2N rows, the network facade on the card, weight-space HMC
+    through it, the low-rank algebra, the latent-dimension estimator and the
+    low-rank design (see the module docstring); raises on any failed
+    check.  Returns the measured numbers."""
+    import numpy as np
+    import torch
+
+    from bayesgm_torch import Sim_Hirano_Imbens_sampler, estimate_latent_dims
+    from bayesgm_torch.benchmarks import mxu_probe as mp
+    from bayesgm_torch.datasets.simulators import simulate_regression
+    from bayesgm_torch.models import networks
+    from bayesgm_torch.utils import roofline
+
+    card = f"{torch.cuda.get_device_name(0)}, nvidia-smi: {_card_line()}"
+    out = {}
+    # (a) the anchors, in this process, against the datasheet figures
+    peak = roofline.measure_matmul_peak("float32")
+    bw = roofline.measure_hbm_bandwidth()
+    out.update(matmul_peak_tflops=peak / 1e12, hbm_tb_per_s=bw / 1e12)
+    print(f"[32 roofline] f32 GEMM 4096^3 (TF32 off) {peak / 1e12:.3f} TFLOP/s "
+          f"({100 * peak / mp.F32_FLOP_PER_S:.1f} % of {mp.F32_FLOP_PER_S / 1e12:.0f}); HBM triad "
+          f"{bw / 1e12:.4f} TB/s ({100 * bw / mp.HBM_BYTES_PER_S:.1f} % of "
+          f"{mp.HBM_BYTES_PER_S / 1e12:.2f}); {card}", flush=True)
+    flops_row, bytes_row = roofline.bnn_eval_cost(flagship_nets, V_DIM)
+    report = roofline.roofline_report(2 * N / (k1_paired_device_ms / 1e3), flops_row, bytes_row,
+                                      peak, bw)
+    out["k1_paired_report"] = report
+    print(f"[32 roofline] K1 paired at {2 * N} rows, device {k1_paired_device_ms:.4f} ms "
+          f"(phase 7): {report}", flush=True)
+
+    # (b) every facade class on the card, one forward each
+    x4 = np.random.default_rng(0).normal(size=(8, 4)).astype(np.float32)
+    img = np.random.default_rng(1).random((2, 28, 28, 1)).astype(np.float32)
+    shapes = {}
+    for cls, kw, inp in (
+            (networks.BaseFullyConnectedNet, dict(input_dim=4, output_dim=3), x4),
+            (networks.Discriminator, dict(input_dim=4), x4),
+            (networks.BaseVariationalNet, dict(input_dim=4, output_dim=3), x4),
+            (networks.BaseVariationalLowRankNet, dict(input_dim=4, output_dim=3), x4),
+            (networks.BayesianFullyConnectedNet, dict(input_dim=4, output_dim=3), x4),
+            (networks.BayesianVariationalNet, dict(input_dim=4, output_dim=3), x4),
+            (networks.BayesianVariationalLowRankNet, dict(input_dim=4, output_dim=3), x4),
+            (networks.MCMCFullyConnectedNet, dict(input_dim=4, output_dim=3), x4),
+            (networks.MNISTEncoderConv, {}, img),
+            (networks.MNISTGenerator, {}, np.zeros((2, 10), np.float32)),
+            (networks.MNISTDiscriminator, {}, img)):
+        res = cls(**kw, device="cuda")(inp)
+        res = res if isinstance(res, tuple) else (res,)
+        if not all(r.is_cuda and bool(torch.isfinite(r).all()) for r in res):
+            raise AssertionError(f"[32 facade] {cls.__name__}: output off the card or not finite")
+        shapes[cls.__name__] = [tuple(r.shape) for r in res]
+    print(f"[32 facade] one forward each on cuda: {shapes}", flush=True)
+
+    # (c) weight-space HMC through the facade on a small regression
+    rng = np.random.RandomState(0)
+    xr = rng.randn(200, 2).astype(np.float32)
+    yr = (xr[:, :1] - 0.5 * xr[:, 1:] + 0.1 * rng.randn(200, 1)).astype(np.float32)
+    mnet = networks.MCMCFullyConnectedNet(input_dim=2, output_dim=1, nb_units=[16], device="cuda")
+    printed = io.StringIO()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        samples = networks.run_mcmc_for_net(
+            mnet, xr, yr, lambda y_true, y_pred: -0.5 * torch.sum((y_true - y_pred) ** 2) / 0.01,
+            num_samples=50, num_burnin_steps=50)
+    hmc_s = time.perf_counter() - t
+    rate = float(printed.getvalue().split("Acceptance rate:")[1].split()[0])
+    out.update(hmc_ms_per_step=1e3 * hmc_s / 100, hmc_accept=rate)
+    print(f"[32 facade] run_mcmc_for_net 50 + 50 steps: samples {samples.shape}, acceptance "
+          f"{rate:.4f}, {1e3 * hmc_s / 100:.3f} ms per step; {card}", flush=True)
+
+    # (d) the low-rank algebra at p = 100, rank 2
+    lr = networks.BaseVariationalLowRankNet(input_dim=4, output_dim=100, nb_units=[64], rank=2,
+                                            device="cuda")
+    with torch.no_grad():
+        _, var_d, u = lr(x4)
+        sigma = torch.diag_embed(var_d) + u @ u.transpose(-1, -2)
+        inv_err = float((lr.compute_covariance_inverse(var_d, u) @ sigma
+                         - torch.eye(100, device="cuda")).abs().max())
+        logdet = lr.compute_log_det(var_d, u)
+        dense_logdet = torch.linalg.slogdet(sigma.double())[1]
+        logdet_err = float((logdet.double() - dense_logdet).abs().max())
+    out.update(woodbury_max_err=inv_err, sylvester_max_abs_err=logdet_err)
+    print(f"[32 low-rank] p=100, rank 2, 8 rows: max |Sigma^-1 Sigma - I| {inv_err:.3e} (limit "
+          f"1e-4); max |log det - slogdet(dense, f64)| {logdet_err:.3e} (limit 1e-4 + 1e-5 "
+          f"|log det|)", flush=True)
+
+    # (e) the latent-dimension estimator on a Sim_Hirano_Imbens sample
+    xh, yh, vh = Sim_Hirano_Imbens_sampler(N=N, v_dim=V_DIM, seed=0).load_all()
+    t = time.perf_counter()
+    dims_est = estimate_latent_dims(xh, yh, vh)
+    est_s = time.perf_counter() - t
+    out.update(estimate_latent_dims=dims_est, estimate_s=est_s)
+    print(f"[32 estimator] estimate_latent_dims on Sim_Hirano_Imbens (n={N}, v_dim={V_DIM}): "
+          f"{dims_est} in {est_s:.3f} s (host)", flush=True)
+
+    # (f) the low-rank design without scikit-learn
+    xs, ys = simulate_regression(500, 20, 2, effective_rank=5)
+    checks = {
+        f"GEMM peak <= 1.05 x {mp.F32_FLOP_PER_S / 1e12:.0f} TFLOP/s":
+            0 < peak <= 1.05 * mp.F32_FLOP_PER_S,
+        f"HBM triad <= 1.05 x {mp.HBM_BYTES_PER_S / 1e12:.2f} TB/s":
+            0 < bw <= 1.05 * mp.HBM_BYTES_PER_S,
+        "every facade class ran on cuda": len(shapes) == 11,
+        "HMC samples (50, n_weights) finite": (samples.shape == (50, mnet.get_weights().numel())
+                                               and bool(np.all(np.isfinite(samples)))),
+        "HMC acceptance in (0, 1]": 0.0 < rate <= 1.0,
+        "Woodbury within 1e-4": inv_err <= 1e-4,
+        "Sylvester equals slogdet": bool(torch.allclose(logdet.double(), dense_logdet,
+                                                        rtol=1e-5, atol=1e-4)),
+        "estimated dims: four, z0 = 3, all >= 1": (len(dims_est) == 4 and dims_est[0] == 3
+                                                   and min(dims_est) >= 1),
+        "simulate_regression(effective_rank=5) without scikit-learn": (
+            xs.shape == (500, 20) and ys.shape == (500, 2) and bool(np.all(np.isfinite(xs)))
+            and "sklearn" not in sys.modules),
+    }
+    for check, ok in checks.items():
+        print(f"[32] {check}: {'ok' if ok else 'FAIL'}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError("[32] checks failed")
     return out
 
 
@@ -2183,6 +2611,12 @@ def main() -> int:
     # 30. MNISTBGM: Mnist.yaml through the driver, the flipout generator, a resumed fit
     mnist_phase()
 
+    # 31. the semi-synthetic configs through the driver, K1 and K2 at their shapes
+    semi = semi_phase()
+
+    # 32. the roofline anchors, the facade, the low-rank algebra, the estimator
+    roofline_phase(d_k2, fit_model.nets)
+
     # Bounds at the main path's shapes: K1 paired at 2N, K2 and K3 at the fit
     # batch, K4 at a predict batch.
     b_k2 = b_g[FIT_BATCH]
@@ -2206,6 +2640,8 @@ def main() -> int:
         "device_ms_unpaired": d_k1,
         "plain_ms_unpaired": t_p1,
         "bound_ms_unpaired": b_k1u[0],
+        "semi": {name: {k: semi[name]["kernels"][k] for k in ("K1 paired", "K1 unpaired")}
+                 for name in semi},
     }, {
         "name": "bnn_hosteps_grad",
         "route": "cuda",
@@ -2223,6 +2659,7 @@ def main() -> int:
         f"device_ms_n{N}": d_g[N],
         f"plain_ms_n{N}": t_g[N][1],
         f"bound_ms_n{N}": b_g[N][0],
+        "semi": {name: semi[name]["kernels"]["K2"] for name in semi},
     }, {
         "name": "plain_grad",
         "route": "cuda",

@@ -289,11 +289,14 @@ def test_override_checks_of_the_variant_engines():
 
 
 @pytest.mark.parametrize("params,match", [
-    (dict(dataset="Semi_acic"), "item 5"),
-    (dict(dataset="Semi_Twins"), "item 5"),
+    (dict(dataset="Semi_acic"), "BAYESGM_DATA"),
+    (dict(dataset="Semi_Twins"), "BAYESGM_DATA"),
 ])
-def test_unported_datasets_name_their_item(params, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_unported_datasets_name_their_item(params, match, tmp_path, monkeypatch):
+    """The semi-synthetic datasets are ported; without their CSVs the driver
+    raises ``FileNotFoundError`` naming the ``$BAYESGM_DATA`` hook."""
+    monkeypatch.setenv("BAYESGM_DATA", str(tmp_path))
+    with pytest.raises(FileNotFoundError, match=match):
         driver.run_causal(dict(params), epochs=0, egm_iters=0, device="cpu")
 
 

@@ -352,6 +352,29 @@ def _plain_model(tmp_path, **kw):
     return CausalBGM(params, random_seed=0, device="cuda")
 
 
+@pytest.mark.parametrize("binary", [False, True], ids=["continuous", "binary"])
+def test_predict_on_cuda_takes_a_column_major_table(cuda, tmp_path, binary):
+    """Port fault F2: a column-major v (as the semi-synthetic loaders and
+    ``parse_file_triplet`` give it) reaches K1 row-major through predict's
+    subject batches and the sampler API, and K2 through fit."""
+    params = dict(v_dim=12, z_dims=[1, 1, 1, 3], binary_treatment=binary, dataset="t",
+                  output_dir=str(tmp_path), save_res=False, g_units=[24, 24], h_units=[8],
+                  f_units=[8])
+    model = CausalBGM(params, random_seed=0, device="cuda")
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(300, 1))
+    x = (x > 0).astype(np.float32) if binary else x
+    data = (x, rng.normal(size=(300, 1)), np.asfortranarray(rng.normal(size=(300, 12))))
+    model.fit(data, epochs=0, epochs_per_eval=1, batch_size=32, egm_n_iter=5,
+              egm_batches_per_eval=5, verbose=0)
+    est, ci = model.predict(data, x_values=None if binary else [0.0, 1.0], burn_in=10,
+                            n_mcmc=10, bs=200)
+    assert np.all(np.isfinite(est)) and np.all(ci[:, 0] <= ci[:, 1])
+    assert model.metropolis_hastings_sampler(data, burn_in=2, n_keep=2).shape == (2, 300, 6)
+    assert model.kernels["bnn_hosteps_grad"].launches == 10
+    assert model.kernels["bnn_hosteps_paired"].launches == 2 * 20
+
+
 def test_plain_fit_on_cuda_goes_through_k3(cuda, tmp_path):
     model = _plain_model(tmp_path)
     rng = np.random.default_rng(0)
