@@ -279,3 +279,7 @@ def main_causalbgm(args=None):
     _add_common_args(parser)
     _add_causalbgm_args(parser)
     _run_causalbgm(parser.parse_args(args))
+
+
+# Backward-compatible alias (the JAX package's ``causalBGM`` script name).
+legacy_main = main_causalbgm

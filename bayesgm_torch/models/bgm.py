@@ -39,6 +39,7 @@ import torch
 from bayesgm_torch import bridge
 from bayesgm_torch.ops import distributions as dist
 from bayesgm_torch.ops import mcmc, optim
+from bayesgm_torch.ops import rows as rows_mod
 from bayesgm_torch.ops import nn as nn_ops  # _fused_flipout_draws, looked up per call
 from bayesgm_torch.ops.nn import (
     MLP,
@@ -52,6 +53,7 @@ from bayesgm_torch.ops.nn import (
     reparameterize,
     variational_mlp_apply,
 )
+from bayesgm_torch.parallel.mesh import mesh_batches, takes_mesh, writes_files
 from bayesgm_torch.utils import checkpoint as ckpt
 from bayesgm_torch.utils.device import resolve_device
 from bayesgm_torch.utils.profiling import MetricsLogger
@@ -136,8 +138,9 @@ def _train_batch_step(cfg: BGMConfig, g, opt_g, z_table, z_opt, idx, generator, 
     ``lr_theta * lr_scale`` on its batch NLL (the running statistics take
     this pass's update), then, through the updated g, a row-sparse Adam step
     of the batch's latent rows at ``lr_z * lr_scale``.  Returns ``(opt_g,
-    z_opt, losses)``; the losses are 0-d tensors on the device."""
-    bx, bz = data_x[idx], z_table[idx]
+    z_opt, losses)``; the losses are 0-d tensors on the device.  ``idx``
+    may be a mesh minibatch (:func:`~bayesgm_torch.ops.optim.rows_at`)."""
+    bx, bz = optim.rows_at(idx, data_x, z_table)
     loss_x, loss_mse, new_state = _g_loss(cfg, g, bz, bx, generator)
     params = list(g.parameters())
     opt_g = optim.adam_update(torch.autograd.grad(loss_x, params), opt_g, params,
@@ -146,7 +149,7 @@ def _train_batch_step(cfg: BGMConfig, g, opt_g, z_table, z_opt, idx, generator, 
     zr = bz.detach().requires_grad_(True)
     loss_post = _latent_loss(cfg, g, zr, bx, generator)
     (z_grads,) = torch.autograd.grad(loss_post, zr)
-    z_opt = optim.table_adam_update_rows(z_grads, idx, z_opt, z_table, cfg.lr_z * lr_scale)
+    z_opt = optim.table_adam_update_batch(z_grads, idx, z_opt, z_table, cfg.lr_z * lr_scale)
     losses = dict(loss_x=loss_x, loss_mse_x=loss_mse, loss_postrior_z=loss_post)
     return opt_g, z_opt, {k: t.detach() for k, t in losses.items()}
 
@@ -338,11 +341,11 @@ class BGM:
             self.timestamp = datetime.datetime.now().strftime("%Y%m%d_%H%M%S")
         self.checkpoint_path = "{}/checkpoints/{}/{}".format(
             p["output_dir"], p["dataset"], self.timestamp)
-        if p["save_model"] and not os.path.exists(self.checkpoint_path):
-            os.makedirs(self.checkpoint_path)
+        if p["save_model"]:
+            os.makedirs(self.checkpoint_path, exist_ok=True)
         self.save_dir = "{}/results/{}/{}".format(p["output_dir"], p["dataset"], self.timestamp)
-        if p["save_res"] and not os.path.exists(self.save_dir):
-            os.makedirs(self.save_dir)
+        if p["save_res"]:
+            os.makedirs(self.save_dir, exist_ok=True)
 
         self._resume_ckpt = ckpt.latest_checkpoint(self.checkpoint_path)
         if self._resume_ckpt is not None:
@@ -505,12 +508,14 @@ class BGM:
     # -- EGM ------------------------------------------------------------------
 
     def egm_init(self, data, egm_n_iter=10000, batch_size=32, egm_batches_per_eval=500,
-                 verbose=1):
+                 verbose=1, _writes=True):
         """Dual-LSGAN warm start of e and g: ``egm_n_iter + 1`` iterations,
         with a logging slot every ``egm_batches_per_eval``.  At each slot an
         evaluation generator is forked whether or not it is used; with
         ``verbose`` the slot prints the losses and the reconstruction MSE,
-        with ``save_res`` it writes ``init_data_gen_at_{iter}.npz``."""
+        with ``save_res`` it writes ``init_data_gen_at_{iter}.npz`` (unless
+        ``_writes`` is false, on the ranks of a mesh other than 0; the
+        draws are made all the same)."""
         data = self._train_data(data)
         print("EGM Initialization Starts ...")
         done, total = 0, egm_n_iter + 1
@@ -535,24 +540,28 @@ class BGM:
                 mse = float(self.evaluate(data, generator=eval_gen))
                 print("iter [%d/%d]: MSE_x: %.4f\n" % (done - 1, egm_n_iter, mse))
             if self.params["save_res"]:
-                self._save_egm_generated(f"{self.save_dir}/init_data_gen_at_{done - 1}.npz", data)
+                self._save_egm_generated(f"{self.save_dir}/init_data_gen_at_{done - 1}.npz", data,
+                                         _writes)
         self.egm_losses = {k: float(t) for k, t in losses.items()}
         print("EGM Initialization Ends.")
 
-    def _save_egm_generated(self, path, data):
+    def _save_egm_generated(self, path, data, write=True):
         """An EGM logging slot's ``save_res`` file: :meth:`_save_generated`
         with ``e(data)``."""
-        self._save_generated(path, self._encode(data).cpu().numpy())
+        self._save_generated(path, self._encode(data).cpu().numpy(), write)
 
-    def _save_generated(self, path, z):
+    def _save_generated(self, path, z, write=True):
         """Write two ``generate(5000)`` draws (with and without the x noise),
-        their variances and ``z`` to ``path``."""
+        their variances and ``z`` to ``path`` (with ``write``; the draws
+        are made either way, so every rank of a mesh keeps its stream)."""
         gen1, var1 = self.generate(nb_samples=GEN_SAMPLES)
         gen12, var12 = self.generate(nb_samples=GEN_SAMPLES, use_x_sd=False)
-        np.savez(path, gen1=gen1, gen12=gen12, z=z, var1=var1, var12=var12)
+        if write:
+            np.savez(path, gen1=gen1, gen12=gen12, z=z, var1=var1, var12=var12)
 
     # -- fit ------------------------------------------------------------------
 
+    @takes_mesh
     def fit(self, data, batch_size=32, epochs=100, epochs_per_eval=5, use_egm_init=True,
             egm_n_iter=20000, egm_batches_per_eval=500, verbose=1, mesh=None,
             egm_batch_size=None):
@@ -569,32 +578,48 @@ class BGM:
         checkpoint comes after every draw of its epoch, so a fit resumed
         from it (same ``epochs``) is bit-equal to an uninterrupted one.
 
-        ``mesh`` is not ported yet and raises ``NotImplementedError``."""
-        if mesh is not None:
-            raise NotImplementedError("fit(mesh=...) is not ported yet (ROADMAP Queue 1 item 12)")
+        ``mesh`` splits the data, the latent table and its moments by rank
+        with g and its optimizer replicated, as :meth:`CausalBGM.fit
+        <bayesgm_torch.models.causalbgm.CausalBGM.fit>` does: the EGM runs
+        replicated, ``e(data)`` on each rank's rows, each minibatch is
+        assembled on every rank and each rank steps its own table rows;
+        rank 0 alone prints and writes files.  After the fit ``data_z``
+        holds every row on every rank."""
         data = self._train_data(data)
         n = data.shape[0]
         cfg = self.cfg
-        if self.params["save_res"]:
+        rows = None if mesh is None else mesh.rows(n)
+        writes = writes_files(mesh)
+        if self.params["save_res"] and writes:
             with open(f"{self.save_dir}/params.txt", "w") as f:
                 f.write(str(self.params))
 
         resume = self._try_resume(n)
         if resume is not None:
             z_opt, start_epoch = resume
+            if rows is not None:
+                self.data_z = rows.take(self.data_z).contiguous()
+                z_opt = optim.TableAdamState(m=rows.take(z_opt.m).contiguous(),
+                                             v=rows.take(z_opt.v).contiguous(), t=z_opt.t)
         else:
             start_epoch = 0
             if use_egm_init:
                 self.egm_init(data, egm_n_iter=egm_n_iter,
                               batch_size=egm_batch_size or batch_size,
-                              egm_batches_per_eval=egm_batches_per_eval, verbose=verbose)
+                              egm_batches_per_eval=egm_batches_per_eval, verbose=verbose,
+                              _writes=writes)
                 print("Initialize latent variables Z with e(V)...")
-                self.data_z = self._encode(data)
+                with rows_mod.split(rows):
+                    self.data_z = self._encode(data if rows is None else rows.take(data))
             else:
                 print("Random initialization of latent variables Z...")
-                self.data_z = torch.randn((n, cfg.z_dim), generator=self._gen,
-                                          device=self.device)
+                with rows_mod.split(rows):
+                    self.data_z = rows_mod.draw(
+                        lambda s: torch.randn(s, generator=self._gen, device=self.device),
+                        (n if rows is None else rows.local, cfg.z_dim))
             z_opt = optim.table_adam_init(self.data_z)
+        if rows is not None:
+            data = rows.take(data)
 
         n_full = n // batch_size
         if n_full == 0:
@@ -605,29 +630,42 @@ class BGM:
         print("Iterative Updating Starts ...")
         g = self.nets["g"]
         for epoch in range(start_epoch, epochs + 1):
-            perm = torch.randperm(n, generator=self._host_gen).to(self.device)
+            perm = torch.randperm(n, generator=self._host_gen)
+            if rows is None:
+                perm = perm.to(self.device)
             scale = optim.lr_schedule_scale(decay, epoch, epochs)
-            for b in range(n_full):
-                idx = perm[b * batch_size:(b + 1) * batch_size]
+            batches = [perm[b * batch_size:(b + 1) * batch_size] for b in range(n_full)]
+            if rows is not None:
+                batches = mesh_batches(rows, batches)
+            for idx in batches:
                 self.opt_g, z_opt, losses = self._train_batch_step(
                     cfg, g, self.opt_g, self.data_z, z_opt, idx, self._gen, data, scale)
             self.fit_losses = {k: float(t) for k, t in losses.items()}
 
             if epoch % epochs_per_eval == 0:
-                mse_x = float(self.evaluate(data, data_z=self.data_z))
+                with rows_mod.split(rows):
+                    mse_x = float(self.evaluate(data, data_z=self.data_z))
+                    data_z, z_m, z_v = (rows_mod.gather(t) for t in (self.data_z, z_opt.m,
+                                                                      z_opt.v))
                 self.history_loss.append(mse_x)
                 if verbose:
                     print("Epoch [%d/%d]: MSE_x: %.4f\n" % (epoch, epochs, mse_x))
-                if self._metrics is not None:
+                if self._metrics is not None and writes:
                     self._metrics.log("eval", epoch=epoch, mse_x=mse_x)
                 if self.params["save_res"]:
                     self._save_generated(f"{self.save_dir}/data_gen_at_{epoch}.npz",
-                                         self.data_z.cpu().numpy())
+                                         data_z.cpu().numpy(), writes)
                 if self.params["save_model"]:
-                    path = ckpt.save_checkpoint(self.checkpoint_path, epoch,
-                                                self._full_state_bundle(self.data_z, z_opt, epoch),
-                                                max_to_keep=100)
-                    print(f"Saving checkpoint for epoch {epoch} at {path}")
+                    bundle = self._full_state_bundle(
+                        data_z, optim.TableAdamState(m=z_m, v=z_v, t=z_opt.t), epoch)
+                    if writes:
+                        path = ckpt.save_checkpoint(self.checkpoint_path, epoch, bundle,
+                                                    max_to_keep=100)
+                        print(f"Saving checkpoint for epoch {epoch} at {path}")
+                    if rows is not None:
+                        mesh.barrier()
+        if rows is not None:
+            self.data_z = rows.gather(self.data_z)
 
     # -- evaluation / generation -----------------------------------------------
 
@@ -636,13 +674,14 @@ class BGM:
         """Reconstruction MSE (a 0-d device tensor) of g in eval mode on
         ``data_z`` (default ``e(data)``), with the x noise when
         ``use_x_sd``.  ``generator`` defaults to a fresh fork of the model's
-        stream."""
+        stream.  Inside a row split (:mod:`bayesgm_torch.ops.rows`) the
+        rows are this rank's and the MSE is over every rank's."""
         data = self._data(data)
         gen = self._fork_generator() if generator is None else generator
         z = mlp_apply(self.nets["e"], data) if data_z is None else self._data(data_z)
         mu, sigma_sq, _ = _g_apply(self.cfg, self.nets["g"], z, gen, train=False)
         x_pred = reparameterize(mu, sigma_sq, gen) if use_x_sd else mu
-        return torch.mean((data - x_pred) ** 2)
+        return rows_mod.mean((data - x_pred) ** 2)
 
     @torch.no_grad()
     def generate(self, nb_samples=1000, use_x_sd=True):
@@ -778,6 +817,7 @@ class BGM:
             return _masked_log_prob(cfg, p["nets"]["g"], z, p["data"], p["mask"], draws=draws)
         return log_prob, noise
 
+    @takes_mesh
     def tfp_mcmc_sampler(self, data, ind_x1=None, n_mcmc=3000, burn_in=5000, step_size=0.01,
                          num_leapfrog_steps=10, seed=42, collect=None, mesh=None,
                          collect_p=None):
@@ -793,29 +833,38 @@ class BGM:
         Returns the ``(n_mcmc, n, z_dim)`` samples as numpy, or what
         ``collect(z, generator)`` / ``collect_p(params, z, generator)``
         (``params`` holds ``nets``, ``data`` and ``mask``) collects per kept
-        step.  ``mesh`` is not ported yet and raises
-        ``NotImplementedError``."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "tfp_mcmc_sampler(mesh=...) is not ported yet (ROADMAP Queue 1 item 12)")
+        step.  ``mesh`` splits the chains, the data rows and the dense mask
+        by rank (each rank draws every chain's momentum and uniforms and
+        keeps its own; the step size adapts on the accept probability over
+        all chains); the collected rows are gathered, so every rank returns
+        all of them."""
         cfg = self.cfg
         data_np = np.asarray(data, np.float32)
         n = data_np.shape[0]
         flat = data_np.reshape(n, -1)
-        params = {"nets": self.nets, "data": self._data(flat),
-                  "mask": self._prep_obs_dense_mask(flat, ind_x1, flat.shape[1])}
-        log_prob, noise = self._hmc_target(n)
+        mask = self._prep_obs_dense_mask(flat, ind_x1, flat.shape[1])
+        rows = None if mesh is None else mesh.rows(n)
+        if rows is not None:
+            flat = flat[rows.lo:rows.hi]
+            mask = None if mask is None else rows.take(mask)
+        params = {"nets": self.nets, "data": self._data(flat), "mask": mask}
+        log_prob, noise = self._hmc_target(flat.shape[0])
         if collect_p is None and collect is not None:
             collect_p = lambda p, z, generator: collect(z, generator)
         init_gen = torch.Generator(device=self.device).manual_seed(int(seed))
-        init = torch.randn((n, cfg.z_dim), generator=init_gen, device=self.device)
-        with torch.no_grad():
+        with torch.no_grad(), rows_mod.split(rows):
+            init = rows_mod.draw(lambda s: torch.randn(s, generator=init_gen, device=self.device),
+                                 (flat.shape[0], cfg.z_dim))
             res = mcmc.hmc(log_prob, init, self._gen, burn_in=burn_in, n_keep=n_mcmc,
                            step_size=step_size, num_leapfrog=num_leapfrog_steps,
-                           collect=collect_p, params=params, noise=noise)
+                           collect=collect_p, params=params, noise=noise, mesh=mesh)
             print(f"HMC Acceptance Rate: {float(res.accept_rate):.4f}")
-            return None if res.samples is None else res.samples.cpu().numpy()
+            if res.samples is None:
+                return None
+            samples = res.samples if rows is None else rows.gather(res.samples, axis=1)
+            return samples.cpu().numpy()
 
+    @takes_mesh
     def predict(self, data, alpha=0.05, return_samples=False, bs=None, n_mcmc=5000,
                 burn_in=5000, step_size=0.01, num_leapfrog_steps=10, seed=42, mesh=None,
                 return_diagnostics=False):
@@ -834,7 +883,8 @@ class BGM:
         ESS and split-R-hat of the draws at every missing entry
         (``(n, x_dim)``, NaN at observed entries).
 
-        ``mesh`` is not ported yet and raises ``NotImplementedError``."""
+        ``mesh`` splits each subject batch's chains by rank
+        (:meth:`tfp_mcmc_sampler`); every rank returns the same arrays."""
         if not 0 < alpha < 1:
             raise ValueError("The significance level 'alpha' must be greater than 0 and less than 1.")
         data_np = np.asarray(data, np.float32)

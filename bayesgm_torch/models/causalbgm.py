@@ -55,6 +55,7 @@ import torch
 from bayesgm_torch import bridge
 from bayesgm_torch.ops import distributions as dist
 from bayesgm_torch.ops import mcmc, optim
+from bayesgm_torch.ops import rows as rows_mod
 from bayesgm_torch.ops._pk_bnn_hosteps import (
     make_fused_causal_logp_and_grad_bnn_hosteps,
     make_fused_causal_logp_bnn_hosteps,
@@ -80,6 +81,7 @@ from bayesgm_torch.ops.nn import (
     flipout_mlp_kl,
     mlp_apply,
 )
+from bayesgm_torch.parallel.mesh import mesh_batches, takes_mesh, writes_files
 from bayesgm_torch.utils import checkpoint as ckpt
 from bayesgm_torch.utils.data_io import save_data
 from bayesgm_torch.utils.device import resolve_device
@@ -155,75 +157,78 @@ def _sigma_sq(fixed: Optional[float], raw):
 # ---------------------------------------------------------------------------
 
 
-def _loss_v(cfg, g_net, z, v, generator):
-    """``(-log p(V|Z) batch mean + kl_weight * KL, mse_v)``."""
+def _nll_rows_v(cfg, g_net, z, v, generator):
+    """``(-log p(V|Z) per row, mu_v)``."""
     out = _apply(cfg, g_net, z, generator)
     mu_v = out[:, : cfg.v_dim]
-    sigma_sq_v = _sigma_sq(cfg.sigma_v, out[:, -1])
-    loss_mse = torch.mean((v - mu_v) ** 2)
-    loss = torch.mean(dist.gaussian_nll_iso(v, mu_v, sigma_sq_v, cfg.v_dim))
-    return loss + _kl(cfg, g_net) * cfg.kl_weight, loss_mse
+    return dist.gaussian_nll_iso(v, mu_v, _sigma_sq(cfg.sigma_v, out[:, -1]), cfg.v_dim), mu_v
 
 
-def _loss_x(cfg, h_net, z, x, generator):
-    """``(-log p(X|Z0,Z2) batch mean + kl_weight * KL, fit term)``."""
+def _nll_rows_x(cfg, h_net, z, x, generator):
+    """``(-log p(X|Z0,Z2) per row, mu_x)`` (Bernoulli logits for binary
+    treatment)."""
     z0, _, z2 = _split_z(cfg, z)
     out = _apply(cfg, h_net, torch.cat([z0, z2], dim=-1), generator)
     mu_x = out[:, :1]
     if cfg.binary_treatment:
-        loss_fit = torch.mean(dist.bernoulli_logits_nll(x, mu_x))
-        loss = loss_fit
-    else:
-        sigma_sq_x = _sigma_sq(cfg.sigma_x, out[:, -1])
-        loss_fit = torch.mean((x - mu_x) ** 2)
-        loss = torch.mean(dist.gaussian_nll_iso(x, mu_x, sigma_sq_x, 1))
+        return dist.bernoulli_logits_nll(x, mu_x)[:, 0], mu_x
+    return dist.gaussian_nll_iso(x, mu_x, _sigma_sq(cfg.sigma_x, out[:, -1]), 1), mu_x
+
+
+def _nll_rows_y(cfg, f_net, z, x, y, generator):
+    """``(-log p(Y|Z0,Z1,X) per row, mu_y)``."""
+    z0, z1, _ = _split_z(cfg, z)
+    out = _apply(cfg, f_net, torch.cat([z0, z1, x], dim=-1), generator)
+    mu_y = out[:, :1]
+    return dist.gaussian_nll_iso(y, mu_y, _sigma_sq(cfg.sigma_y, out[:, -1]), 1), mu_y
+
+
+def _deconf_penalty(x, y, mu_y):
+    """The squared correlation of the residual ``y - mu_y`` with the
+    centred, scaled cubic basis of x (means over every rank's rows inside
+    a row split)."""
+    r = (y - mu_y)[:, 0]
+    rc = r - rows_mod.mean(r)
+    xs = x[:, 0]
+    feats = torch.stack([xs, xs**2, xs**3], dim=1)
+    fc = feats - rows_mod.mean(feats, dim=0)
+    fc = fc / (torch.sqrt(rows_mod.mean(fc**2, dim=0)) + 1e-6)
+    cov = rows_mod.mean(fc * rc[:, None], dim=0)
+    return torch.sum(cov**2) / (rows_mod.mean(rc**2) + 1e-6)
+
+
+def _loss_v(cfg, g_net, z, v, generator):
+    """``(-log p(V|Z) batch mean + kl_weight * KL, mse_v)``."""
+    nll, mu_v = _nll_rows_v(cfg, g_net, z, v, generator)
+    return torch.mean(nll) + _kl(cfg, g_net) * cfg.kl_weight, torch.mean((v - mu_v) ** 2)
+
+
+def _loss_x(cfg, h_net, z, x, generator):
+    """``(-log p(X|Z0,Z2) batch mean + kl_weight * KL, fit term)``; the fit
+    term is the NLL (binary treatment) or the squared error."""
+    nll, mu_x = _nll_rows_x(cfg, h_net, z, x, generator)
+    loss = torch.mean(nll)
+    loss_fit = loss if cfg.binary_treatment else torch.mean((x - mu_x) ** 2)
     return loss + _kl(cfg, h_net) * cfg.kl_weight, loss_fit
 
 
 def _loss_y(cfg, f_net, z, x, y, generator):
     """``(-log p(Y|Z0,Z1,X) batch mean + kl_weight * KL, mse_y)``; with
-    ``deconf_weight > 0`` plus that weight times the squared correlation of
-    the residual ``y - mu_y`` with the centred, scaled cubic basis of x."""
-    z0, z1, _ = _split_z(cfg, z)
-    out = _apply(cfg, f_net, torch.cat([z0, z1, x], dim=-1), generator)
-    mu_y = out[:, :1]
-    sigma_sq_y = _sigma_sq(cfg.sigma_y, out[:, -1])
-    loss_mse = torch.mean((y - mu_y) ** 2)
-    loss = torch.mean(dist.gaussian_nll_iso(y, mu_y, sigma_sq_y, 1))
-    loss = loss + _kl(cfg, f_net) * cfg.kl_weight
+    ``deconf_weight > 0`` plus that weight times :func:`_deconf_penalty`."""
+    nll, mu_y = _nll_rows_y(cfg, f_net, z, x, y, generator)
+    loss = torch.mean(nll) + _kl(cfg, f_net) * cfg.kl_weight
     if cfg.deconf_weight:
-        r = (y - mu_y)[:, 0]
-        rc = r - torch.mean(r)
-        xs = x[:, 0]
-        feats = torch.stack([xs, xs**2, xs**3], dim=1)
-        fc = feats - torch.mean(feats, dim=0, keepdim=True)
-        fc = fc / (torch.sqrt(torch.mean(fc**2, dim=0, keepdim=True)) + 1e-6)
-        cov = torch.mean(fc * rc[:, None], dim=0)
-        r2 = torch.sum(cov**2) / (torch.mean(rc**2) + 1e-6)
-        loss = loss + cfg.deconf_weight * r2
-    return loss, loss_mse
+        loss = loss + cfg.deconf_weight * _deconf_penalty(x, y, mu_y)
+    return loss, torch.mean((y - mu_y) ** 2)
 
 
 def _neg_log_posterior_rows(cfg, nets, z, x, y, v, generator):
     """Per-sample negative log posterior through the nets' own flipout draws
     (g, then h, then f) — the composite the kernels are held against."""
-    g_out = _apply(cfg, nets["g"], z, generator)
-    mu_v = g_out[:, : cfg.v_dim]
-    loss_pv = dist.gaussian_nll_iso(v, mu_v, _sigma_sq(cfg.sigma_v, g_out[:, -1]), cfg.v_dim)
-
-    z0, z1, z2 = _split_z(cfg, z)
-    h_out = _apply(cfg, nets["h"], torch.cat([z0, z2], dim=-1), generator)
-    mu_x = h_out[:, :1]
-    if cfg.binary_treatment:
-        loss_px = dist.bernoulli_logits_nll(x, mu_x)[:, 0]
-    else:
-        loss_px = dist.gaussian_nll_iso(x, mu_x, _sigma_sq(cfg.sigma_x, h_out[:, -1]), 1)
-
-    f_out = _apply(cfg, nets["f"], torch.cat([z0, z1, x], dim=-1), generator)
-    mu_y = f_out[:, :1]
-    loss_py = dist.gaussian_nll_iso(y, mu_y, _sigma_sq(cfg.sigma_y, f_out[:, -1]), 1)
-
-    return loss_pv + loss_px + loss_py + dist.standard_normal_neg_log_prior(z)
+    return (_nll_rows_v(cfg, nets["g"], z, v, generator)[0]
+            + _nll_rows_x(cfg, nets["h"], z, x, generator)[0]
+            + _nll_rows_y(cfg, nets["f"], z, x, y, generator)[0]
+            + dist.standard_normal_neg_log_prior(z))
 
 
 def _latent_loss(cfg, nets, z, x, y, v, generator):
@@ -269,10 +274,10 @@ def _train_batch_step(cfg: CBGMConfig, nets, opts, z_table, z_opt, idx, generato
     is the fused latent value-and-gradient (K2 or K3); its gradient is that of the
     row sum, so it is divided by the batch size.  Without it the gradient is
     autograd of :func:`_latent_loss`.  Returns ``(opts, z_opt, losses)``;
-    the losses are 0-d tensors on the device."""
-    x, y, v = data
-    bx, by, bv = x[idx], y[idx], v[idx]
-    bz = z_table[idx]
+    the losses are 0-d tensors on the device.  ``idx`` may be a mesh
+    minibatch (:func:`~bayesgm_torch.ops.optim.rows_at`): every rank then
+    runs the step on the assembled batch and steps its own table rows."""
+    bz, bx, by, bv = optim.rows_at(idx, z_table, *data)
     opts, losses = _update_nets(cfg, nets, opts, bz, bx, by, bv, generator,
                                 cfg.lr_theta * lr_scale)
     if latent_vg is not None:
@@ -283,7 +288,7 @@ def _train_batch_step(cfg: CBGMConfig, nets, opts, z_table, z_opt, idx, generato
         zr = bz.detach().requires_grad_(True)
         loss_post = _latent_loss(cfg, nets, zr, bx, by, bv, generator)
         (z_grads,) = torch.autograd.grad(loss_post, zr)
-    z_opt = optim.table_adam_update_rows(z_grads, idx, z_opt, z_table, cfg.lr_z * lr_scale)
+    z_opt = optim.table_adam_update_batch(z_grads, idx, z_opt, z_table, cfg.lr_z * lr_scale)
     losses["loss_postrior_z"] = loss_post.detach()
     return opts, z_opt, losses
 
@@ -417,7 +422,12 @@ def _evaluate(cfg: CBGMConfig, nets, data, z, generator, nb_intervals: int = 200
     Draw order: e (when ``z`` is None), g, f, h, then the effect.  The ADRF
     grid (``nb_intervals`` points between the 5th and 95th 'nearest'
     percentiles of x) takes ONE flipout draw shared by every grid point,
-    as JAX's vmap over one key does."""
+    as JAX's vmap over one key does.
+
+    Inside a row split (:mod:`bayesgm_torch.ops.rows`) ``data`` and ``z``
+    are this rank's rows: the MSEs and grid means are over every rank's
+    rows, the percentiles are those of all of x, and the per-row outputs
+    come back with every rank's rows."""
     x, y, v = data
     if z is None:
         z = _apply(cfg, nets["e"], v, generator)
@@ -427,33 +437,35 @@ def _evaluate(cfg: CBGMConfig, nets, data, z, generator, nb_intervals: int = 200
     x_pred = _apply(cfg, nets["h"], torch.cat([z0, z2], dim=-1), generator)[:, :1]
     if cfg.binary_treatment:
         x_pred = torch.sigmoid(x_pred)
-    mse_v = torch.mean((v - v_pred) ** 2)
-    mse_x = torch.mean((x - x_pred) ** 2)
-    mse_y = torch.mean((y - y_pred) ** 2)
+    mse_v = rows_mod.mean((v - v_pred) ** 2)
+    mse_x = rows_mod.mean((x - x_pred) ** 2)
+    mse_y = rows_mod.mean((y - y_pred) ** 2)
 
     f_net = nets["f"]
     if cfg.binary_treatment:
         ones = torch.ones((x.shape[0], 1), device=x.device)
         y_pos = _apply(cfg, f_net, torch.cat([z0, z1, ones], dim=-1), generator)[:, :1]
         y_neg = _apply(cfg, f_net, torch.cat([z0, z1, 0.0 * ones], dim=-1), generator)[:, :1]
-        causal_pre = y_pos - y_neg
+        causal_pre = rows_mod.gather(y_pos - y_neg)
     else:
-        x_grid = _linspace(_percentile_nearest(x, 5.0), _percentile_nearest(x, 95.0),
+        x_all = rows_mod.gather(x)
+        x_grid = _linspace(_percentile_nearest(x_all, 5.0), _percentile_nearest(x_all, 95.0),
                            nb_intervals)
         zz = torch.cat([z0, z1], dim=-1)
         n, d = zz.shape
         draws = (_fused_flipout_draws(f_net.layers(), (n, d + 1), generator) if cfg.use_bnn
                  else None)
-        chunk = max(1, min(nb_intervals, (1 << 22) // max(n, 1)))
+        chunk = max(1, min(nb_intervals, (1 << 22) // max(x_all.shape[0], 1)))
         means = []
         for start in range(0, nb_intervals, chunk):
             xv = x_grid[start:start + chunk]
             inp = torch.cat([zz.expand(xv.shape[0], n, d),
                              xv[:, None, None].expand(xv.shape[0], n, 1)], dim=-1)
-            means.append(torch.mean(_apply(cfg, f_net, inp, generator, draws)[..., 0], dim=1))
+            means.append(rows_mod.mean(_apply(cfg, f_net, inp, generator, draws)[..., 0], dim=1))
         causal_pre = torch.cat(means)
     out = (causal_pre, mse_x, mse_y, mse_v)
-    return out + (x_pred, y_pred, v_pred) if with_preds else out
+    return (out + tuple(rows_mod.gather(t) for t in (x_pred, y_pred, v_pred)) if with_preds
+            else out)
 
 
 # ---------------------------------------------------------------------------
@@ -466,7 +478,10 @@ def _effect_collector(cfg: CBGMConfig, nets, x_values, sample_y: bool):
 
     Binary treatment: per-subject ITE draw ``(n,)``.  Continuous: ADRF grid
     means ``(len(x_values),)``; every grid point gets its own weight-noise
-    draw and signs (one batched ``(X, n, .)`` pass through f)."""
+    draw and signs (one batched ``(X, n, .)`` pass through f).  Inside a
+    row split (:mod:`bayesgm_torch.ops.rows`) ``z`` holds this rank's rows
+    and the statistic is every rank's: the ITE draws gathered, the grid
+    means over all rows."""
 
     def outcome(z, xv_col, generator):
         z0, z1, _ = _split_z(cfg, z)
@@ -475,7 +490,8 @@ def _effect_collector(cfg: CBGMConfig, nets, x_values, sample_y: bool):
         mu_y = out[..., 0]
         if sample_y:
             sigma_sq = _sigma_sq(cfg.sigma_y, out[..., 1])
-            noise = torch.randn(mu_y.shape, generator=generator, device=mu_y.device)
+            noise = rows_mod.draw(lambda s: torch.randn(s, generator=generator,
+                                                        device=mu_y.device), mu_y.shape, axis=-1)
             return mu_y + torch.sqrt(sigma_sq) * noise
         return mu_y
 
@@ -483,14 +499,15 @@ def _effect_collector(cfg: CBGMConfig, nets, x_values, sample_y: bool):
 
         def collect(z, generator):
             ones = torch.ones((z.shape[0], 1), device=z.device)
-            return outcome(z, ones, generator) - outcome(z, 0.0 * ones, generator)
+            return rows_mod.gather(outcome(z, ones, generator)
+                                   - outcome(z, 0.0 * ones, generator))
 
     else:
 
         def collect(z, generator):
             xv = torch.as_tensor(np.asarray(x_values, np.float32), device=z.device)
             cols = xv[:, None, None].expand(xv.shape[0], z.shape[0], 1)
-            return outcome(z, cols, generator).mean(dim=1)
+            return rows_mod.mean(outcome(z, cols, generator), dim=1)
 
     return collect
 
@@ -534,12 +551,13 @@ def _dr_effect_collector_p(cfg: CBGMConfig, x_values, h_bw: float, gps_floor: fl
         n, d = z.shape[0], z0.shape[-1] + z1.shape[-1]
         inp = torch.cat([torch.cat([z0, z1], dim=-1).expand(xv.shape[0], n, d),
                          xv[:, None, None].expand(xv.shape[0], n, 1)], dim=-1)
-        plugin = torch.mean(_apply(cfg, nets["f"], inp, generator)[..., 0], dim=1)
+        plugin = rows_mod.mean(_apply(cfg, nets["f"], inp, generator)[..., 0], dim=1)
         gps = (torch.exp(-0.5 * (xv[:, None] - mu_x) ** 2 / s2x)
                / torch.sqrt(2.0 * np.pi * s2x))
         kern = torch.exp(-0.5 * ((x[:, 0] - xv[:, None]) / np.float32(h_bw)) ** 2)
         w = kern / torch.clamp_min(gps, gps_floor)
-        return plugin + torch.sum(w * resid, dim=1) / torch.clamp_min(torch.sum(w, dim=1), 1e-12)
+        return plugin + rows_mod.sum_rows(w * resid, dim=1) / torch.clamp_min(
+            rows_mod.sum_rows(w, dim=1), 1e-12)
 
     return collect_p
 
@@ -564,7 +582,7 @@ def _resolve_predict_bs(cfg: CBGMConfig, bs, n_test: int) -> int:
             f"bs={bs}: subject batching scopes the shared flipout eps per "
             "batch, narrowing ADRF intervals vs one full-data launch. Set "
             "bs >= n_test (or leave bs=None) for reference-exact intervals.",
-            UserWarning, stacklevel=3)
+            UserWarning, stacklevel=4)
     return bs
 
 
@@ -595,11 +613,24 @@ def _copy_params(dst_nets, src_nets):
             dst.copy_(src)
 
 
+def _randn_rows(shape, generator, device):
+    """N(0, I) of ``shape`` with the rows on axis 0: a per-row draw
+    (:func:`bayesgm_torch.ops.rows.draw`)."""
+    return rows_mod.draw(lambda s: torch.randn(s, generator=generator, device=device), shape)
+
+
 def _kernel_seed(generator, device):
     """Two int32 seed words for the kernel's sign generator, drawn on the
     device (no host round trip)."""
     return torch.randint(0, 2**31 - 1, (2,), generator=generator, device=device,
                          dtype=torch.int32)
+
+
+def _rank_seed(generator, device, mesh):
+    """:func:`_kernel_seed`, with the rank added to the second word under a
+    mesh (every rank draws the same words, then each its own signs)."""
+    seed = _kernel_seed(generator, device)
+    return seed if mesh is None else mesh.mix_seed(seed)
 
 
 class CausalBGM:
@@ -711,12 +742,12 @@ class CausalBGM:
             self.timestamp = datetime.datetime.now().strftime("%Y%m%d_%H%M%S")
         self.checkpoint_path = "{}/checkpoints/{}/{}".format(
             p["output_dir"], p["dataset"], self.timestamp)
-        if p["save_model"] and not os.path.exists(self.checkpoint_path):
-            os.makedirs(self.checkpoint_path)
+        if p["save_model"]:
+            os.makedirs(self.checkpoint_path, exist_ok=True)
         self.save_dir = "{}/results/{}/{}".format(
             p["output_dir"], p["dataset"], self.timestamp)
-        if p["save_res"] and not os.path.exists(self.save_dir):
-            os.makedirs(self.save_dir)
+        if p["save_res"]:
+            os.makedirs(self.save_dir, exist_ok=True)
 
         # Restore the nets of the latest checkpoint, as the JAX package does
         # whatever save_model is; the rest of its state (optimizers, latent
@@ -818,12 +849,13 @@ class CausalBGM:
     # -- EGM initialization -------------------------------------------------
 
     def egm_init(self, data, egm_n_iter=30000, batch_size=32, egm_batches_per_eval=500,
-                 verbose=1):
+                 verbose=1, _writes=True):
         """Adversarial EGM warm start: ``egm_n_iter + 1`` iterations of
         (``g_d_freq`` critic steps + one generator step), with a logging
         slot every ``egm_batches_per_eval`` iterations.  At each slot an
         evaluation generator is forked whether or not it is used; the
-        evaluation itself runs only when ``save_res`` writes its result."""
+        evaluation itself runs only when ``save_res`` writes its result
+        (and ``_writes``: false on the ranks of a mesh other than 0)."""
         data = self._data(data)
         print("EGM Initialization Starts ...")
         done, total = 0, egm_n_iter + 1
@@ -845,7 +877,7 @@ class CausalBGM:
                        lv["l2_loss_x"], lv["l2_loss_y"], lv["g_e_loss"],
                        lv["dz_loss"], lv["d_loss"]))
             eval_gen = self._fork_generator()
-            if self.params["save_res"]:
+            if self.params["save_res"] and _writes:
                 causal_pre, *_ = self.evaluate(data, generator=eval_gen)
                 save_data(f"{self.save_dir}/causal_pre_egm_init_iter-{done - 1}.txt",
                           causal_pre.cpu().numpy())
@@ -962,6 +994,7 @@ class CausalBGM:
 
         return vg
 
+    @takes_mesh
     def fit(self, data, epochs=100, epochs_per_eval=5, batch_size=32, startoff=0,
             use_egm_init=True, egm_n_iter=30000, egm_batches_per_eval=500,
             save_format="txt", verbose=1, mesh=None, egm_batch_size=None):
@@ -983,46 +1016,75 @@ class CausalBGM:
         over this call's ``epochs``: resume a killed run with the same
         ``epochs``.
 
-        ``mesh`` is not ported yet and raises ``NotImplementedError``."""
-        if mesh is not None:
-            raise NotImplementedError("fit(mesh=...) is not ported yet")
+        ``mesh`` (a :class:`bayesgm_torch.parallel.Mesh`; every rank passes
+        all the data) splits the data, the latent table and its Adam moments
+        by rank; the nets and their optimizers are replicated.  The EGM runs
+        replicated on every rank, ``e(V)`` on each rank's rows.  Each
+        minibatch is assembled on every rank (one all-reduce), g, h, f and
+        the latent update (K2/K3) run replicated, and each rank steps its
+        own table rows; evaluations reduce over the ranks.  Rank 0 alone
+        prints and writes files; a checkpoint holds every row.  After the
+        fit ``data_z`` holds every row on every rank.  With one rank the
+        result is bit-equal to ``mesh=None``."""
         tdata = self._data(data)
         data_v = tdata[2]
         n = data_v.shape[0]
         cfg = self.cfg
-        if self.params["save_res"]:
+        rows = None if mesh is None else mesh.rows(n)
+        if self.params["save_res"] and writes_files(mesh):
             with open(f"{self.save_dir}/params.txt", "w") as f:
                 f.write(str(self.params))
 
         resume = self._try_resume(n)
         if resume is not None:
             z_opt, start_epoch, best_loss = resume
+            if rows is not None:
+                self.data_z, z_opt = self._local_table(rows, self.data_z, z_opt)
         else:
             start_epoch, best_loss = 0, np.inf
             if use_egm_init:
                 self.egm_init(tdata, egm_n_iter=egm_n_iter,
                               batch_size=egm_batch_size or batch_size,
-                              egm_batches_per_eval=egm_batches_per_eval, verbose=verbose)
+                              egm_batches_per_eval=egm_batches_per_eval, verbose=verbose,
+                              _writes=writes_files(mesh))
                 print("Initialize latent variables Z with e(V)...")
-                with torch.no_grad():
-                    self.data_z = _apply(cfg, self.nets["e"], data_v, self._gen)
+                with torch.no_grad(), rows_mod.split(rows):
+                    v_rows = data_v if rows is None else rows.take(data_v)
+                    self.data_z = _apply(cfg, self.nets["e"], v_rows, self._gen)
             else:
                 print("Random initialization of latent variables Z...")
-                self.data_z = torch.randn((n, sum(cfg.z_dims)), generator=self._gen,
-                                          device=self.device)
+                with rows_mod.split(rows):
+                    self.data_z = _randn_rows((n if rows is None else rows.local,
+                                               sum(cfg.z_dims)), self._gen, self.device)
             z_opt = optim.table_adam_init(self.data_z)
+        if rows is not None:
+            tdata = tuple(rows.take(a) for a in tdata)
+        z_opt = self._fit_epochs(tdata, z_opt, rows, start_epoch, best_loss, epochs,
+                                 epochs_per_eval, batch_size, startoff, save_format, verbose)
+        if rows is not None:
+            self.data_z = rows.gather(self.data_z)
 
+    def _fit_epochs(self, tdata, z_opt, rows, start_epoch, best_loss, epochs, epochs_per_eval,
+                    batch_size, startoff, save_format, verbose):
+        """:meth:`fit`'s iterative phase (``tdata`` and the table this
+        rank's rows under a mesh); returns the table's Adam state."""
+        cfg = self.cfg
+        n = tdata[0].shape[0] if rows is None else rows.n
         n_full = n // batch_size
         remainder = n - n_full * batch_size
         latent_vg = self._build_fused_latent_vg()
         decay = self.params.get("lr_decay")
         print("Iterative Updating Starts ...")
         for epoch in range(start_epoch, epochs + 1):
-            perm = torch.randperm(n, generator=self._host_gen).to(self.device)
+            perm = torch.randperm(n, generator=self._host_gen)
+            if rows is None:
+                perm = perm.to(self.device)
             scale = optim.lr_schedule_scale(decay, epoch, epochs)
             batches = [perm[b * batch_size:(b + 1) * batch_size] for b in range(n_full)]
             if remainder:
                 batches.append(perm[n_full * batch_size:])
+            if rows is not None:
+                batches = mesh_batches(rows, batches)
             for idx in batches:
                 self.opts, z_opt, losses = _train_batch_step(
                     cfg, self.nets, self.opts, self.data_z, z_opt, idx, self._gen, tdata,
@@ -1030,23 +1092,33 @@ class CausalBGM:
             self.fit_losses = {k: float(t) for k, t in losses.items()}
 
             if epoch % epochs_per_eval == 0:
-                causal_pre, mse_x, mse_y, mse_v = self.evaluate(tdata, self.data_z)
+                with rows_mod.split(rows):
+                    causal_pre, mse_x, mse_y, mse_v = self.evaluate(tdata, self.data_z)
                 causal_pre = causal_pre.cpu().numpy()
                 mse_y = float(mse_y)
                 if verbose:
                     print("Epoch [%d/%d]: MSE_x: %.4f, MSE_y: %.4f, MSE_v: %.4f\n"
                           % (epoch, epochs, float(mse_x), mse_y, float(mse_v)))
-                if self._metrics is not None:
+                if self._metrics is not None and writes_files(rows and rows.mesh):
                     self._metrics.log("eval", epoch=epoch, mse_x=mse_x, mse_y=mse_y, mse_v=mse_v)
                 best_loss = self._record_eval(epoch, epochs, startoff, causal_pre, mse_y,
-                                              best_loss, z_opt, save_format)
+                                              best_loss, z_opt, save_format, rows)
+        return z_opt
+
+    @staticmethod
+    def _local_table(rows, data_z, z_opt):
+        """This rank's rows of a full latent table and its Adam moments."""
+        return rows.take(data_z).contiguous(), optim.TableAdamState(
+            m=rows.take(z_opt.m).contiguous(), v=rows.take(z_opt.v).contiguous(), t=z_opt.t)
 
     def _record_eval(self, epoch, epochs, startoff, causal_pre, mse_y, best_loss, z_opt,
-                     save_format):
+                     save_format, rows=None):
         """After an eval epoch's evaluation: keep the best-``mse_y`` snapshot
         (from ``startoff`` on), fold the nets into the SWA mean over the tail
         half, write the full-state checkpoint (``save_model``) and the
-        in-sample effect (``save_res``).  Returns the best loss."""
+        in-sample effect (``save_res``).  Under a mesh (``rows``) the
+        checkpoint holds every rank's rows of the table and its moments and
+        rank 0 alone writes.  Returns the best loss."""
         if epoch >= startoff and mse_y < best_loss:
             best_loss = mse_y
             self.best_causal_pre = causal_pre
@@ -1063,10 +1135,17 @@ class CausalBGM:
                         for a, b in zip(self.swa_nets[k].parameters(), self.nets[k].parameters()):
                             a.add_((b - a) * w)
         if self.params["save_model"]:
-            path = ckpt.save_checkpoint(self.checkpoint_path, epoch, self._full_state_bundle(
-                self.data_z, z_opt, epoch, best_loss, self.best_causal_pre))
-            print(f"Saving checkpoint for epoch {epoch} at {path}")
-        if self.params["save_res"]:
+            with rows_mod.split(rows):  # every rank gathers its rows of the state
+                bundle = self._full_state_bundle(
+                    rows_mod.gather(self.data_z), optim.TableAdamState(
+                        m=rows_mod.gather(z_opt.m), v=rows_mod.gather(z_opt.v), t=z_opt.t),
+                    epoch, best_loss, self.best_causal_pre)
+            if writes_files(rows and rows.mesh):
+                path = ckpt.save_checkpoint(self.checkpoint_path, epoch, bundle)
+                print(f"Saving checkpoint for epoch {epoch} at {path}")
+            if rows is not None:
+                rows.mesh.barrier()
+        if self.params["save_res"] and writes_files(rows and rows.mesh):
             save_data(f"{self.save_dir}/causal_pre_at_{epoch}.{save_format}", causal_pre)
         return best_loss
 
@@ -1093,7 +1172,8 @@ class CausalBGM:
         return -_neg_log_posterior_rows(self.cfg, self.nets, z, x, y, v,
                                         self._gen if generator is None else generator)
 
-    def _make_log_prob(self, data_x, data_y, data_v, differentiable=False, nets=None):
+    def _make_log_prob(self, data_x, data_y, data_v, differentiable=False, nets=None,
+                       mesh=None):
         """Log-target over Z, ``log_prob(z, generator) -> (n,)``, through
         ``nets`` (the model's by default).
 
@@ -1102,7 +1182,9 @@ class CausalBGM:
         (plain nets); with ``differentiable=True`` it is K2 or K3 wrapped in
         a ``torch.autograd.Function`` whose backward scales the kernel's
         z-gradient (for K2 taken through the same weight noise) by the
-        cotangent.  Elsewhere it is the autograd composite."""
+        cotangent.  Elsewhere it is the autograd composite.  With ``mesh`` the
+        data are this rank's rows and each BNN launch's sign seed has the
+        rank in its second word."""
         cfg = self.cfg
         nets = self.nets if nets is None else nets
         x, y, v = self._data((data_x, data_y, data_v))
@@ -1126,7 +1208,8 @@ class CausalBGM:
 
         def kernel_args(z, generator):
             ps = flipout_step_perturbations(sigs, generator)
-            return (z.detach().contiguous(), x, y, v, _kernel_seed(generator, z.device), *ws, ps)
+            return (z.detach().contiguous(), x, y, v, _rank_seed(generator, z.device, mesh),
+                    *ws, ps)
 
         if not differentiable:
             fused = self.kernels["bnn_hosteps"]
@@ -1138,8 +1221,13 @@ class CausalBGM:
 
     # -- MH target ----------------------------------------------------------
 
-    def _make_param_log_prob(self):
+    def _make_param_log_prob(self, mesh=None):
         """Params-mode MH target for :func:`bayesgm_torch.ops.mcmc.adaptive_mh`.
+
+        ``mesh``: the data and states are this rank's rows.  Each rank
+        launches its kernel on them, K1 with the weight noise drawn once on
+        every rank (the same draw) and the rank added to the sign seed's
+        second word (JAX's per-shard seed); ``make_multi_step`` is None.
 
         Returns ``(lp, plp, make_params, make_multi_step)``:
 
@@ -1194,7 +1282,7 @@ class CausalBGM:
             gw, hw, fw = params["w"]
             x, y, v = params["data"]
             ps = flipout_step_perturbations(params["sigs"], generator)
-            seed = _kernel_seed(generator, z.device)
+            seed = _rank_seed(generator, z.device, mesh)
             return -fused(z, x, y, v, seed, gw, hw, fw, ps)
 
         def plp(params, z_prop, z_cur, generator):
@@ -1203,7 +1291,7 @@ class CausalBGM:
             n = z_prop.shape[0]
             ps2 = flipout_step_perturbations(params["sigs"], generator, n_sets=2,
                                              antithetic=anti)
-            seed = _kernel_seed(generator, z_prop.device)
+            seed = _rank_seed(generator, z_prop.device, mesh)
             neg = fused_paired(torch.cat([z_prop, z_cur], dim=0), x2, y2, v2, seed,
                                gw, hw, fw, ps2)
             return -neg[:n], -neg[n:]
@@ -1221,7 +1309,7 @@ class CausalBGM:
 
             return multi_step
 
-        return lp, plp, make_params, make_multi_step
+        return lp, plp, make_params, None if mesh is not None else make_multi_step
 
     # -- inference ----------------------------------------------------------
 
@@ -1272,6 +1360,7 @@ class CausalBGM:
         out = np.concatenate(outs, axis=0)  # (n_keep, stat)
         return out if self.cfg.binary_treatment else out.T
 
+    @takes_mesh
     def predict(self, data, alpha=0.01, n_mcmc=3000, burn_in=5000, x_values=None,
                 q_sd=1.0, sample_y=True, bs=None, sampler="mh",
                 use_best_nets=False, use_swa_nets=False, mesh=None,
@@ -1311,12 +1400,16 @@ class CausalBGM:
         every 500 kept steps from 1000 on (``adaptive_mh(early_stop=...)``);
         ``n_mcmc`` stays the cap.
 
-        ``mesh`` is not ported yet and raises ``NotImplementedError``.
+        ``mesh`` (every rank passes all the data) splits each subject
+        batch's chains by rank: each rank steps its own rows, launches its
+        kernel on them (K1 with a rank-mixed sign seed, K4, or the composite)
+        and draws every per-chain random number at the batch's full size,
+        as one rank would; the acceptance, the ADRF means and the DR sums
+        are all-reduced and the ITE draws gathered, so every rank returns the
+        same arrays.  The burn-in never takes the K5 window under a mesh.
         """
         if not 0 < alpha < 1:
             raise ValueError("The significance level 'alpha' must be greater than 0 and less than 1.")
-        if mesh is not None:
-            raise NotImplementedError("predict(mesh=...) is not ported yet")
         if sampler not in ("mh", "mala"):
             raise ValueError(f"unknown sampler {sampler!r} (expected 'mh' or 'mala')")
         cfg = self.cfg
@@ -1362,28 +1455,32 @@ class CausalBGM:
         collect = _effect_collector(cfg, nets, x_values, sample_y)
 
         print("MCMC Latent Variable Sampling ...")
-        lp, plp, make_params, make_multi_step = self._make_param_log_prob()
+        lp, plp, make_params, make_multi_step = self._make_param_log_prob(mesh=mesh)
         # The K-steps-per-launch burn-in (K5), opt-in as in the JAX package.
         multi_step = (make_multi_step(MH_WINDOW)
                       if self.params.get("mh_window_kernel", False) and make_multi_step
                       else None)
 
         def run_batch(bx, by, bv):
-            with torch.no_grad():
-                init = torch.randn((bx.shape[0], sum(cfg.z_dims)), generator=self._gen,
-                                   device=self.device)
+            rows = None if mesh is None else mesh.rows(len(bx))
+            with torch.no_grad(), rows_mod.split(rows):
+                if rows is not None:
+                    bx, by, bv = (a[rows.lo:rows.hi] for a in (bx, by, bv))
+                init = _randn_rows((len(bx), sum(cfg.z_dims)), self._gen, self.device)
                 if sampler == "mala":
-                    log_prob = self._make_log_prob(bx, by, bv, differentiable=True, nets=nets)
+                    log_prob = self._make_log_prob(bx, by, bv, differentiable=True, nets=nets,
+                                                   mesh=mesh)
                     res = mcmc.adaptive_mala(
                         log_prob, init, self._gen, burn_in=burn_in, n_keep=n_mcmc,
-                        step_size=0.1, recompute_current=cfg.use_bnn, collect=collect)
+                        step_size=0.1, recompute_current=cfg.use_bnn, collect=collect,
+                        mesh=mesh)
                 else:
                     params = make_params(nets, (bx, by, bv), cfg.use_bnn)
                     res = mcmc.adaptive_mh(
                         lp, init, self._gen, burn_in=burn_in, n_keep=n_mcmc, q_sd=q0,
                         adaptive=adaptive, recompute_current=cfg.use_bnn, collect=collect_p,
                         paired_log_prob_fn=plp, multi_step_fn=multi_step, params=params,
-                        early_stop=early_stop)
+                        early_stop=early_stop, mesh=mesh)
                 rate = float(res.accept_rate)
                 samples = res.samples.cpu().numpy()
             print(f"Final MCMC Acceptance Rate: {rate:.4f}")

@@ -28,7 +28,9 @@ from bayesgm_torch import bridge
 from bayesgm_torch.models import causalbgm as cb
 from bayesgm_torch.ops import distributions as dist
 from bayesgm_torch.ops import mcmc
+from bayesgm_torch.ops import rows as rows_mod
 from bayesgm_torch.ops.nn import flatten_params, mlp_apply, standard_normal_log_prior
+from bayesgm_torch.parallel.mesh import share_state, sum_parts, takes_mesh
 
 INFER_CHUNK = 64  # Z draws (each with its f-weight draw) per batched f pass
 
@@ -59,18 +61,27 @@ class FullMCMCCausalBGM(cb.CausalBGM):
 
     # -- weight-space HMC ----------------------------------------------------
 
-    def _weight_log_prob_fn(self, name, inputs, targets, likelihood):
+    def _weight_log_prob_fn(self, name, inputs, targets, likelihood, mesh=None):
         """HMC target over ``(chains, D)`` flat weights: the N(0, 1) prior
-        plus the full-data likelihood of the net's outputs on ``inputs``."""
+        plus the full-data likelihood of the net's outputs on ``inputs``.
+        With ``mesh`` the rows are this rank's: the likelihood is a local
+        sum whose value and weight gradient are summed over the ranks, and
+        the prior is added once, after the reduction."""
         unravel = self._unravel[name]
 
+        def lik(flat):
+            if mesh is None:
+                return likelihood(targets, mlp_apply(unravel(flat), inputs))
+            return sum_parts(likelihood(targets, mlp_apply(unravel(share_state(flat, mesh)),
+                                                           inputs)), mesh)
+
         def log_prob(flat_batch, generator):
-            return torch.stack([standard_normal_log_prior(flat)
-                                + likelihood(targets, mlp_apply(unravel(flat), inputs))
+            return torch.stack([standard_normal_log_prior(flat) + lik(flat)
                                 for flat in flat_batch])
 
         return log_prob
 
+    @takes_mesh
     def run_mcmc_training(self, data, num_samples=2000, num_burnin=1000, eps=1e-6,
                           step_size=1e-4, num_leapfrog=3, adaptation_rate=0.05, mesh=None):
         """HMC over g's, h's and f's weights conditioned on the fitted latent
@@ -78,16 +89,18 @@ class FullMCMCCausalBGM(cb.CausalBGM):
         adapted over the first 80 % of ``num_burnin``.  Call after
         :meth:`fit`.  ``eps`` is unused (kept for the JAX signature).
 
-        ``mesh`` is not ported yet (ROADMAP Queue 1 item 12) and raises
-        ``NotImplementedError``."""
-        if mesh is not None:
-            raise NotImplementedError("run_mcmc_training(mesh=...) is not ported yet "
-                                      "(ROADMAP Queue 1 item 12)")
+        ``mesh`` splits the conditioning data and the latent table by rank;
+        the weight chains are replicated, every rank drawing the same
+        momenta, and the likelihood's value and gradient are summed over
+        the ranks at every evaluation (see :meth:`_weight_log_prob_fn`)."""
         if self.data_z is None:
             raise RuntimeError("Call fit() before run_mcmc_training().")
         cfg = self.cfg
         data_x, data_y, data_v = self._data(data)
         z = self.data_z
+        if mesh is not None:
+            rows = mesh.rows(z.shape[0])
+            data_x, data_y, data_v, z = (rows.take(a) for a in (data_x, data_y, data_v, z))
         z0, z1, z2 = cb._split_z(cfg, z)
 
         def g_likelihood(v_true, out):
@@ -112,7 +125,7 @@ class FullMCMCCausalBGM(cb.CausalBGM):
             flat0, _ = flatten_params(self.nets[name])
             # A sharp posterior over ~10^4 weights with a full-data
             # likelihood: start small and adapt fast, as the JAX package does.
-            res = mcmc.hmc(self._weight_log_prob_fn(name, inputs, targets, lik),
+            res = mcmc.hmc(self._weight_log_prob_fn(name, inputs, targets, lik, mesh),
                            flat0[None, :], self._gen, burn_in=num_burnin, n_keep=num_samples,
                            step_size=step_size, num_leapfrog=num_leapfrog, adapt_fraction=0.8,
                            adaptation_rate=adaptation_rate)
@@ -173,26 +186,31 @@ class FullMCMCCausalBGM(cb.CausalBGM):
         return -neg[:n], -neg[n:]
 
     def _latent_chain(self, data, burn_in, n_keep, q0, adaptive, target_rate=0.25,
-                      tolerance=0.05, adjustment_interval=50, window_size=100):
+                      tolerance=0.05, adjustment_interval=50, window_size=100, mesh=None):
         """Adaptive MH over Z with a weight triple drawn per step; the kept
-        states stay on the device (``MHResult``)."""
+        states stay on the device.  Returns ``(MHResult, rows)``: under a
+        mesh the chains of this rank's rows (``rows``, a ``RowSplit``; None
+        without a mesh), the weight index drawn on every rank alike."""
         x, y, v = self._data(data)
+        rows = None if mesh is None else mesh.rows(x.shape[0])
+        if rows is not None:
+            x, y, v = (rows.take(a) for a in (x, y, v))
         w = tuple(torch.as_tensor(s, device=self.device)
                   for s in (self.g_net_samples, self.h_net_samples, self.f_net_samples))
         params = {"w": w, "data": (x, y, v),
                   "data2": tuple(torch.cat([a, a], dim=0) for a in (x, y, v))}
-        with torch.no_grad():
-            init = torch.randn((x.shape[0], sum(self.cfg.z_dims)), generator=self._gen,
-                               device=self.device)
+        with torch.no_grad(), rows_mod.split(rows):
+            init = cb._randn_rows((x.shape[0], sum(self.cfg.z_dims)), self._gen, self.device)
             res = mcmc.adaptive_mh(
                 self._weighted_log_prob_p, init, self._gen, burn_in=burn_in, n_keep=n_keep,
                 q_sd=float(q0), adaptive=bool(adaptive), target_rate=target_rate,
                 tolerance=tolerance, adjustment_interval=adjustment_interval,
                 window_size=window_size, recompute_current=True,
-                paired_log_prob_fn=self._weighted_paired_log_prob_p, params=params)
+                paired_log_prob_fn=self._weighted_paired_log_prob_p, params=params, mesh=mesh)
         print(f"Final MCMC Acceptance Rate: {float(res.accept_rate):.4f}")
-        return res
+        return res, rows
 
+    @takes_mesh
     def metropolis_hastings_sampler(self, data, g_net_samples=None, h_net_samples=None,
                                     f_net_samples=None, initial_q_sd=1.0, q_sd=None,
                                     burn_in=5000, n_keep=3000, target_acceptance_rate=0.25,
@@ -203,11 +221,9 @@ class FullMCMCCausalBGM(cb.CausalBGM):
         (numpy ``(N, D)``, the JAX package's too) replace the stored ones.
         Returns a ``(n_keep, n, z_dim)`` numpy array.
 
-        ``mesh`` is not ported yet (ROADMAP Queue 1 item 12) and raises
-        ``NotImplementedError``."""
-        if mesh is not None:
-            raise NotImplementedError("metropolis_hastings_sampler(mesh=...) is not ported yet "
-                                      "(ROADMAP Queue 1 item 12)")
+        ``mesh`` splits the chains by rank (the weight stacks replicated,
+        the per-step weight index the same on every rank); every rank
+        returns all the draws."""
         for name, given in (("g", g_net_samples), ("h", h_net_samples), ("f", f_net_samples)):
             if given is not None:
                 setattr(self, f"{name}_net_samples",
@@ -217,17 +233,20 @@ class FullMCMCCausalBGM(cb.CausalBGM):
         if adaptive_sd is None:
             adaptive_sd = q_sd is None or q_sd <= 0
         q0 = initial_q_sd if adaptive_sd else q_sd
-        res = self._latent_chain(data, burn_in, n_keep, q0, adaptive_sd,
-                                 target_rate=target_acceptance_rate, tolerance=tolerance,
-                                 adjustment_interval=adjustment_interval,
-                                 window_size=window_size)
-        return res.samples.cpu().numpy()
+        res, rows = self._latent_chain(data, burn_in, n_keep, q0, adaptive_sd,
+                                       target_rate=target_acceptance_rate, tolerance=tolerance,
+                                       adjustment_interval=adjustment_interval,
+                                       window_size=window_size, mesh=mesh)
+        samples = res.samples if rows is None else rows.gather(res.samples, axis=1)
+        return samples.cpu().numpy()
 
     def _effect_draws(self, z, f_flat, xv, sample_y):
         """Effects of K paired draws in one batched pass through K f-nets:
         ``z`` ``(K, n, z_dim)``, ``f_flat`` ``(K, D)``, treatment values
         ``xv`` ``(X,)``.  Binary (``xv = [1, 0]``): ``(K, n)`` ITE draws;
-        continuous: ``(K, X)`` ADRF draws."""
+        continuous: ``(K, X)`` ADRF draws.  Inside a row split
+        (:mod:`bayesgm_torch.ops.rows`) ``z`` holds this rank's rows and the
+        draws are every rank's."""
         k, n, _ = z.shape
         z0, z1, _ = cb._split_z(self.cfg, z)
         zz = torch.cat([z0, z1], dim=-1)
@@ -238,9 +257,12 @@ class FullMCMCCausalBGM(cb.CausalBGM):
         out = out.reshape(k, n_x, n, -1)
         y = out[..., 0]
         if sample_y:
-            noise = torch.randn(y.shape, generator=self._gen, device=y.device)
+            noise = rows_mod.draw(lambda s: torch.randn(s, generator=self._gen, device=y.device),
+                                  y.shape, axis=-1)
             y = y + torch.sqrt(dist.softplus_var(out[..., 1])) * noise
-        return y[:, 0] - y[:, 1] if self.cfg.binary_treatment else torch.mean(y, dim=2)
+        if self.cfg.binary_treatment:
+            return rows_mod.gather(y[:, 0] - y[:, 1], axis=1)
+        return rows_mod.mean(y, dim=2)
 
     def infer_from_latent_posterior(self, data_posterior_z, f_net_weights=None,
                                     x_values=None, sample_y=True):
@@ -274,6 +296,7 @@ class FullMCMCCausalBGM(cb.CausalBGM):
                     for s in range(0, z_draws.shape[0], INFER_CHUNK)]
         return torch.cat(outs).cpu().numpy()
 
+    @takes_mesh
     def predict(self, data, alpha=0.01, n_mcmc=3000, burn_in=5000, x_values=None,
                 q_sd=1.0, sample_y=True, bs=10000, return_diagnostics=False, mesh=None):
         """Causal effects marginalising over weight and latent uncertainty:
@@ -284,13 +307,12 @@ class FullMCMCCausalBGM(cb.CausalBGM):
         appends ESS and split-R̂ of the effect draw series (the paired
         weight and latent chain).  There is no ``ess_target``.
 
-        ``mesh`` is not ported yet (ROADMAP Queue 1 item 12) and raises
-        ``NotImplementedError``."""
+        ``mesh`` splits the latent chains by rank
+        (:meth:`metropolis_hastings_sampler`) and maps each rank's draws to
+        effects on its rows, reduced over the ranks: every rank returns the
+        same arrays."""
         if not 0 < alpha < 1:
             raise ValueError("The significance level 'alpha' must be greater than 0 and less than 1.")
-        if mesh is not None:
-            raise NotImplementedError("predict(mesh=...) is not ported yet "
-                                      "(ROADMAP Queue 1 item 12)")
         if self.f_net_samples is None:
             raise RuntimeError("Run run_mcmc_training() first.")
         if not self.cfg.binary_treatment and x_values is None:
@@ -298,9 +320,11 @@ class FullMCMCCausalBGM(cb.CausalBGM):
                              "Provide a list or a single treatment value.")
         print("MCMC Latent Variable Sampling ...")
         adaptive = q_sd is None or q_sd <= 0
-        res = self._latent_chain(data, burn_in, n_mcmc, 1.0 if adaptive else q_sd, adaptive)
-        effects = self.infer_from_latent_posterior(res.samples, x_values=x_values,
-                                                   sample_y=sample_y)
+        res, rows = self._latent_chain(data, burn_in, n_mcmc, 1.0 if adaptive else q_sd,
+                                       adaptive, mesh=mesh)
+        with rows_mod.split(rows):
+            effects = self.infer_from_latent_posterior(res.samples, x_values=x_values,
+                                                       sample_y=sample_y)
         point = effects.mean(axis=0)
         upper = np.quantile(effects, 1 - alpha / 2, axis=0)
         lower = np.quantile(effects, alpha / 2, axis=0)

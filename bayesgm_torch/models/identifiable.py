@@ -23,7 +23,9 @@ from bayesgm_torch import bridge
 from bayesgm_torch.models import causalbgm as cb
 from bayesgm_torch.ops import distributions as dist
 from bayesgm_torch.ops import mcmc, optim
+from bayesgm_torch.ops import rows as rows_mod
 from bayesgm_torch.ops.nn import MLP, FlipoutMLP, flipout_mlp_kl
+from bayesgm_torch.parallel.mesh import mesh_batches, takes_mesh, writes_files
 
 
 def _prior_apply(cfg, prior_net, u, generator):
@@ -63,17 +65,17 @@ def _ivae_train_batch_step(cfg, kl_weight, nets, opts, prior_net, prior_opt, z_t
     :func:`~bayesgm_torch.models.causalbgm._train_batch_step`, then one
     evaluation of the latent loss whose two gradients step the batch's Z
     rows (row-sparse Adam at ``lr_z * lr_scale``) and the prior net (Adam at
-    ``lr_theta * lr_scale``).  Returns ``(opts, prior_opt, z_opt, losses)``."""
-    x, y, v = data
-    bx, by, bv, bu = x[idx], y[idx], v[idx], data_u[idx]
-    bz = z_table[idx]
+    ``lr_theta * lr_scale``).  Returns ``(opts, prior_opt, z_opt, losses)``.
+    ``idx`` may be a mesh minibatch, as in
+    :func:`~bayesgm_torch.models.causalbgm._train_batch_step`."""
+    bz, bx, by, bv, bu = optim.rows_at(idx, z_table, *data, data_u)
     lr_th = cfg.lr_theta * lr_scale
     opts, losses = cb._update_nets(cfg, nets, opts, bz, bx, by, bv, generator, lr_th)
     zr = bz.detach().requires_grad_(True)
     prior_params = list(prior_net.parameters())
     loss_post = _ivae_latent_loss(cfg, nets, prior_net, zr, bx, by, bv, bu, generator, kl_weight)
     z_grads, *prior_grads = torch.autograd.grad(loss_post, [zr, *prior_params])
-    z_opt = optim.table_adam_update_rows(z_grads, idx, z_opt, z_table, cfg.lr_z * lr_scale)
+    z_opt = optim.table_adam_update_batch(z_grads, idx, z_opt, z_table, cfg.lr_z * lr_scale)
     prior_opt = optim.adam_update(prior_grads, prior_opt, prior_params, lr_th)
     losses["loss_postrior_z"] = loss_post.detach()
     return opts, prior_opt, z_opt, losses
@@ -137,8 +139,9 @@ class IdentifiableCausalBGM(cb.CausalBGM):
         bundle = super()._full_state_bundle(data_z, z_opt, epoch, best_loss, best_causal_pre)
         bundle["prior_net"] = bridge.net_to_numpy(self.prior_net)
         bundle["prior_opt"] = bridge.adam_to_jax(self._prior_opt, self.prior_net)
+        data_u = None if self.data_u is None else rows_mod.gather(self.data_u)
         bundle["data_u"] = (np.zeros((data_z.shape[0], self.params["n_segments"]), np.float32)
-                            if self.data_u is None else self.data_u.cpu().numpy())
+                            if data_u is None else data_u.cpu().numpy())
         return bundle
 
     def _full_state_template(self, n):
@@ -155,6 +158,7 @@ class IdentifiableCausalBGM(cb.CausalBGM):
 
     # -- fit --------------------------------------------------------------------
 
+    @takes_mesh
     def fit(self, data, batch_size=32, epochs=100, epochs_per_eval=5, startoff=0,
             use_egm_init=True, egm_n_iter=30000, egm_batches_per_eval=500, verbose=1,
             save_format="txt", mesh=None, egm_batch_size=None):
@@ -168,10 +172,12 @@ class IdentifiableCausalBGM(cb.CausalBGM):
         reference does, so ``batch_size > n`` raises ``ValueError``.  No
         metrics log is written.
 
-        ``mesh`` is not ported yet (ROADMAP Queue 1 item 12) and raises
-        ``NotImplementedError``."""
-        if mesh is not None:
-            raise NotImplementedError("fit(mesh=...) is not ported yet (ROADMAP Queue 1 item 12)")
+        ``mesh`` splits the data, U, the latent table and its moments by
+        rank, with the nets, the prior net and their optimizers replicated,
+        as :meth:`CausalBGM.fit
+        <bayesgm_torch.models.causalbgm.CausalBGM.fit>` does; U is drawn for
+        all rows on every rank.  After the fit ``data_z`` and ``data_u``
+        hold every row on every rank."""
         tdata = self._data(data)
         data_v = tdata[2]
         n = data_v.shape[0]
@@ -181,13 +187,16 @@ class IdentifiableCausalBGM(cb.CausalBGM):
             raise ValueError(f"batch_size={batch_size} exceeds n={n}; the identifiable fit "
                              "skips incomplete batches (as the reference does), so no "
                              "updates would run.")
-        if self.params["save_res"]:
+        rows = None if mesh is None else mesh.rows(n)
+        if self.params["save_res"] and writes_files(mesh):
             with open(f"{self.save_dir}/params.txt", "w") as f:
                 f.write(str(self.params))
 
         resume = self._try_resume(n)
         if resume is not None:
             z_opt, start_epoch, best_loss = resume
+            if rows is not None:
+                self.data_z, z_opt = self._local_table(rows, self.data_z, z_opt)
         else:
             start_epoch, best_loss = 0, np.inf
             print(f"Generating auxiliary variable U for {self.params['n_segments']} segments.")
@@ -195,38 +204,51 @@ class IdentifiableCausalBGM(cb.CausalBGM):
             if use_egm_init:
                 self.egm_init(tdata, egm_n_iter=egm_n_iter,
                               batch_size=egm_batch_size or batch_size,
-                              egm_batches_per_eval=egm_batches_per_eval, verbose=verbose)
+                              egm_batches_per_eval=egm_batches_per_eval, verbose=verbose,
+                              _writes=writes_files(mesh))
                 print("Initialize latent variables Z with e(V)...")
-                with torch.no_grad():
-                    self.data_z = cb._apply(cfg, self.nets["e"], data_v, self._gen)
+                with torch.no_grad(), rows_mod.split(rows):
+                    v_rows = data_v if rows is None else rows.take(data_v)
+                    self.data_z = cb._apply(cfg, self.nets["e"], v_rows, self._gen)
             else:
                 print("Random initialization of latent variables Z...")
-                self.data_z = torch.randn((n, sum(cfg.z_dims)), generator=self._gen,
-                                          device=self.device)
+                with rows_mod.split(rows):
+                    self.data_z = cb._randn_rows((n if rows is None else rows.local,
+                                                  sum(cfg.z_dims)), self._gen, self.device)
             z_opt = optim.table_adam_init(self.data_z)
+        if rows is not None:
+            tdata = tuple(rows.take(a) for a in tdata)
+            self.data_u = rows.take(self.data_u)
 
         kl_weight = float(self.params["kl_weight"])
         decay = self.params.get("lr_decay")
         print("Iterative Updating Starts ...")
         for epoch in range(start_epoch, epochs + 1):
-            perm = torch.randperm(n, generator=self._host_gen).to(self.device)
+            perm = torch.randperm(n, generator=self._host_gen)
+            if rows is None:
+                perm = perm.to(self.device)
             scale = optim.lr_schedule_scale(decay, epoch, epochs)
-            for b in range(n_full):
+            batches = [perm[b * batch_size:(b + 1) * batch_size] for b in range(n_full)]
+            if rows is not None:
+                batches = mesh_batches(rows, batches)
+            for idx in batches:
                 self.opts, self._prior_opt, z_opt, losses = _ivae_train_batch_step(
                     cfg, kl_weight, self.nets, self.opts, self.prior_net, self._prior_opt,
-                    self.data_z, z_opt, perm[b * batch_size:(b + 1) * batch_size], self._gen,
-                    tdata, self.data_u, lr_scale=scale)
+                    self.data_z, z_opt, idx, self._gen, tdata, self.data_u, lr_scale=scale)
             self.fit_losses = {k: float(t) for k, t in losses.items()}
 
             if epoch % epochs_per_eval == 0:
-                causal_pre, mse_x, mse_y, mse_v, *_ = self.evaluate(tdata, self.data_z)
+                with rows_mod.split(rows):
+                    causal_pre, mse_x, mse_y, mse_v, *_ = self.evaluate(tdata, self.data_z)
                 causal_pre = causal_pre.cpu().numpy()
                 mse_y = float(mse_y)
                 if verbose:
                     print("Epoch [%d/%d]: MSE_x: %.4f, MSE_y: %.4f, MSE_v: %.4f\n"
                           % (epoch, epochs, float(mse_x), mse_y, float(mse_v)))
                 best_loss = self._record_eval(epoch, epochs, startoff, causal_pre, mse_y,
-                                              best_loss, z_opt, save_format)
+                                              best_loss, z_opt, save_format, rows)
+        if rows is not None:
+            self.data_z, self.data_u = rows.gather(self.data_z), rows.gather(self.data_u)
 
     def evaluate(self, data, data_z=None, nb_intervals=200, generator=None):
         """``(causal_pre, mse_x, mse_y, mse_v, x_pred, y_pred, v_pred)`` as
@@ -286,6 +308,7 @@ class IdentifiableCausalBGM(cb.CausalBGM):
         print(f"Final MCMC Acceptance Rate: {float(res.accept_rate):.4f}")
         return res.samples.cpu().numpy(), data_u.cpu().numpy()
 
+    @takes_mesh
     def predict(self, data, alpha=0.01, n_mcmc=3000, burn_in=5000, x_values=None,
                 q_sd=1.0, sample_y=True, bs=None, mesh=None, sampler="mh",
                 use_best_nets=False, use_swa_nets=False,
@@ -300,13 +323,11 @@ class IdentifiableCausalBGM(cb.CausalBGM):
         step afresh (two evaluations per step); MALA differentiates it by
         autograd.
 
-        ``mesh`` is not ported yet (ROADMAP Queue 1 item 12) and raises
-        ``NotImplementedError``."""
+        ``mesh`` splits each subject batch's chains and U (drawn for the
+        whole batch on every rank) by rank, as :meth:`CausalBGM.predict
+        <bayesgm_torch.models.causalbgm.CausalBGM.predict>` does."""
         if sampler not in ("mh", "mala"):
             raise ValueError(f"Unknown sampler: {sampler!r} (expected 'mh' or 'mala').")
-        if mesh is not None:
-            raise NotImplementedError("predict(mesh=...) is not ported yet "
-                                      "(ROADMAP Queue 1 item 12)")
         early_stop = None
         if ess_target is not None:
             if sampler != "mh":
@@ -334,20 +355,25 @@ class IdentifiableCausalBGM(cb.CausalBGM):
         collect = cb._effect_collector(cfg, nets, x_values, sample_y)
 
         def run_batch(bx, by, bv):
-            with torch.no_grad():
-                data_u = self._sample_u(bx.shape[0])
-                init = torch.randn((bx.shape[0], sum(cfg.z_dims)), generator=self._gen,
-                                   device=self.device)
+            rows = None if mesh is None else mesh.rows(len(bx))
+            with torch.no_grad(), rows_mod.split(rows):
+                data_u = self._sample_u(len(bx))
+                if rows is not None:
+                    bx, by, bv = (a[rows.lo:rows.hi] for a in (bx, by, bv))
+                    data_u = rows.take(data_u)
+                init = cb._randn_rows((len(bx), sum(cfg.z_dims)), self._gen, self.device)
                 log_prob = self._log_prob_with_u((bx, by, bv), data_u, nets=nets)
                 if sampler == "mala":
                     res = mcmc.adaptive_mala(
                         log_prob, init, self._gen, burn_in=burn_in, n_keep=n_mcmc,
-                        step_size=0.1, recompute_current=cfg.use_bnn, collect=collect)
+                        step_size=0.1, recompute_current=cfg.use_bnn, collect=collect,
+                        mesh=mesh)
                 else:
                     res = mcmc.adaptive_mh(
                         lambda params, z, g: log_prob(z, g), init, self._gen, burn_in=burn_in,
                         n_keep=n_mcmc, q_sd=q0, adaptive=adaptive, recompute_current=cfg.use_bnn,
-                        collect=lambda params, z, g: collect(z, g), early_stop=early_stop)
+                        collect=lambda params, z, g: collect(z, g), early_stop=early_stop,
+                        mesh=mesh)
                 rate = float(res.accept_rate)
                 samples = res.samples.cpu().numpy()
             print(f"Final MCMC Acceptance Rate: {rate:.4f}")

@@ -37,6 +37,7 @@ from bayesgm_torch.models.bgm import BGM, _gradient_penalty, _interp_weights, _p
 from bayesgm_torch.ops import conv
 from bayesgm_torch.ops import distributions as dist
 from bayesgm_torch.ops import optim
+from bayesgm_torch.ops import rows as rows_mod
 from bayesgm_torch.ops.distributions import softplus
 from bayesgm_torch.ops.nn import Critic, critic_apply
 
@@ -66,7 +67,8 @@ class GenDraws(NamedTuple):
 
 def _gen_draws(cfg: MNISTConfig, g, n: int, generator) -> GenDraws:
     flip = conv.flipout_draws(g.flipout_layers(), n, generator) if cfg.use_bnn else None
-    rep = torch.randn((n,) + conv.IMAGE_SHAPE, generator=generator, device=g.fc.w.device)
+    rep = rows_mod.draw(lambda s: torch.randn(s, generator=generator, device=g.fc.w.device),
+                        (n,) + conv.IMAGE_SHAPE)
     return GenDraws(flip, rep)
 
 
@@ -117,9 +119,10 @@ def _train_batch_step(cfg: MNISTConfig, g, opt_g, z_table, z_opt, idx, generator
     """One iterative-updating step, in place (as BGM's): an Adam step of g
     at ``lr_theta * lr_scale`` on its batch loss, then, through the updated
     g under a new draw, a row-sparse Adam step of the batch's latent rows at
-    ``lr_z * lr_scale``.  Returns ``(opt_g, z_opt, losses)``."""
-    bx, bz = data_x[idx], z_table[idx]
-    n = idx.shape[0]
+    ``lr_z * lr_scale``.  Returns ``(opt_g, z_opt, losses)``; ``idx`` may be
+    a mesh minibatch (:func:`~bayesgm_torch.ops.optim.rows_at`)."""
+    bx, bz = optim.rows_at(idx, data_x, z_table)
+    n = bz.shape[0]
     loss_x, loss_mse = _g_loss(cfg, g, bz, bx, _gen_draws(cfg, g, n, generator))
     params = list(g.parameters())
     opt_g = optim.adam_update(torch.autograd.grad(loss_x, params), opt_g, params,
@@ -127,7 +130,7 @@ def _train_batch_step(cfg: MNISTConfig, g, opt_g, z_table, z_opt, idx, generator
     zr = bz.detach().requires_grad_(True)
     loss_post = _latent_loss(cfg, g, zr, bx, _gen_draws(cfg, g, n, generator))
     (z_grads,) = torch.autograd.grad(loss_post, zr)
-    z_opt = optim.table_adam_update_rows(z_grads, idx, z_opt, z_table, cfg.lr_z * lr_scale)
+    z_opt = optim.table_adam_update_batch(z_grads, idx, z_opt, z_table, cfg.lr_z * lr_scale)
     losses = dict(loss_x=loss_x, loss_mse_x=loss_mse, loss_postrior_z=loss_post)
     return opt_g, z_opt, {k: t.detach() for k, t in losses.items()}
 
@@ -279,11 +282,15 @@ class MNISTBGM(BGM):
     def _g_state(self):
         return None
 
-    def _save_egm_generated(self, path, data):
-        np.savez(path, data_gen=self.generate(nb_samples=GEN_SAMPLES))
+    def _save_egm_generated(self, path, data, write=True):
+        gen = self.generate(nb_samples=GEN_SAMPLES)
+        if write:
+            np.savez(path, data_gen=gen)
 
-    def _save_generated(self, path, z):
-        np.savez(path, gen=self.generate(nb_samples=GEN_SAMPLES), z=z)
+    def _save_generated(self, path, z, write=True):
+        gen = self.generate(nb_samples=GEN_SAMPLES)
+        if write:
+            np.savez(path, gen=gen, z=z)
 
     def _decode(self, g, z, generator):
         """Pixel probabilities of a reparameterised ``g(z)``, ``(n, 28, 28,
@@ -302,7 +309,8 @@ class MNISTBGM(BGM):
         data = self._train_data(data)
         gen = self._fork_generator() if generator is None else generator
         z = self._encode(data) if data_z is None else self._data(data_z)
-        return torch.mean((data.reshape(-1, 28, 28, 1) - self._decode(self.nets["g"], z, gen)) ** 2)
+        return rows_mod.mean((data.reshape(-1, 28, 28, 1) - self._decode(self.nets["g"], z, gen))
+                             ** 2)
 
     @conv.f32_convolutions
     @torch.no_grad()

@@ -217,6 +217,8 @@ class FusedCausalLogpBnnHosteps(_HostepsKernel):
         if z.device.type != "cuda":
             raise ValueError(f"unsupported device {z.device}")
         n = z.shape[0]
+        if n == 0:  # a rank of a mesh with no rows: nothing to launch
+            return torch.empty((0,), dtype=torch.float32, device=z.device)
         if self.paired and n % 2:
             raise ValueError(f"paired launch needs an even row count, got {n}")
         _keep, args = self._c_args(z, x, y, v, seed, g_w, h_w, f_w, p_flat,
@@ -243,6 +245,9 @@ class FusedCausalLogpAndGradBnnHosteps(_HostepsKernel):
             return logp_and_grad_plain(self.cfg, z, x, y, v, seed, g_w, h_w, f_w, p_flat)
         if z.device.type != "cuda":
             raise ValueError(f"unsupported device {z.device}")
+        if z.shape[0] == 0:  # a rank of a mesh with no rows: nothing to launch
+            return (torch.empty((0,), dtype=torch.float32, device=z.device),
+                    torch.empty(z.shape, dtype=torch.float32, device=z.device))
         _keep, args = self._c_args(z, x, y, v, seed, g_w, h_w, f_w, p_flat, 1)
         lib = _lib()
         n, z_dim = z.shape

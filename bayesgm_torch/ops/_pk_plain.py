@@ -147,6 +147,8 @@ class FusedCausalLogp(_PlainKernel):
     def __call__(self, z, x, y, v, g_flat, h_flat, f_flat):
         if z.device.type == "cpu":
             return logp_plain(self.cfg, z, x, y, v, g_flat, h_flat, f_flat)
+        if z.shape[0] == 0:  # a rank of a mesh with no rows: nothing to launch
+            return torch.empty((0,), dtype=torch.float32, device=z.device)
         _keep, args = self._c_args(z, x, y, v, g_flat, h_flat, f_flat)
         lib = _lib()
         out = torch.empty((z.shape[0],), dtype=torch.float32, device=z.device)
@@ -166,6 +168,9 @@ class FusedCausalLogpAndGrad(_PlainKernel):
     def __call__(self, z, x, y, v, g_flat, h_flat, f_flat):
         if z.device.type == "cpu":
             return logp_and_grad_plain(self.cfg, z, x, y, v, g_flat, h_flat, f_flat)
+        if z.shape[0] == 0:  # a rank of a mesh with no rows: nothing to launch
+            return (torch.empty((0,), dtype=torch.float32, device=z.device),
+                    torch.empty(z.shape, dtype=torch.float32, device=z.device))
         _keep, args = self._c_args(z, x, y, v, g_flat, h_flat, f_flat)
         lib = _lib()
         out = torch.empty((z.shape[0],), dtype=torch.float32, device=z.device)

@@ -50,6 +50,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from bayesgm_torch.ops import rows as rows_mod
 from bayesgm_torch.ops.distributions import softplus
 from bayesgm_torch.ops.nn import _glorot_dense, _rademacher, leaky_relu
 
@@ -186,9 +187,15 @@ def conv_apply(layer: Conv, x):
 
 def channel_bn_apply(bn: ChannelBN, x):
     """BatchNorm over (batch, H, W) per channel with the batch's mean and
-    biased variance."""
-    return F.batch_norm(x, None, None, bn.gamma, bn.beta, training=True, momentum=0.0,
-                        eps=BN_EPS)
+    biased variance, on a contiguous copy of ``x`` (the statistics' order
+    of summation follows the layout).  Inside a row split
+    (:mod:`bayesgm_torch.ops.rows`) the batch is every rank's rows: they
+    are gathered, normalised together and this rank's block is kept."""
+    rows = rows_mod.current()
+    xs = x.contiguous() if rows is None else rows.gather(x)
+    out = F.batch_norm(xs, None, None, bn.gamma, bn.beta, training=True, momentum=0.0,
+                       eps=BN_EPS)
+    return out if rows is None else out.narrow(0, rows.lo, rows.local)
 
 
 def dense_apply(layer: Dense, x):
@@ -225,7 +232,8 @@ def flipout_draws(layers, n: int, generator):
     device = layers[0].loc.device
     shapes = [tuple(layer.loc.shape) for layer in layers]
     eps = torch.randn((sum(math.prod(s) for s in shapes),), generator=generator, device=device)
-    signs = _rademacher((n, sum(s[0] + s[1] for s in shapes)), generator, device)
+    signs = rows_mod.draw(lambda s: _rademacher(s, generator, device),
+                          (n, sum(s[0] + s[1] for s in shapes)))
     out, eo, so = [], 0, 0
     for s in shapes:
         cout, cin = s[0], s[1]

@@ -10,6 +10,15 @@ jitted chunks for the TPU program watchdog; here the kept steps are cut at
 the same :data:`CHUNK` boundaries only where ``early_stop`` judges the
 chain.)
 
+With ``mesh`` (a :class:`bayesgm_torch.parallel.Mesh`) each rank steps the
+chains of its own rows (``init_state`` holds them): every per-chain draw is
+made at the global row count on every rank and sliced to the local rows,
+so world ``W`` draws what world 1 draws, and the means over chains (the
+acceptance fraction, HMC's accept probability) are all-reduced.  The
+target and the collector run inside the same row split
+(:mod:`bayesgm_torch.ops.rows`), so their own per-row draws follow the
+rule too.
+
 The adaptation schedule is the reference's: every ``adjustment_interval``
 burn-in steps, ``q_sd`` (MALA: the step size) is multiplied by 0.9 or 1.1
 when the windowed acceptance rate leaves ``target_rate ± tolerance``.
@@ -30,6 +39,8 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from bayesgm_torch.ops import rows as rows_mod
+
 CHUNK = 500  # kept steps between the early-stop gate's checks (the JAX chunk)
 
 
@@ -41,15 +52,20 @@ class MHResult(NamedTuple):
 
 def _record_accept(window, accept, t: int, window_size: int):
     """Store step ``t``'s acceptance fraction in the ring ``window`` (in
-    place) and return the windowed rate."""
-    window[t % window_size] = accept.to(torch.float32).mean()
-    return window.sum() / float(min(t + 1, window_size))
+    place) and return ``rate()``, the windowed rate, computed when called:
+    under a mesh the ring holds this rank's accepted chains over all chains
+    and ``rate()`` sums it over the ranks (one all-reduce where a rate is
+    read: the adaptation steps and the end)."""
+    window[t % window_size] = rows_mod.partial_mean(accept.to(torch.float32))
+    return lambda: rows_mod.total(window).sum() / float(min(t + 1, window_size))
 
 
 def _adapt(scale, rate, t: int, adaptive: bool, burn_in: int, target_rate: float,
            tolerance: float, adjustment_interval: int):
-    """The 0.9 / 1.1 scale adaptation on the burn-in steps where it fires."""
+    """The 0.9 / 1.1 scale adaptation on the burn-in steps where it fires
+    (``rate()`` gives the windowed acceptance rate)."""
     if adaptive and t < burn_in and t % adjustment_interval == 0 and t > 0:
+        rate = rate()
         scale = torch.where(rate < target_rate - tolerance, scale * 0.9, scale)
         scale = torch.where(rate > target_rate + tolerance, scale * 1.1, scale)
     return scale
@@ -60,10 +76,10 @@ def _mh_step(carry, generator, log_prob_fn, q_sd_is_adaptive, burn_in,
              recompute_current, paired_log_prob_fn=None):
     """One MH step.  ``carry = (state, logp, q_sd, window, t)`` with ``t`` a
     host int; ``window`` (the ring of per-step acceptance fractions) is
-    updated in place.  Returns ``(carry, windowed_rate)``."""
+    updated in place.  Returns ``(carry, rate)``, ``rate()`` the windowed
+    acceptance rate."""
     state, logp, q_sd, window, t = carry
-    proposed = state + q_sd * torch.randn(state.shape, generator=generator,
-                                          device=state.device, dtype=state.dtype)
+    proposed = state + q_sd * _randn_rows(state, generator)
     if recompute_current and paired_log_prob_fn is not None:
         # Both states in one launch, each with its own weight-noise draw.
         logp_prop, logp = paired_log_prob_fn(proposed, state, generator)
@@ -75,7 +91,7 @@ def _mh_step(carry, generator, log_prob_fn, q_sd_is_adaptive, burn_in,
             logp = log_prob_fn(state, generator)
 
     log_ratio = torch.clamp_max(logp_prop - logp, 0.0)
-    u = torch.rand(logp.shape, generator=generator, device=logp.device)
+    u = _rand_rows(logp, generator)
     accept = u < torch.exp(log_ratio)
     new_state = torch.where(accept[:, None], proposed, state)
     new_logp = torch.where(accept, logp_prop, logp)
@@ -86,24 +102,50 @@ def _mh_step(carry, generator, log_prob_fn, q_sd_is_adaptive, burn_in,
     return (new_state, new_logp, q_sd, window, t + 1), rate
 
 
+def _randn_rows(like, generator):
+    """N(0, 1) per chain, shaped like ``like`` (rows on axis 0)."""
+    return rows_mod.draw(lambda s: torch.randn(s, generator=generator, device=like.device,
+                                               dtype=like.dtype), like.shape)
+
+
+def _rand_rows(like, generator):
+    """U(0, 1) per chain, shaped like ``like`` (rows on axis 0)."""
+    return rows_mod.draw(lambda s: torch.rand(s, generator=generator, device=like.device),
+                         like.shape)
+
+
+def _row_split(mesh, init_state):
+    """The row split of the chains ``init_state`` holds on this rank (None
+    without a mesh)."""
+    return None if mesh is None else mesh.rows_of(init_state.shape[0])
+
+
+def _all_agree(flag: bool, mesh) -> bool:
+    """``flag`` when it holds on every rank of ``mesh``."""
+    if mesh is None:
+        return flag
+    t = torch.tensor([int(flag)], dtype=torch.int64, device=mesh.device)
+    return bool(mesh.all_reduce_(t, torch.distributed.ReduceOp.MIN).item())
+
+
 def _window_burn_in(carry, multi_step, generator, adaptive, burn_in, target_rate, tolerance,
                     adjustment_interval, window_size):
     """The burn-in in windows of ``adjustment_interval`` steps, one
     ``multi_step(state, q_sd, g)`` call each.  Returns ``(carry,
-    rate)``, ``rate`` the last window's last-step acceptance fraction."""
+    rate)``, ``rate()`` the last window's last-step acceptance fraction."""
     state, logp, q_sd, window, t = carry
     k = adjustment_interval
     n_real = torch.tensor(float(state.shape[0]), dtype=torch.float32, device=state.device)
     rate = None
     while t < burn_in:
         rate_now = window.sum() / float(min(max(t, 1), window_size))
-        q_sd = _adapt(q_sd, rate_now, t, adaptive, burn_in, target_rate, tolerance, k)
+        q_sd = _adapt(q_sd, lambda: rate_now, t, adaptive, burn_in, target_rate, tolerance, k)
         state, logp, counts = multi_step(state, q_sd, generator)
         rates = counts / n_real
         window[t % window_size:t % window_size + k] = rates
         t += k
         rate = rates[-1]
-    return (state, logp, q_sd, window, t), rate
+    return (state, logp, q_sd, window, t), lambda: rate
 
 
 def adaptive_mh(log_prob_fn: Callable, init_state, generator: torch.Generator, *,
@@ -114,7 +156,7 @@ def adaptive_mh(log_prob_fn: Callable, init_state, generator: torch.Generator, *
                 collect: Optional[Callable] = None,
                 paired_log_prob_fn: Optional[Callable] = None,
                 multi_step_fn: Optional[Callable] = None,
-                params=None, early_stop: Optional[dict] = None) -> MHResult:
+                params=None, early_stop: Optional[dict] = None, mesh=None) -> MHResult:
     """Vectorized adaptive random-walk Metropolis–Hastings.
 
     Every callable takes ``params`` (passed through unchanged; the MH
@@ -151,7 +193,25 @@ def adaptive_mh(log_prob_fn: Callable, init_state, generator: torch.Generator, *
     gate columns are sliced on the device and copied to the host once.
     ``gate_cols <= 0`` raises ``ValueError`` (the JAX package takes an empty
     subsample and fails at its first check).
+
+    ``mesh``: the rows of ``init_state`` are this rank's chains (see the
+    module docstring); the burn-in is per step (``multi_step_fn`` must be
+    None, as the JAX package turns the window off under a mesh), and the
+    early-stop gate stops the chain only when it says so on every rank
+    (the models' collectors return the same statistic on every rank).
     """
+    if mesh is not None and multi_step_fn is not None:
+        raise ValueError("adaptive_mh: the K-step window (multi_step_fn) does not run under a mesh")
+    with rows_mod.split(_row_split(mesh, init_state)):
+        return _adaptive_mh(log_prob_fn, init_state, generator, burn_in, n_keep, q_sd,
+                            adaptive, target_rate, tolerance, adjustment_interval,
+                            window_size, recompute_current, collect, paired_log_prob_fn,
+                            multi_step_fn, params, early_stop, mesh)
+
+
+def _adaptive_mh(log_prob_fn, init_state, generator, burn_in, n_keep, q_sd, adaptive,
+                 target_rate, tolerance, adjustment_interval, window_size, recompute_current,
+                 collect, paired_log_prob_fn, multi_step_fn, params, early_stop, mesh):
     gate = None if early_stop is None else _EarlyStopGate(**early_stop)
     collect_fn = (lambda p, s, g: s) if collect is None else collect
     statics = dict(
@@ -166,7 +226,7 @@ def adaptive_mh(log_prob_fn: Callable, init_state, generator: torch.Generator, *
     logp0 = log_prob_fn(params, init_state, generator)
     carry = (init_state, logp0, torch.tensor(q_sd, dtype=torch.float32, device=dev),
              torch.zeros((window_size,), dtype=torch.float32, device=dev), 0)
-    rate = torch.zeros((), dtype=torch.float32, device=dev)
+    rate = lambda: torch.zeros((), dtype=torch.float32, device=dev)  # noqa: E731
 
     use_window = (multi_step_fn is not None and recompute_current and burn_in > 0
                   and adjustment_interval > 0 and burn_in % adjustment_interval == 0
@@ -188,10 +248,11 @@ def adaptive_mh(log_prob_fn: Callable, init_state, generator: torch.Generator, *
             carry, rate = _mh_step(carry, generator, step_lp,
                                    paired_log_prob_fn=step_plp, **statics)
             samples.append(collect_fn(params, carry[0], generator))
-        if gate is not None and gate.stop(samples[start:], len(samples), n_keep):
+        if gate is not None and _all_agree(gate.stop(samples[start:], len(samples), n_keep),
+                                           mesh):
             break
     stacked = torch.stack(samples) if samples else None
-    return MHResult(samples=stacked, q_sd=carry[2], accept_rate=rate)
+    return MHResult(samples=stacked, q_sd=carry[2], accept_rate=rate())
 
 
 def _gate_column_index(width: int, gate_cols: int) -> np.ndarray:
@@ -243,8 +304,7 @@ class _EarlyStopGate:
 def _mala_proposal(state, grad, eps, generator):
     """``(proposed, drift)``: ``state + eps^2 / 2 * grad + eps * N(0, I)``."""
     drift = 0.5 * eps**2 * grad
-    noise = eps * torch.randn(state.shape, generator=generator, device=state.device,
-                              dtype=state.dtype)
+    noise = eps * _randn_rows(state, generator)
     return state + drift + noise, drift
 
 
@@ -256,7 +316,7 @@ def _mala_accept(state, logp, proposed, drift, logp_prop, grad_prop, eps, genera
     log_q_fwd = -torch.sum(fwd**2, dim=-1) / (2.0 * eps**2)
     log_q_bwd = -torch.sum(bwd**2, dim=-1) / (2.0 * eps**2)
     log_ratio = torch.clamp_max(logp_prop - logp + log_q_bwd - log_q_fwd, 0.0)
-    u = torch.rand(logp.shape, generator=generator, device=logp.device)
+    u = _rand_rows(logp, generator)
     return torch.log(u) < log_ratio
 
 
@@ -297,7 +357,7 @@ def adaptive_mala(log_prob_fn: Callable, init_state, generator: torch.Generator,
                   target_rate: float = 0.574, tolerance: float = 0.05,
                   adjustment_interval: int = 50, window_size: int = 100,
                   adaptive: bool = True, recompute_current: bool = False,
-                  collect: Optional[Callable] = None) -> MHResult:
+                  collect: Optional[Callable] = None, mesh=None) -> MHResult:
     """Metropolis-adjusted Langevin over ``n`` independent chains (rows).
 
     ``log_prob_fn(state, g) -> (n,)`` must be differentiable in ``state``;
@@ -313,7 +373,18 @@ def adaptive_mala(log_prob_fn: Callable, init_state, generator: torch.Generator,
     stochastic.  ``collect(state, g)`` is the per-kept-step statistic (the raw
     state by default); ``samples`` stacks it along a leading ``n_keep`` axis
     (None when ``n_keep == 0``), and ``q_sd`` holds the final step size.
+    ``mesh``: the rows of ``init_state`` are this rank's chains (see the
+    module docstring).
     """
+    with rows_mod.split(_row_split(mesh, init_state)):
+        return _adaptive_mala(log_prob_fn, init_state, generator, burn_in, n_keep, step_size,
+                              target_rate, tolerance, adjustment_interval, window_size,
+                              adaptive, recompute_current, collect)
+
+
+def _adaptive_mala(log_prob_fn, init_state, generator, burn_in, n_keep, step_size, target_rate,
+                   tolerance, adjustment_interval, window_size, adaptive, recompute_current,
+                   collect):
 
     def value_and_grad_fn(s, g):
         with torch.enable_grad():
@@ -334,7 +405,7 @@ def adaptive_mala(log_prob_fn: Callable, init_state, generator: torch.Generator,
         logp0, grad0 = value_and_grad_fn(init_state, generator)
         step, carry = _mala_step, (init_state, logp0, grad0, eps, window, 0)
 
-    rate = torch.zeros((), dtype=torch.float32, device=dev)
+    rate = lambda: torch.zeros((), dtype=torch.float32, device=dev)  # noqa: E731
     for _ in range(burn_in):
         carry, rate = step(carry, generator, value_and_grad_fn, adapt, window_size)
     samples = []
@@ -342,7 +413,7 @@ def adaptive_mala(log_prob_fn: Callable, init_state, generator: torch.Generator,
         carry, rate = step(carry, generator, value_and_grad_fn, adapt, window_size)
         samples.append(collect_fn(carry[0], generator))
     stacked = torch.stack(samples) if samples else None
-    return MHResult(samples=stacked, q_sd=carry[-3], accept_rate=rate)  # carry[-3]: eps
+    return MHResult(samples=stacked, q_sd=carry[-3], accept_rate=rate())  # carry[-3]: eps
 
 
 # ---------------------------------------------------------------------------
@@ -386,7 +457,7 @@ def _metropolis_accept(generator, state, logp, new_state, new_logp, momentum, ne
     ke_old = 0.5 * torch.sum(momentum**2, dim=-1)
     ke_new = 0.5 * torch.sum(new_momentum**2, dim=-1)
     log_accept_ratio = (new_logp - ke_new) - (logp - ke_old)
-    u = torch.rand(logp.shape, generator=generator, device=logp.device)
+    u = _rand_rows(logp, generator)
     accept = torch.log(u) < log_accept_ratio
     state = torch.where(accept[..., None], new_state, state)
     logp = torch.where(accept, new_logp, logp)
@@ -400,13 +471,13 @@ def _adapt_step_size(step_size, log_accept_ratio, t: int, n_adapt: int, target_a
     while ``t < n_adapt``."""
     if t >= n_adapt:
         return step_size
-    accept_prob = torch.mean(torch.exp(torch.clamp_max(log_accept_ratio, 0.0)))
+    accept_prob = rows_mod.mean(torch.exp(torch.clamp_max(log_accept_ratio, 0.0)))
     return torch.where(accept_prob > target_accept, step_size * (1.0 + adaptation_rate),
                        step_size / (1.0 + adaptation_rate))
 
 
 def _momentum(state, generator):
-    return torch.randn(state.shape, generator=generator, device=state.device, dtype=state.dtype)
+    return _randn_rows(state, generator)
 
 
 def _hmc_step(carry, generator, value_and_grad_fn, num_leapfrog: int, target_accept: float,
@@ -459,7 +530,7 @@ def hmc(log_prob_fn: Callable, init_state, generator: torch.Generator, *, burn_i
         n_keep: int = 3000, step_size: float = 0.01, num_leapfrog: int = 10,
         target_accept: float = 0.75, adapt_fraction: float = 0.8,
         adaptation_rate: float = 0.01, collect: Optional[Callable] = None,
-        params=None, noise: Optional[Callable] = None) -> HMCResult:
+        params=None, noise: Optional[Callable] = None, mesh=None) -> HMCResult:
     """HMC over ``n`` independent chains (axis 0 of ``init_state``), with
     the step size adapted toward ``target_accept`` over the first
     ``int(burn_in * adapt_fraction)`` steps (times ``1 + adaptation_rate``
@@ -480,9 +551,20 @@ def hmc(log_prob_fn: Callable, init_state, generator: torch.Generator, *, burn_i
     ``n_keep`` axis (None when ``n_keep == 0``).  The step size and the
     acceptance sum stay on the device: a step reads nothing back to the
     host.  Each step draws the momentum, then (through the target) the
-    evaluations, then the accept uniforms, then the collected statistic."""
+    evaluations, then the accept uniforms, then the collected statistic.
+    ``mesh``: the rows of ``init_state`` are this rank's chains (see the
+    module docstring); the accept probability and the acceptance mean are
+    over every rank's chains."""
     if num_leapfrog < 1:
         raise ValueError(f"num_leapfrog must be at least 1, got {num_leapfrog}")
+    with rows_mod.split(_row_split(mesh, init_state)):
+        return _hmc(log_prob_fn, init_state, generator, burn_in, n_keep, step_size,
+                    num_leapfrog, target_accept, adapt_fraction, adaptation_rate, collect,
+                    params, noise)
+
+
+def _hmc(log_prob_fn, init_state, generator, burn_in, n_keep, step_size, num_leapfrog,
+         target_accept, adapt_fraction, adaptation_rate, collect, params, noise):
     if params is None:
         lp, col = log_prob_fn, collect
     else:
@@ -509,10 +591,11 @@ def hmc(log_prob_fn: Callable, init_state, generator: torch.Generator, *, burn_i
     acc_sum = torch.zeros((), dtype=torch.float32, device=dev)
     for _ in range(n_keep):
         carry, accept = step(carry, generator)
-        acc_sum = acc_sum + accept.to(torch.float32).mean()
+        acc_sum = acc_sum + rows_mod.partial_mean(accept.to(torch.float32))
         samples.append(collect_fn(carry[0], generator))
     stacked = torch.stack(samples) if samples else None
-    return HMCResult(samples=stacked, step_size=carry[-2], accept_rate=acc_sum / max(n_keep, 1))
+    return HMCResult(samples=stacked, step_size=carry[-2],
+                     accept_rate=rows_mod.total(acc_sum) / max(n_keep, 1))
 
 
 # ---------------------------------------------------------------------------

@@ -40,6 +40,7 @@ from typing import NamedTuple, Sequence
 import torch
 from torch import nn
 
+from bayesgm_torch.ops import rows as rows_mod
 from bayesgm_torch.ops.distributions import softplus
 
 LEAKY_SLOPE = 0.2
@@ -200,15 +201,16 @@ def _fused_flipout_draws(layers, x_shape, generator):
 
     ``x_shape`` is ``(..., n, in)``: each leading index gets its own eps
     (shared across its ``n`` rows, the DenseFlipout convention) and every row
-    its own signs.  Returns ``(eps_list, r_in_list, r_out_list)``.
+    its own signs (a per-row draw of :mod:`bayesgm_torch.ops.rows`).
+    Returns ``(eps_list, r_in_list, r_out_list)``.
     """
     lead, batch = tuple(x_shape[:-2]), int(x_shape[-2])
     device = layers[0][0].device
     dims = [tuple(loc.shape) for loc, _, _ in layers]
     eps_flat = torch.randn(lead + (sum(i * o for i, o in dims),),
                            generator=generator, device=device)
-    signs = _rademacher(lead + (batch, sum(i + o for i, o in dims)),
-                        generator, device)
+    signs = rows_mod.draw(lambda s: _rademacher(s, generator, device),
+                          lead + (batch, sum(i + o for i, o in dims)), axis=-2)
     eps_list, r_in_list, r_out_list = [], [], []
     eo = so = 0
     for i, o in dims:
@@ -409,9 +411,11 @@ def flipout_variational_mlp_kl(net: FlipoutVariationalMLP):
 
 
 def reparameterize(mean, var, generator):
-    """``mean + sqrt(var) * eps``, ``eps ~ N(0, I)`` from ``generator``."""
-    return mean + torch.sqrt(var) * torch.randn(mean.shape, generator=generator,
-                                                device=mean.device, dtype=mean.dtype)
+    """``mean + sqrt(var) * eps``, ``eps ~ N(0, I)`` from ``generator`` (the
+    rows on axis 0)."""
+    eps = rows_mod.draw(lambda s: torch.randn(s, generator=generator, device=mean.device,
+                                              dtype=mean.dtype), mean.shape)
+    return mean + torch.sqrt(var) * eps
 
 
 # ---------------------------------------------------------------------------

@@ -90,6 +90,26 @@ def table_adam_update_rows(grad_rows, idx, state: TableAdamState, table, lr: flo
     return TableAdamState(m=m, v=v, t=t)
 
 
+def rows_at(idx, *tables):
+    """The rows ``idx`` of each table, ``[t[idx] for t in tables]``; for a
+    minibatch of a mesh (:class:`bayesgm_torch.parallel.mesh.MeshBatch`)
+    the rows are assembled from every rank's tables."""
+    if torch.is_tensor(idx):
+        return [t[idx] for t in tables]
+    return idx.take(*tables)
+
+
+def table_adam_update_batch(grad_rows, idx, state: TableAdamState, table,
+                            lr: float) -> TableAdamState:
+    """:func:`table_adam_update_rows` for the minibatch ``idx`` (see
+    :func:`rows_at`): under a mesh each rank steps its own rows of its
+    table block (every row's moments decay, as on one device)."""
+    if torch.is_tensor(idx):
+        return table_adam_update_rows(grad_rows, idx, state, table, lr)
+    return table_adam_update_rows(grad_rows.index_select(0, idx.pos), idx.local_idx, state,
+                                  table, lr)
+
+
 def lr_schedule_scale(decay, epoch: int, total_epochs: int) -> float:
     """Learning-rate scale at ``epoch`` of a ``total_epochs`` horizon:
     ``'cosine'`` (half cosine from 1 to 0), ``'linear'`` (1 down to a 0.05

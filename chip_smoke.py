@@ -241,6 +241,28 @@ widths the flagship does not have), and the rest of the public surface:
               sample, timed; simulate_regression(effective_rank=...)
               without scikit-learn.
 
+The multi-device layer (bayesgm_torch/parallel) on the one card:
+
+33. mesh    - (a) NCCL, world 1, in this process: the BNN flagship fit
+              with mesh=make_mesh(1) (EGM 50, one pass of 625 batches, a
+              checkpoint at its eval epoch), predict (100 + 100 MH steps)
+              and the raw MH states of the same schedule, against the same
+              with mesh=None from the same seed: every checkpoint leaf, the
+              latent table and the MH states bit-equal, the best loss, the
+              in-sample ADRF and the ADRF draws within rtol 1e-6 (means over
+              rows: all-reduced sums), K2 launched 625 times and K1 paired
+              200 times, with ms per training step and per MH burn-in step
+              with and without the mesh; then the plain flagship alike with
+              the mesh, the reference of (b).  (b) gloo, two spawned ranks
+              sharing the card: the dry run's sections
+              (bayesgm_torch.parallel.dryrun), then the plain flagship's fit
+              and predict with the mesh, the same on both ranks and within
+              tests/test_parallel.py's tolerances of (a)'s (table rtol 2e-3 /
+              atol 2e-5, nets 2e-3 / 2e-6, ADRF 1e-3 / 1e-4), K3 launched 625
+              times per rank and K4 2 x 201, and each rank's K4 and K1 paired
+              (rho = -20) on its rows against their plain versions.  A rank
+              that fails or a collective that times out fails the run.
+
 Launch counts are set to 0 just before each driven path and read just
 after; the launches of the comparisons do not count.  The last lines are a
 JSON object with the kernels' numbers (each with its bound: the larger of
@@ -290,6 +312,9 @@ MNIST_EPOCHS, MNIST_EGM, MNIST_HMC = 1, 200, 100  # phase 30a's cut: -e, -b, HMC
 MNIST_BNN_EGM, MNIST_RESUME_N, MNIST_LEAPFROG = 100, 512, 10  # 30b's EGM, 30c's images, HMC's L
 ACIC_ROWS, ACIC_FACTUALS, TWINS_PAIRS = 20000, 10000, 12000  # phase 31's fixtures
 SPIN_CYCLES = 5_000_000  # ~2.5 ms of spin ahead of a timed call: longer than any wrapper's host time
+MESH_EGM, MESH_STEPS = 49, 100  # phase 33: EGM iterations - 1 (50 in all), MH burn-in = kept steps
+MESH_WORLD, MESH_TIMEOUT = 2, 600  # 33b's ranks on the one card; seconds for the whole spawn
+MESH_GRID = 20  # ADRF grid points on [0, 3], as phase 9
 
 
 def flagship_params(output_dir, use_bnn=True):
@@ -1420,6 +1445,294 @@ def _mnist_resume(mnist_mod, root):
         raise AssertionError("[30c mnist-resume] checks failed")
     return {"uninterrupted_s": wall_a, "killed_s": wall_b1, "resumed_s": wall_b2,
             "leaves": len(keys)}
+
+
+class _StepClock:
+    """Wall time of calls ``first``..``last`` of the module function
+    ``module.name`` (a synchronize before call ``first`` and after call
+    ``last``; none between), patched for the ``with`` block; ``ms`` is the
+    time per call."""
+
+    def __init__(self, module, name, last, first=1):
+        self.module, self.name, self.first, self.last = module, name, first, last
+        self.calls, self.t0, self.t1 = 0, None, None
+
+    def __enter__(self):
+        import torch
+
+        fn = self.orig = getattr(self.module, self.name)
+
+        def clocked(*a, **kw):
+            self.calls += 1
+            if self.calls == self.first:
+                torch.cuda.synchronize()
+                self.t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            if self.calls == self.last:
+                torch.cuda.synchronize()
+                self.t1 = time.perf_counter()
+            return out
+
+        setattr(self.module, self.name, clocked)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+    @property
+    def ms(self):
+        return 1e3 * (self.t1 - self.t0) / (self.last - self.first + 1)
+
+
+def _mesh_fit_predict(use_bnn, data_np, out_dir, mesh, timestamp):
+    """Phase 33's run of one flagship model (seed 123): fit cut to EGM 50 and
+    one pass (checkpoint at its eval epoch), predict by MH (100 + 100
+    steps), then the raw MH states of the same schedule; returns the model,
+    the launch counts of fit and predict, the draws and ms per step."""
+    import numpy as np
+    import torch
+
+    from bayesgm_torch import CausalBGM
+    from bayesgm_torch.models import causalbgm as cb
+    from bayesgm_torch.ops import mcmc
+    from bayesgm_torch.ops import rows as rows_mod
+
+    model = CausalBGM(dict(flagship_params(out_dir, use_bnn), save_model=True), timestamp=timestamp,
+                      random_seed=123, device=mesh.device if mesh is not None else "cuda")
+    n_steps = -(-N // FIT_BATCH)
+    for k in model.kernels.values():
+        k.launches = 0
+    with _StepClock(cb, "_train_batch_step", n_steps) as fit_clock:
+        model.fit(data_np, epochs=0, epochs_per_eval=1, batch_size=FIT_BATCH,
+                  egm_n_iter=MESH_EGM, egm_batches_per_eval=500, verbose=0, mesh=mesh)
+    fit_launches = {k: w.launches for k, w in model.kernels.items()}
+    for k in model.kernels.values():
+        k.launches = 0
+    with _StepClock(mcmc, "_mh_step", MESH_STEPS) as mh_clock:
+        adrf, ci, draws = model.predict(data_np, x_values=np.linspace(0, 3, MESH_GRID),
+                                        alpha=0.01, burn_in=MESH_STEPS, n_mcmc=MESH_STEPS,
+                                        q_sd=1.0, return_draws=True, mesh=mesh)
+    pred_launches = {k: w.launches for k, w in model.kernels.items()}
+    lp, plp, make_params, _ = model._make_param_log_prob(mesh=mesh)
+    rows = None if mesh is None else mesh.rows(N)
+    gen = torch.Generator(device=model.device).manual_seed(11)
+    with torch.no_grad(), rows_mod.split(rows):
+        local = tuple(a if rows is None else a[rows.lo:rows.hi] for a in data_np)
+        init = cb._randn_rows((len(local[0]), sum(Z_DIMS)), gen, model.device)
+        states = mcmc.adaptive_mh(lp, init, gen, burn_in=MESH_STEPS, n_keep=MESH_STEPS,
+                                  q_sd=1.0, recompute_current=use_bnn,
+                                  paired_log_prob_fn=plp, params=make_params(
+                                      model.nets, local, use_bnn), mesh=mesh).samples
+        if rows is not None:
+            states = rows.gather(states, axis=1)
+    return dict(model=model, fit=fit_launches, predict=pred_launches, adrf=adrf, ci=ci,
+                draws=draws, states=states, fit_ms=fit_clock.ms, mh_ms=mh_clock.ms)
+
+
+def _checkpoint_leaves(model):
+    import numpy as np
+
+    from bayesgm_torch.utils import checkpoint as ckpt_mod
+
+    with np.load(ckpt_mod.latest_checkpoint(model.checkpoint_path)) as f:
+        return {k: f[k] for k in f.files}
+
+
+def _mesh_rank(rank, world, init_method, out_dir, data_path):
+    """33b: one rank of a gloo world on the card: the dry run's sections,
+    the plain flagship's fit and predict, and this rank's K4 and K1 paired
+    (rho = -20) against their plain versions on its rows; writes its
+    results to ``{out_dir}/rank{rank}.npz``."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from bayesgm_torch import CausalBGM
+    from bayesgm_torch.ops._pk_bnn_hosteps import logp_plain
+    from bayesgm_torch.ops._pk_plain import logp_plain as plain_logp
+    from bayesgm_torch.ops._pk_util import (
+        flatten_flipout_params,
+        flatten_mlp_params,
+        flipout_step_perturbations,
+        split_flipout_flat,
+    )
+    from bayesgm_torch.parallel import make_mesh
+    from bayesgm_torch.parallel.dryrun import run_sections
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=init_method, world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=180))
+    mesh = make_mesh(world)
+    t = time.perf_counter()
+    run_sections(mesh, os.path.join(out_dir, f"dry{rank}"))
+    torch.cuda.synchronize()
+    dry_s = time.perf_counter() - t
+    with np.load(data_path) as f:
+        data_np = tuple(f[k] for k in "xyv")
+    res = _mesh_fit_predict(False, data_np, os.path.join(out_dir, "plain"), mesh, "w2")
+    model = res["model"]
+    # this rank's K4 and K1 paired against their plain versions on its rows
+    rows = mesh.rows(N)
+    dev = mesh.device
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x, y, v = (torch.as_tensor(a[rows.lo:rows.hi], device=dev) for a in data_np)
+    z = torch.randn((rows.local, sum(Z_DIMS)), generator=gen, device=dev)
+    flats = [flatten_mlp_params(model.nets[k]) for k in "ghf"]
+    k4 = model.kernels["plain"]
+    err4 = compare(f"[33b rank {rank} K4 on rows {rows.lo}:{rows.hi}]", k4(z, x, y, v, *flats),
+                   plain_logp(model.cfg, z, x, y, v, *flats))
+    bnn = CausalBGM(flagship_params(os.path.join(out_dir, "bnn")), random_seed=123, device=dev)
+    with torch.no_grad():
+        for k in "ghf":
+            for r in bnn.nets[k].rho:
+                r.fill_(-20.0)
+    ws, sigs = zip(*(split_flipout_flat(flatten_flipout_params(bnn.nets[k])) for k in "ghf"))
+    ps2 = flipout_step_perturbations(sum(sigs, []), gen, n_sets=2)
+    seed = mesh.mix_seed(torch.randint(0, 2**31 - 1, (2,), generator=gen, device=dev,
+                                       dtype=torch.int32))
+    zz = torch.cat([z, torch.randn(z.shape, generator=gen, device=dev)])
+    args = (zz, *(torch.cat([a, a]) for a in (x, y, v)), seed, *ws, ps2)
+    k1 = bnn.kernels["bnn_hosteps_paired"]
+    err1 = compare(f"[33b rank {rank} K1 paired rho=-20 on 2 x rows {rows.lo}:{rows.hi}]",
+                   k1(*args), logp_plain(bnn.cfg, *args))
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"),
+             adrf=res["adrf"], ci=res["ci"], draws=res["draws"],
+             states=res["states"].cpu().numpy(), data_z=model.data_z.cpu().numpy(),
+             fit=np.asarray([res["fit"]["plain_grad"], res["fit"]["plain"]]),
+             predict=np.asarray([res["predict"]["plain_grad"], res["predict"]["plain"]]),
+             k4_launches=np.asarray(k4.launches), k1_launches=np.asarray(k1.launches),
+             err4=np.asarray(err4), err1=np.asarray(err1), dry_s=np.asarray(dry_s),
+             fit_ms=np.asarray(res["fit_ms"]), mh_ms=np.asarray(res["mh_ms"]),
+             **{f"net.{k}.{i}": p.detach().cpu().numpy()
+                for k in "ghf" for i, p in enumerate(model.nets[k].parameters())})
+    dist.destroy_process_group()
+
+
+def mesh_phase(card) -> dict:
+    """Phase 33: every mesh path on the card (see the module docstring)."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from bayesgm_torch import Sim_Hirano_Imbens_sampler
+    from bayesgm_torch.parallel import make_mesh
+
+    data_np = tuple(np.asarray(a, np.float32) for a in
+                    Sim_Hirano_Imbens_sampler(batch_size=32, N=N, v_dim=V_DIM, seed=0).load_all())
+    out = {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        # 33a: NCCL, world 1, the BNN flagship against mesh=None
+        dist.init_process_group("nccl", init_method=f"file://{root}/rdzv_nccl", world_size=1,
+                                rank=0, timeout=datetime.timedelta(seconds=300))
+        try:
+            mesh1 = make_mesh(1)
+            runs = {tag: _mesh_fit_predict(True, data_np, os.path.join(root, tag), m, tag)
+                    for tag, m in (("mesh", mesh1), ("none", None))}
+            plain1 = _mesh_fit_predict(False, data_np, os.path.join(root, "plain1"), mesh1, "w1")
+        finally:
+            dist.destroy_process_group()
+        a, b = runs["mesh"], runs["none"]
+        leaves_a, leaves_b = _checkpoint_leaves(a["model"]), _checkpoint_leaves(b["model"])
+        near = ("['best_loss']", "['best_causal_pre']")  # means over rows: all-reduced sums
+        diff = sorted(k for k in leaves_b if k not in near
+                      and not np.array_equal(leaves_a[k], leaves_b[k]))
+        err_adrf = float(np.max(np.abs(a["draws"] - b["draws"]) / np.abs(b["draws"])))
+        checks = {
+            f"checkpoint leaves ({len(leaves_b)}: nets, Adam states, latent table and moments, "
+            "generators, snapshots) bit-equal": set(leaves_a) == set(leaves_b) and not diff,
+            "best loss and in-sample ADRF within rtol 1e-6": all(
+                np.allclose(leaves_a[k], leaves_b[k], rtol=1e-6, atol=0) for k in near),
+            "data_z bit-equal": torch.equal(a["model"].data_z, b["model"].data_z),
+            f"MH states ({MESH_STEPS}, {N}, {sum(Z_DIMS)}) bit-equal": torch.equal(
+                a["states"], b["states"]),
+            "ADRF draws within rtol 1e-6": err_adrf <= 1e-6,
+            f"K2 launches == {-(-N // FIT_BATCH)}, fit": a["fit"]["bnn_hosteps_grad"] == -(
+                -N // FIT_BATCH) and a["fit"] == b["fit"],
+            f"K1 paired launches == {2 * MESH_STEPS}, predict": (
+                a["predict"]["bnn_hosteps_paired"] == 2 * MESH_STEPS
+                and a["predict"]["bnn_hosteps"] == 1 and a["predict"] == b["predict"]),
+        }
+        print(f"[33a mesh NCCL world 1] BNN flagship n={N}: ms per training step {a['fit_ms']:.3f} "
+              f"(mesh) vs {b['fit_ms']:.3f} (none), per MH burn-in step {a['mh_ms']:.3f} vs "
+              f"{b['mh_ms']:.3f}; launches fit {a['fit']}, predict {a['predict']}; ADRF max rel "
+              f"diff {err_adrf:.3e}; differing leaves {diff}", flush=True)
+        for name, ok in checks.items():
+            print(f"[33a mesh] {name}: {'ok' if ok else 'FAIL'}", flush=True)
+        if not all(checks.values()):
+            raise AssertionError("[33a mesh] checks failed")
+        out["33a"] = dict(fit_ms_mesh=a["fit_ms"], fit_ms_none=b["fit_ms"], mh_ms_mesh=a["mh_ms"],
+                          mh_ms_none=b["mh_ms"], k2_launches=a["fit"]["bnn_hosteps_grad"],
+                          k1_paired_launches=a["predict"]["bnn_hosteps_paired"],
+                          adrf_max_rel=err_adrf, plain_fit_ms=plain1["fit_ms"],
+                          plain_mh_ms=plain1["mh_ms"])
+        del runs, a, b
+
+        # 33b: gloo, two ranks sharing the card
+        data_path = os.path.join(root, "data.npz")
+        np.savez(data_path, x=data_np[0], y=data_np[1], v=data_np[2])
+        t = time.perf_counter()
+        ctx = mp.start_processes(_mesh_rank, args=(MESH_WORLD, f"file://{root}/rdzv_gloo", root,
+                                                   data_path),
+                                 nprocs=MESH_WORLD, join=False, start_method="spawn")
+        deadline = time.monotonic() + MESH_TIMEOUT
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise TimeoutError(f"[33b mesh] the {MESH_WORLD} ranks outlived {MESH_TIMEOUT} s")
+        spawn_s = time.perf_counter() - t
+        ranks = [dict(np.load(os.path.join(root, f"rank{r}.npz"))) for r in range(MESH_WORLD)]
+    r0 = ranks[0]
+    same = all(np.array_equal(r[k], r0[k]) for r in ranks[1:]
+               for k in ("adrf", "ci", "draws", "states", "data_z"))
+    ref_z = plain1["model"].data_z.cpu().numpy()
+    ref_nets = {f"net.{k}.{i}": p.detach().cpu().numpy()
+                for k in "ghf" for i, p in enumerate(plain1["model"].nets[k].parameters())}
+    steps = -(-N // FIT_BATCH)
+    rows_per_batch = PLAIN_BS // MESH_WORLD
+    checks = {
+        "every rank returns the same ADRF, draws, MH states and latent table": same,
+        "latent table vs world 1 within rtol 2e-3 / atol 2e-5": np.allclose(
+            r0["data_z"], ref_z, rtol=2e-3, atol=2e-5),
+        "nets vs world 1 within rtol 2e-3 / atol 2e-6": all(
+            np.allclose(r0[k], w, rtol=2e-3, atol=2e-6) for k, w in ref_nets.items()),
+        "ADRF and intervals vs world 1 within rtol 1e-3 / atol 1e-4": (
+            np.allclose(r0["adrf"], plain1["adrf"], rtol=1e-3, atol=1e-4)
+            and np.allclose(r0["ci"], plain1["ci"], rtol=1e-3, atol=1e-4)),
+        f"K3 launches == {steps} per rank (replicated), K4 per rank == 2 x (1 + "
+        f"{2 * MESH_STEPS})": all(
+            list(r["fit"]) == [steps, 0] and list(r["predict"]) == [0, 2 * (1 + 2 * MESH_STEPS)]
+            for r in ranks),
+    }
+    print(f"[33b mesh gloo world {MESH_WORLD} on one card] spawn {spawn_s:.1f} s; per rank: dry "
+          f"run {[round(float(r['dry_s']), 1) for r in ranks]} s, ms per training step "
+          f"{[round(float(r['fit_ms']), 3) for r in ranks]} (world 1: {plain1['fit_ms']:.3f}), per "
+          f"MH burn-in step on {rows_per_batch} rows {[round(float(r['mh_ms']), 3) for r in ranks]}"
+          f" (world 1: {plain1['mh_ms']:.3f}); launches fit [K3, K4] "
+          f"{[list(map(int, r['fit'])) for r in ranks]}, predict "
+          f"{[list(map(int, r['predict'])) for r in ranks]}; K4 max_abs_err "
+          f"{[float(r['err4']) for r in ranks]}, K1 paired max_abs_err "
+          f"{[float(r['err1']) for r in ranks]}; ADRF max abs diff vs world 1 "
+          f"{float(np.max(np.abs(r0['adrf'] - plain1['adrf']))):.3e}", flush=True)
+    for name, ok in checks.items():
+        print(f"[33b mesh] {name}: {'ok' if ok else 'FAIL'}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError("[33b mesh] checks failed")
+    out["33b"] = dict(spawn_s=spawn_s, fit_ms=[float(r["fit_ms"]) for r in ranks],
+                      mh_ms=[float(r["mh_ms"]) for r in ranks],
+                      k4_max_abs_err=[float(r["err4"]) for r in ranks],
+                      k1_paired_max_abs_err=[float(r["err1"]) for r in ranks])
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[33 mesh] {json.dumps(out)} ({card})", flush=True)
+    return out
 
 
 def main() -> int:
@@ -2616,6 +2929,9 @@ def main() -> int:
 
     # 32. the roofline anchors, the facade, the low-rank algebra, the estimator
     roofline_phase(d_k2, fit_model.nets)
+
+    # 33. every mesh path: NCCL at world 1 against mesh=None, two gloo ranks on the card
+    mesh_phase(card)
 
     # Bounds at the main path's shapes: K1 paired at 2N, K2 and K3 at the fit
     # batch, K4 at a predict batch.

@@ -311,9 +311,9 @@ def test_refusals(tmp_path):
     data = np.zeros((10, 5), np.float32)
     with pytest.raises(ValueError, match="exceeds n"):
         tm.fit(data, batch_size=16, epochs=0, use_egm_init=False, verbose=0)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(TypeError, match="Mesh"):
         tm.fit(data, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(TypeError, match="Mesh"):
         tm.predict(data, mesh=object(), n_mcmc=1, burn_in=1)
     with pytest.raises(ValueError, match="alpha"):
         tm.predict(data, alpha=1.5)

@@ -170,7 +170,7 @@ def test_cuda_device_raises_without_cuda(tmp_path):
 @pytest.mark.parametrize("kw", [dict(mesh=object())])
 def test_unported_predict_options_raise(tmp_path, kw):
     model = tcb.CausalBGM(_params(tmp_path), random_seed=0, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="Mesh"):  # a mesh must be a parallel.Mesh
         model.predict(_data(n=8), x_values=[1.0], burn_in=1, n_mcmc=1, **kw)
 
 

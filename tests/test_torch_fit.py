@@ -358,7 +358,7 @@ def test_load_weights_restores_all_five_nets(tmp_path):
 @pytest.mark.parametrize("what", ["mesh"])
 def test_unported_fit_options_raise(tmp_path, what):
     model = tcb.CausalBGM(_params(tmp_path), random_seed=0, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="Mesh"):  # a mesh must be a parallel.Mesh
         model.fit(_data(8), epochs=1, egm_n_iter=1, mesh=object())
 
 

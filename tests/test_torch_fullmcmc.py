@@ -295,7 +295,7 @@ def test_fullmcmc_refusals(tmp_path):
     for call in (lambda: m.run_mcmc_training(data, mesh=object()),
                  lambda: m.metropolis_hastings_sampler(data, mesh=object()),
                  lambda: m.predict(data, x_values=[1.0], mesh=object())):
-        with pytest.raises(NotImplementedError, match="item 12"):
+        with pytest.raises(TypeError, match="Mesh"):
             call()
 
 

@@ -209,7 +209,7 @@ def test_identifiable_lifecycle(tmp_path):
         m.predict((x, y, v), x_values=[0.5], sampler="mala", ess_target=100)
     for call in (lambda: m.fit((x, y, v), mesh=object()),
                  lambda: m.predict((x, y, v), x_values=[0.5], mesh=object())):
-        with pytest.raises(NotImplementedError, match="item 12"):
+        with pytest.raises(TypeError, match="Mesh"):
             call()
 
 

@@ -567,11 +567,11 @@ def test_refusals(tmp_path, monkeypatch):
     data = _images(10)
     with pytest.raises(ValueError, match="exceeds n=10; the MNISTBGM fit"):
         tm.fit(data, batch_size=16, epochs=0, use_egm_init=False, verbose=0)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(TypeError, match="Mesh"):
         tm.fit(data, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(TypeError, match="Mesh"):
         tm.predict(data, mesh=object(), n_mcmc=1, burn_in=1)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(TypeError, match="Mesh"):
         tm.tfp_mcmc_sampler(data, mesh=object())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):

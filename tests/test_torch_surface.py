@@ -1,14 +1,18 @@
 """Every public symbol of the JAX package has its counterpart in the port:
-the top-level ``_SYMBOL_TO_MODULE``, ``bayesgm_tpu.utils.__all__`` and the
-network facade's ``__all__`` each resolve from the matching
-``bayesgm_torch`` module (``parallel/`` is the one module not ported yet),
-and the kernel facade ``bayesgm_torch.ops.kernels`` re-exports the port's
+the top-level ``_SYMBOL_TO_MODULE``, ``bayesgm_tpu.utils.__all__``, the
+network facade's and ``parallel``'s ``__all__`` each resolve from the
+matching ``bayesgm_torch`` module, every public function and class of each
+``bayesgm_tpu`` module has its namesake in the matching port module (but
+for the helpers the port replaces by design, :data:`BY_DESIGN`), and the
+kernel facade ``bayesgm_torch.ops.kernels`` re-exports the port's
 counterpart of each name of ``bayesgm_tpu/ops/pallas_kernels.py`` that
 the port has."""
 
 import ast
 import importlib
+import inspect
 import os
+import pkgutil
 
 import pytest
 
@@ -19,7 +23,19 @@ import bayesgm_tpu.models.networks as jnetworks  # noqa: E402
 import bayesgm_tpu.utils as jutils  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-NOT_PORTED = {"bayesgm_tpu.parallel"}  # the next slice
+NOT_PORTED = set()
+
+# What the port replaces by design (ROADMAP.md, Queue 1): a JAX module with
+# no port file maps to None; otherwise the names the port does without.
+BY_DESIGN = {
+    "bayesgm_tpu.utils.runtime": None,  # the device= argument, utils/device.resolve_device
+    "bayesgm_tpu.ops.pallas_kernels": None,  # bayesgm_torch/ops/kernels.py (test_kernel_facade)
+    "bayesgm_tpu.ops._pk_util": {"on_tpu", "key_to_seed"},
+    "bayesgm_tpu.ops.nn": {"flipout_dense_apply", "mlp_l2_penalty"},  # and init_*
+    "bayesgm_tpu.ops.conv": {"generator_is_bayesian"},  # and init_*
+}
+INIT_BY_DESIGN = ("bayesgm_tpu.ops.nn", "bayesgm_tpu.ops.conv")  # nn.Module classes instead
+JAX_MODULES = sorted(m.name for m in pkgutil.walk_packages(bayesgm_tpu.__path__, "bayesgm_tpu."))
 
 
 def _port_module(jax_module: str) -> str:
@@ -69,3 +85,29 @@ def test_kernel_facade():
             "make_fused_mh_steps_bnn"} <= expected
     for name in kernels.__all__:
         assert getattr(kernels, name) is not None
+
+
+@pytest.mark.parametrize("module", JAX_MODULES)
+def test_module_public_names(module):
+    """Each public function and class defined in ``module`` has its
+    namesake in the port's module of the same path."""
+    if BY_DESIGN.get(module, ()) is None:
+        return
+    jmod = importlib.import_module(module)
+    names = {k for k, o in vars(jmod).items()
+             if not k.startswith("_") and (inspect.isfunction(o) or inspect.isclass(o))
+             and o.__module__ == module}
+    names -= BY_DESIGN.get(module, set())
+    if module in INIT_BY_DESIGN:
+        names = {k for k in names if not k.startswith("init_")}
+    port = importlib.import_module(_port_module(module))
+    assert sorted(k for k in names if not hasattr(port, k)) == []
+
+
+def test_parallel_exports():
+    import bayesgm_tpu.parallel as jparallel
+    import bayesgm_torch.parallel as tparallel
+
+    assert list(tparallel.__all__) == list(jparallel.__all__)
+    for name in jparallel.__all__:
+        assert callable(getattr(tparallel, name))
