@@ -1,1 +1,2 @@
-"""Benchmarks of the port that run its kernels on the card (``mxu_probe``)."""
+"""Benchmarks of the port: the probe that runs its kernels on the card
+(``mxu_probe``) and the accuracy protocols (``hi_protocol``, ``bgm_impute``)."""
