@@ -67,6 +67,21 @@ def _launches(model):
     return counts
 
 
+def _time_egm(model):
+    """A dict that gets ``egm_s``, the wall of ``model``'s EGM warm start,
+    once the warm start has run (a resumed fit skips it)."""
+    timing = {}
+    egm_init = getattr(model, "egm_init", None)
+    if egm_init is not None:
+        def timed_egm_init(*a, **kw):
+            t = time.time()
+            egm_init(*a, **kw)
+            timing["egm_s"] = round(time.time() - t, 3)
+
+        model.egm_init = timed_egm_init
+    return timing
+
+
 def run_seed(seed, args):
     dev = resolve_device(args.device)
     x, y, v = Sim_Hirano_Imbens_sampler(N=args.n, v_dim=args.v_dim,
@@ -105,16 +120,7 @@ def run_seed(seed, args):
         cls = CausalBGM
     model = cls(params, random_seed=seed, device=dev, **kw_init)
 
-    timing = {}
-    egm_init = getattr(model, "egm_init", None)
-    if egm_init is not None:
-        def timed_egm_init(*a, **kw):
-            t = time.time()
-            egm_init(*a, **kw)
-            timing["egm_s"] = round(time.time() - t, 3)
-
-        model.egm_init = timed_egm_init
-
+    timing = _time_egm(model)
     t0 = time.time()
     fit_kw = {"egm_batch_size": args.egm_bs} if args.egm_bs else {}
     model.fit((x, y, v), epochs=args.epochs, epochs_per_eval=10,

@@ -263,6 +263,20 @@ The multi-device layer (bayesgm_torch/parallel) on the one card:
               (rho = -20) on its rows against their plain versions.  A rank
               that fails or a collective that times out fails the run.
 
+The gate runners (bayesgm_torch/benchmarks):
+
+34. gates   - in process, at tiny sizes (2000 rows, EGM 20, epochs 0..1, MH
+              20 + 20; MNIST 256 images, HMC 10 + 10): binary_ate base
+              (BNN), binary_ate --engine identifiable, sun_colangelo_ivae
+              --runs SUN and mnist_inpaint --lr_decay cosine, each printing
+              its JSON line: the binary base run's K2 launches == its
+              training steps and K1's == 1 + 40 per subject batch, no
+              launch in the identifiable runs, finite metrics; then K1
+              (paired on 20000 rows, unpaired on 10000) and K2 (32 rows) at
+              binary_ate's widths (v_dim 100, z_dims [3,6,3,6]) against
+              their plain versions, timed as in phase 7, each with its
+              bound.
+
 Launch counts are set to 0 just before each driven path and read just
 after; the launches of the comparisons do not count.  The last lines are a
 JSON object with the kernels' numbers (each with its bound: the larger of
@@ -315,6 +329,8 @@ SPIN_CYCLES = 5_000_000  # ~2.5 ms of spin ahead of a timed call: longer than an
 MESH_EGM, MESH_STEPS = 49, 100  # phase 33: EGM iterations - 1 (50 in all), MH burn-in = kept steps
 MESH_WORLD, MESH_TIMEOUT = 2, 600  # 33b's ranks on the one card; seconds for the whole spawn
 MESH_GRID = 20  # ADRF grid points on [0, 3], as phase 9
+GATE_N, GATE_EGM, GATE_MH = 2000, 20, 20  # phase 34's binary and SUN runs: rows, EGM, MH steps
+GATE_IMAGES, GATE_TEST, GATE_HMC = 256, 8, 10  # phase 34's MNIST run: images, inpainted, HMC steps
 
 
 def flagship_params(output_dir, use_bnn=True):
@@ -910,17 +926,6 @@ def _semi_driver_run(driver, root, name):
     import torch
 
     from bayesgm_torch.models.causalbgm import CausalBGM
-    from bayesgm_torch.ops._pk_bnn_hosteps import (
-        logp_and_grad_plain,
-        logp_plain,
-        make_fused_causal_logp_and_grad_bnn_hosteps,
-        make_fused_causal_logp_bnn_hosteps,
-    )
-    from bayesgm_torch.ops._pk_util import (
-        flatten_flipout_params,
-        flipout_step_perturbations,
-        split_flipout_flat,
-    )
     from bayesgm_torch.utils import config_io
 
     tag = "[31a semi-acic]" if name == "Semi_acic" else "[31b semi-twins]"
@@ -1018,6 +1023,34 @@ def _semi_driver_run(driver, root, name):
         raise AssertionError(f"{tag} checks failed")
 
     # K1 and K2 against their plain versions at this config's shapes
+    res["kernels"] = _k1_k2_against_plain(tag, model, x_np, y_np, v_np, bs)
+    res["kernels"]["K1 paired"]["launches"] = pred["bnn_hosteps_paired"]
+    res["kernels"]["K1 unpaired"]["launches"] = pred["bnn_hosteps"]
+    res["kernels"]["K2"]["launches"] = fit_k2
+    return res
+
+
+def _k1_k2_against_plain(tag, model, x_np, y_np, v_np, bs):
+    """K1 (unpaired on a ``bs``-row predict batch, paired on two) and K2
+    (FIT_BATCH rows) against their plain versions on ``model``'s nets and
+    data, timed as in phase 7, each with its bound; raises if one
+    disagrees.  Returns the numbers per case."""
+    import numpy as np
+    import torch
+
+    from bayesgm_torch.ops._pk_bnn_hosteps import (
+        logp_and_grad_plain,
+        logp_plain,
+        make_fused_causal_logp_and_grad_bnn_hosteps,
+        make_fused_causal_logp_bnn_hosteps,
+    )
+    from bayesgm_torch.ops._pk_util import (
+        flatten_flipout_params,
+        flipout_step_perturbations,
+        split_flipout_flat,
+    )
+
+    cfg, n = model.cfg, len(x_np)
     dev = torch.device("cuda")
     dims = [model.nets[k].dims for k in "ghf"]
     ws, sigs = zip(*(split_flipout_flat(flatten_flipout_params(model.nets[k])) for k in "ghf"))
@@ -1062,22 +1095,98 @@ def _semi_driver_run(driver, root, name):
                bound(io_bytes(FIT_BATCH, True) + 4 * (w_floats + p_floats),
                      FIT_BATCH * 8 * macs), FIT_BATCH),
     }
-    res["kernels"] = {}
+    kernels = {}
     for label, (kern, args, plain, (b_ms, b_by), r) in cases.items():
         tk, tp = time_ms(lambda: kern(*args)), time_ms(plain)
         td = device_ms(lambda: kern(*args))
-        res["kernels"][label] = {"rows": r, "ms": tk, "device_ms": td, "plain_ms": tp,
-                                 "bound_ms": b_ms, "bound_by": b_by}
+        kernels[label] = {"rows": r, "ms": tk, "device_ms": td, "plain_ms": tp,
+                          "bound_ms": b_ms, "bound_by": b_by}
         print(f"{tag} timing {label} N={r}: kernel {tk:.4f} ms (device {td:.4f} ms), plain "
               f"{tp:.4f} ms, plain/kernel {tp / tk:.2f}x; bound {b_ms:.6f} ms ({b_by}), device "
               f"time at {100 * b_ms / td:.2f} % of it; {torch.cuda.get_device_name(0)}, "
               f"nvidia-smi: {_card_line()}", flush=True)
-    res["kernels"]["K1 paired"]["max_abs_err"] = max(errs)
-    res["kernels"]["K2"]["max_abs_err"] = max(errs_g)
-    res["kernels"]["K1 paired"]["launches"] = pred["bnn_hosteps_paired"]
-    res["kernels"]["K1 unpaired"]["launches"] = pred["bnn_hosteps"]
-    res["kernels"]["K2"]["launches"] = fit_k2
-    return res
+    kernels["K1 paired"]["max_abs_err"] = max(errs)
+    kernels["K2"]["max_abs_err"] = max(errs_g)
+    return kernels
+
+
+def gates_phase() -> dict:
+    """Phase 34: the gate runners in process at tiny sizes, their launch
+    counts checked; then K1 paired and K2 against their plain versions at
+    binary_ate's widths and full n (see the module docstring); raises on
+    any failed check.  Returns the measured numbers."""
+    import numpy as np
+    import torch
+
+    from bayesgm_torch.benchmarks import binary_ate, mnist_inpaint, sun_colangelo_ivae
+    from bayesgm_torch.models.causalbgm import CausalBGM
+
+    tag = "[34 gates]"
+    t_phase = time.perf_counter()
+    cut = ["--n", str(GATE_N), "--egm", str(GATE_EGM), "--epochs", "1",
+           "--n_mcmc", str(GATE_MH), "--burn_in", str(GATE_MH)]
+    runs = {
+        "binary base": lambda: binary_ate.main(cut),
+        "binary identifiable": lambda: binary_ate.main(["--engine", "identifiable", *cut]),
+        "sun": lambda: sun_colangelo_ivae.main(["--runs", "SUN", *cut])[0],
+        "mnist": lambda: mnist_inpaint.main([
+            "--lr_decay", "cosine", "--n", str(GATE_IMAGES), "--n_test", str(GATE_TEST),
+            "--egm", str(GATE_EGM), "--epochs", "1", "--n_mcmc", str(GATE_HMC),
+            "--burn_in", str(GATE_HMC)]),
+    }
+    lines, walls = {}, {}
+    for name, run in runs.items():
+        t = time.perf_counter()
+        lines[name] = run()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t
+        print(f"{tag} {name}: wall {walls[name]:.3f} s", flush=True)
+
+    steps = 2 * -(-GATE_N // FIT_BATCH)
+    batches = -(-GATE_N // 10000)  # binary predict's subject batches
+    base = lines["binary base"]
+    zero = {k: 0 for k in base["launches_fit"]}
+    checks = {
+        f"binary base: K2 launches in fit == {steps} (2 passes of {steps // 2} batches)":
+            base["launches_fit"] == {**zero, "bnn_hosteps_grad": steps},
+        f"binary base: K1 launches in predict == {batches} + {batches} x {2 * GATE_MH}":
+            base["launches_predict"] == {**zero, "bnn_hosteps": batches,
+                                         "bnn_hosteps_paired": batches * 2 * GATE_MH},
+        "identifiable (binary, SUN): no kernel launched": all(
+            not any(lines[k][f"launches_{w}"].values())
+            for k in ("binary identifiable", "sun") for w in ("fit", "predict")),
+        "binary: dATE, PEHE finite, coverage in [0, 1], widths > 0": all(
+            np.isfinite(lines[k]["d_ate"]) and np.isfinite(lines[k]["pehe"])
+            and 0.0 <= lines[k]["ite_coverage"] <= 1.0 and lines[k]["iv_width_mean"] > 0
+            for k in ("binary base", "binary identifiable")),
+        "SUN: RMSE finite, coverage in [0, 1]": bool(
+            np.isfinite(lines["sun"]["rmse"]) and 0.0 <= lines["sun"]["coverage"] <= 1.0),
+        "MNIST: L1, accuracy in [0, 1], MSE finite": bool(
+            0.0 <= lines["mnist"]["inpaint_l1"] <= 1.0
+            and 0.0 <= lines["mnist"]["inpaint_accuracy"] <= 1.0
+            and np.isfinite(lines["mnist"]["mse_reconstruction"])),
+    }
+    for check, ok in checks.items():
+        print(f"{tag} {check}: {'ok' if ok else 'FAIL'}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"{tag} checks failed")
+
+    # K1 and K2 at binary_ate's widths (v_dim 100, z_dims [3,6,3,6]) and its
+    # full n, on the nets of a model built from its params
+    x, y, v, _ = binary_ate.make_data()
+    params = dict(v_dim=v.shape[1], z_dims=[3, 6, 3, 6], binary_treatment=True,
+                  dataset="chip_smoke_gates", output_dir=tempfile.gettempdir(), use_bnn=True,
+                  save_res=False, save_model=False)
+    model = CausalBGM(params, random_seed=123, device="cuda")
+    kernels = _k1_k2_against_plain(tag, model, x, y, v, 10000)
+    kernels["K1 paired"]["launches"] = base["launches_predict"]["bnn_hosteps_paired"]
+    kernels["K1 unpaired"]["launches"] = base["launches_predict"]["bnn_hosteps"]
+    kernels["K2"]["launches"] = base["launches_fit"]["bnn_hosteps_grad"]
+    torch.cuda.synchronize()
+    out = {"lines": lines, "walls_s": walls, "kernels": kernels,
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"{tag} phase wall {out['phase_s']:.3f} s", flush=True)
+    return out
 
 
 def roofline_phase(k1_paired_device_ms, flagship_nets) -> dict:
@@ -2933,6 +3042,9 @@ def main() -> int:
     # 33. every mesh path: NCCL at world 1 against mesh=None, two gloo ranks on the card
     mesh_phase(card)
 
+    # 34. the gate runners at tiny sizes; K1 and K2 at binary_ate's widths
+    gates = gates_phase()
+
     # Bounds at the main path's shapes: K1 paired at 2N, K2 and K3 at the fit
     # batch, K4 at a predict batch.
     b_k2 = b_g[FIT_BATCH]
@@ -2958,6 +3070,7 @@ def main() -> int:
         "bound_ms_unpaired": b_k1u[0],
         "semi": {name: {k: semi[name]["kernels"][k] for k in ("K1 paired", "K1 unpaired")}
                  for name in semi},
+        "binary_ate": {k: gates["kernels"][k] for k in ("K1 paired", "K1 unpaired")},
     }, {
         "name": "bnn_hosteps_grad",
         "route": "cuda",
@@ -2976,6 +3089,7 @@ def main() -> int:
         f"plain_ms_n{N}": t_g[N][1],
         f"bound_ms_n{N}": b_g[N][0],
         "semi": {name: semi[name]["kernels"]["K2"] for name in semi},
+        "binary_ate": gates["kernels"]["K2"],
     }, {
         "name": "plain_grad",
         "route": "cuda",
