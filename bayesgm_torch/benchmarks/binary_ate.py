@@ -28,11 +28,20 @@ name), ``--n``, ``--v_dim``, ``--egm``, ``--epochs``, ``--n_mcmc`` and
 metrics to ``DIR/metrics_<engine>_seed<seed>.jsonl``: the same command run
 again resumes the fit where its last checkpoint stopped.  The JSON line
 adds ``iv_width_mean`` (the mean ITE interval width), ``egm_s``, the kernel
-launches of fit and predict, and the card's name and power limit on CUDA.
+launches of fit and predict (FullMCMC's weight-space HMC apart,
+``launches_hmc``; for an ensemble also each member's,
+``launches_members``), and the card's name and power limit on CUDA.
+``--member I`` (with ``--engine ensemble`` and ``--state_dir``) fits member
+I alone into the state folder and prints its fit line: the members of one
+ensemble fit in parallel processes, and the ensemble command run after
+them resumes each member from its last checkpoint (no EGM, no epochs) and
+predicts.
 
 Usage:
     python -m bayesgm_torch.benchmarks.binary_ate --seed 123
     python -m bayesgm_torch.benchmarks.binary_ate --engine identifiable
+    python -m bayesgm_torch.benchmarks.binary_ate --engine ensemble --seed 123 \\
+        --state_dir DIR --member 0      # members 1, 2 alike, then without --member
     python -m bayesgm_torch.benchmarks.binary_ate --device cpu --n 200 \\
         --v_dim 10 --egm 10 --epochs 1 --n_mcmc 10 --burn_in 10
 """
@@ -87,6 +96,8 @@ def main(argv=None):
     p.add_argument("--burn_in", type=int, default=None)
     p.add_argument("--state_dir", type=str, default=None,
                    help="checkpoint the fit here and resume it from there")
+    p.add_argument("--member", type=int, default=None,
+                   help="with --engine ensemble and --state_dir: fit this member alone")
     args = p.parse_args(argv)
     dev = resolve_device(args.device)
 
@@ -102,6 +113,9 @@ def main(argv=None):
            "fullmcmc": FullMCMCCausalBGM, "ensemble": EnsembleCausalBGM}[engine]
     if engine == "ensemble":
         params["n_members"] = args.n_members
+    if args.member is not None and (engine != "ensemble" or not args.state_dir
+                                    or not 0 <= args.member < args.n_members):
+        p.error("--member takes a member index of --engine ensemble with --state_dir")
     kw_init = {}
     if args.state_dir:
         tag = f"{engine}_seed{args.seed}"
@@ -109,18 +123,25 @@ def main(argv=None):
                       metrics_path=os.path.join(args.state_dir, f"metrics_{tag}.jsonl"))
         kw_init["timestamp"] = tag
     model = cls(params, random_seed=args.seed, device=dev, **kw_init)
-    timing = _time_egm(model)
-
     epochs = args.epochs if args.epochs is not None else (5 if args.quick else 100)
     egm = args.egm or (500 if args.quick else 30000)
+    fit_kw = dict(epochs=epochs, epochs_per_eval=10, batch_size=32, use_egm_init=True,
+                  egm_n_iter=egm, egm_batches_per_eval=egm, verbose=0)
+    if args.member is not None:
+        return _fit_member(model.members[args.member], (x, y, v), fit_kw, args, n, dev)
+    timing = _time_egm(model)
+
     t0 = time.time()
-    model.fit((x, y, v), epochs=epochs, epochs_per_eval=10, batch_size=32,
-              use_egm_init=True, egm_n_iter=egm, egm_batches_per_eval=egm,
-              verbose=0)
+    model.fit((x, y, v), **fit_kw)
     t_fit = time.time() - t0
+    launches_fit = _launches(model)
+    extra = {}
     if engine == "fullmcmc":
         model.run_mcmc_training((x, y, v))
-    launches_fit = _launches(model)
+        extra["launches_hmc"] = _since(_launches(model), launches_fit)
+    before_predict = _launches(model)
+    members = getattr(model, "members", [])
+    members_fit = [_launches(m) for m in members]
 
     t0 = time.time()
     n_mcmc, burn_in = (200, 300) if args.quick else (3000, 5000)
@@ -129,7 +150,6 @@ def main(argv=None):
     ite, intervals = model.predict((x, y, v), alpha=0.05, n_mcmc=n_mcmc,
                                    burn_in=burn_in, q_sd=1.0)
     t_pred = time.time() - t0
-    launches = _launches(model)
 
     ate_true = float(tau.mean())
     d_ate = abs(float(ite.mean()) - ate_true)
@@ -142,8 +162,31 @@ def main(argv=None):
         fit_s=round(t_fit, 1), predict_s=round(t_pred, 1),
         bars=dict(d_ate=0.05, coverage=0.9),
         iv_width_mean=float(np.mean(intervals[:, 1] - intervals[:, 0])), **timing,
-        launches_fit=launches_fit,
-        launches_predict={k: launches[k] - launches_fit[k] for k in launches})
+        launches_fit=launches_fit, **extra,
+        launches_predict=_since(_launches(model), before_predict))
+    if engine == "ensemble":
+        out["launches_members"] = [dict(fit=f, predict=_since(_launches(m), f))
+                                   for m, f in zip(members, members_fit)]
+    if dev.type == "cuda":
+        out["card"] = card_info()
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def _since(now, before):
+    """Launches per wrapper name since the counts ``before``."""
+    return {k: c - before.get(k, 0) for k, c in now.items()}
+
+
+def _fit_member(member, data, fit_kw, args, n, dev):
+    """Fit one ensemble member (checkpointed under the state folder) and
+    print its line: fit wall, EGM wall and kernel launches."""
+    timing = _time_egm(member)
+    t0 = time.time()
+    member.fit(data, **fit_kw)
+    out = dict(n=n, engine="ensemble", seed=args.seed, member=args.member,
+               data_seed=args.data_seed, fit_s=round(time.time() - t0, 1), **timing,
+               launches_fit=_launches(member))
     if dev.type == "cuda":
         out["card"] = card_info()
     print(json.dumps(out), flush=True)

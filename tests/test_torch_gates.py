@@ -9,7 +9,8 @@ must the printed metrics.  (b) The data generators are bit-equal to the
 JAX runners'.  (c) Tiny end-to-end runs on the CPU print JAX's keys.  (d)
 The runners import neither ``jax`` nor ``bayesgm_tpu``.  (e) ``--device
 cuda`` raises where CUDA is absent.  (f) A binary_ate run done twice on
-one ``--state_dir`` resumes the fit bit for bit."""
+one ``--state_dir`` resumes the fit bit for bit, and an ensemble whose
+members were fitted apart resumes them and predicts as one run."""
 
 import importlib.util
 import json
@@ -328,6 +329,48 @@ def test_binary_ate_state_dir_resumes_bit_for_bit(capsys, tmp_path):
     records = [json.loads(line) for line in
                (tmp_path / "state" / "metrics_base_seed5.jsonl").read_text().splitlines()]
     assert [r["epoch"] for r in records] == [0]
+
+
+def test_binary_ate_fullmcmc_counts_the_weight_hmc_apart(capsys, tmp_path):
+    ba.main(BINARY_TINY + ["--engine", "fullmcmc", "--output_dir", str(tmp_path)])
+    (line,) = _json_lines(capsys.readouterr().out)
+    assert line["engine"] == "fullmcmc" and np.isfinite(line["pehe"])
+    assert set(line["launches_fit"]) == set(line["launches_hmc"]) == \
+        set(line["launches_predict"]) == {"plain", "plain_grad"}
+
+
+def test_binary_ate_ensemble_members_fit_apart_then_resume(capsys, tmp_path):
+    """Each member fitted alone (``--member``) into one state folder, then
+    the ensemble command on that folder: every member resumes after its
+    last epoch (no EGM, no step, no kernel launch in fit) and the ensemble
+    predicts what an uninterrupted ensemble run predicts, bit for bit."""
+    flags = BINARY_TINY + ["--engine", "ensemble", "--n_members", "2", "--seed", "5",
+                           "--epochs", "0"]  # the last epoch is an eval epoch, as at 100
+    ba.main(flags + ["--state_dir", str(tmp_path / "whole")])
+    whole, = _json_lines(capsys.readouterr().out)
+    apart = flags + ["--state_dir", str(tmp_path / "apart")]
+    members = []
+    for i in (1, 0):
+        ba.main(apart + ["--member", str(i)])
+        members += _json_lines(capsys.readouterr().out)
+    assert [(m["member"], m["engine"], "egm_s" in m) for m in members] == \
+        [(1, "ensemble", True), (0, "ensemble", True)]
+    ba.main(apart)
+    out = capsys.readouterr().out
+    resumed, = _json_lines(out)
+    assert out.count("Resuming training from checkpoint at epoch 0.") == 2
+    assert "EGM Initialization Starts" not in out
+    for k in ("ate_est", "d_ate", "pehe", "ite_coverage", "iv_width_mean"):
+        assert resumed[k] == whole[k], k
+    assert not any(resumed["launches_fit"].values())
+    assert [m["fit"] for m in resumed["launches_members"]] == [
+        {k: 0 for k in whole["launches_fit"]}] * 2
+    assert [m["predict"] for m in resumed["launches_members"]] == \
+        [m["predict"] for m in whole["launches_members"]]
+    assert [m["launches_fit"] for m in members[::-1]] == \
+        [m["fit"] for m in whole["launches_members"]]
+    with pytest.raises(SystemExit):
+        ba.main(BINARY_TINY + ["--member", "0", "--state_dir", str(tmp_path / "base")])
 
 
 RUNNERS = {"binary_ate": BINARY_TINY, "sun_colangelo_ivae": SUN_TINY + ["--runs", "SUN"],

@@ -1,7 +1,8 @@
 """The port's MNISTBGM against the JAX package's: the loss terms, the
 training step and one EGM iteration (a critic step and a generator step, at
 gamma 0 and 10) with the same injected draws, also through
-``MNISTBGM.egm_init`` on NHWC images; both forms of the log posterior; the
+``MNISTBGM.egm_init`` on NHWC images, and consecutive EGM iterations and
+training steps at the shipped widths; both forms of the log posterior; the
 entry points' convolutions in f32; the lifecycle, exact resume and a JAX
 checkpoint's nets restored in ``__init__``; JAX's ``save_weights`` fault
 and the port's file; the refusals; the inpainting masks and the images.
@@ -187,13 +188,13 @@ def test_train_batch_step_matches_jax(monkeypatch, use_bnn):
 # ---------------------------------------------------------------------------
 
 
-def _egm_draws(trees, use_bnn, gamma, n, bs, rng):
+def _egm_draws(trees, use_bnn, gamma, n, bs, rng, z_dim=Z_DIM):
     """The draws of one EGM iteration (g_d_freq 1) over ``n`` images at
     batch ``bs``: keyword arguments of :func:`patch_jax_draws`, and a
     function that queues the same draws on the port's side and returns the
     queues (which the iteration must empty)."""
     idx_d, idx_g = rng.integers(0, n, bs), rng.integers(0, n, bs)
-    z_d, z_g = (rng.normal(size=(bs, Z_DIM)).astype(np.float32) for _ in range(2))
+    z_d, z_g = (rng.normal(size=(bs, z_dim)).astype(np.float32) for _ in range(2))
     eps_z, eps_x = 0.3, 0.8
     gd, g1, g2 = (_gen_draws(trees["g"], bs, rng, use_bnn) for _ in range(3))
     masks = [dropout_masks(trees["dx"], bs, rng) for _ in range(4)]  # x_fake, x, penalty; gen
@@ -278,6 +279,102 @@ def test_egm_iter_matches_jax(monkeypatch, gamma, use_bnn):
                               disc_step=tmn._egm_disc_step, gen_step=tmn._egm_gen_step)
     assert not any(q.items for q in queues)
     _assert_egm_iteration_close(nets, tl, t_grads, jnets, jl, j_grads, jcfg.lr)
+
+
+SHIPPED = dict(z_dim=10, use_bnn=False, kl_weight=5e-5, lr=1e-3, lr_theta=5e-3, lr_z=5e-3,
+               gamma=0.0, alpha=0.0, g_d_freq=1)  # the defaults the mnist_inpaint recipe runs
+
+
+def _shipped_trees(seed):
+    """The four nets' JAX trees at the shipped widths (numpy)."""
+    return {
+        "g": jax_tree(jconv.init_mnist_generator, seed, z_dim=10, filters=tmn.GEN_FILTERS),
+        "e": jax_tree(jconv.init_mnist_encoder, seed + 1, z_dim=10, filters=tmn.ENC_FILTERS),
+        "dz": jax_tree(jnn.init_critic, seed + 2, input_dim=10,
+                       hidden=tbgm.DEFAULTS["dz_units"]),
+        "dx": jax_tree(jconv.init_mnist_discriminator, seed + 3, filters=tmn.DISC_FILTERS),
+    }
+
+
+def assert_nets_close_after_steps(port_tree, jax_tree, n_steps, lr):
+    """Nets after ``n_steps`` Adam steps: every weight within STEP_TOL of
+    JAX's but at most 0.1 % of a net's, and those within ``2 lr`` per step
+    (see :func:`assert_adam_step_close`: a rounding difference in a
+    gradient near zero moves a weight by up to lr)."""
+    flat_j = dict(jax.tree_util.tree_leaves_with_path(jax_tree))
+    off = total = 0
+    for path, got in jax.tree_util.tree_leaves_with_path(port_tree):
+        want = np.asarray(flat_j[path])
+        bad = ~np.isclose(got, want, **STEP_TOL)
+        assert np.all(np.abs(got - want) <= 2 * lr * n_steps), jax.tree_util.keystr(path)
+        off, total = off + int(bad.sum()), total + bad.size
+    assert off <= 1e-3 * total, (off, total)
+
+
+def test_consecutive_steps_match_jax_at_the_shipped_widths(monkeypatch):
+    """The fit's two phases over several steps at the shipped widths
+    (filters 32 / 64, z_dim 10, the default critic and rates): two EGM
+    iterations, each from the state the one before left (nets, Adam moments
+    and step counts), then ``e(x)`` as the latent table and three training
+    steps, each carrying the Adam moments and the table: the four nets
+    after the EGM, the table, then the losses, g and the table after each
+    step, all under the same injected draws."""
+    jcfg, tcfg = jmn.MNISTConfig(**SHIPPED), tmn.MNISTConfig(**SHIPPED)
+    rng = np.random.default_rng(11)
+    n, bs = 8, 4
+    trees = _shipped_trees(11)
+    data = timages.make_ellipse_images(n, seed=11)
+    nets = {k: _port_net(t) for k, t in trees.items()}
+    opt_d = toptim.adam_init(tbgm._params(nets, ("dz", "dx")))
+    opt_ge = toptim.adam_init(tbgm._params(nets, ("g", "e")))
+    carry = (jax.tree.map(jnp.asarray, trees),
+             joptim.adam_init({"dz": trees["dz"], "dx": trees["dx"]}),
+             joptim.adam_init({"g": trees["g"], "e": trees["e"]}))
+    for _ in range(2):
+        jax_draws, patch_port = _egm_draws(trees, False, 0.0, n, bs, rng, z_dim=10)
+        with monkeypatch.context() as mp:
+            patch_jax_draws(mp, **jax_draws)
+            carry, _ = jax.jit(lambda c, d: jmn._egm_iter(jcfg, c, jax.random.PRNGKey(0), d, bs))(
+                carry, jnp.asarray(data))
+        with monkeypatch.context() as mp:
+            queues = patch_port(mp)
+            opt_d, opt_ge, _ = tbgm._egm_iter(tcfg, nets, opt_d, opt_ge, nchw(data),
+                                              torch.Generator(), bs,
+                                              disc_step=tmn._egm_disc_step,
+                                              gen_step=tmn._egm_gen_step)
+        assert not any(q.items for q in queues)
+    jnets = carry[0]
+    assert_nets_close_after_steps(bridge.nets_to_numpy(nets), jnets, 2, jcfg.lr)
+
+    jz = jconv.mnist_encoder_apply(jnets["e"], jnp.asarray(data))
+    with torch.no_grad():
+        z_table = tconv.mnist_encoder_apply(nets["e"], nchw(data))
+    np.testing.assert_allclose(z_table.numpy(), np.asarray(jz), rtol=1e-3, atol=1e-4)
+    z_table = torch.as_tensor(np.array(jz))  # the same start for the steps
+    g = nets["g"]
+    jcarry = (jnets["g"], joptim.adam_init(jnets["g"]), jz, joptim.table_adam_init(jz))
+    opt_g, z_opt = toptim.adam_init(g.parameters()), toptim.table_adam_init(z_table)
+    for idx in (np.arange(bs), np.arange(bs, n)[::-1].copy(), np.arange(2, 2 + bs)):
+        d1, d2 = (_gen_draws(trees["g"], bs, rng, False) for _ in range(2))
+        # each step from JAX's weights (the Adam moments, the step count and
+        # the table stay each package's own): an lr-sized difference at a
+        # weight whose gradient is ~0 would otherwise grow through the steps
+        with torch.no_grad():
+            for t, a in zip(g.parameters(), bridge.tree_to_params(g, jcarry[0], "cpu")):
+                t.copy_(a)
+        with monkeypatch.context() as mp:
+            patch_jax_draws(mp, normals=d1[0] + d2[0])
+            mp.setattr(tmn, "_gen_draws", Queue([d1[2], d2[2]]))
+            jcarry, jl = jax.jit(partial(jmn._train_batch_step, jcfg, lr_scale=0.75))(
+                jcarry, jnp.asarray(idx), jax.random.PRNGKey(0), data_x=jnp.asarray(data))
+            opt_g, z_opt, tl = tmn._train_batch_step(tcfg, g, opt_g, z_table, z_opt,
+                                                     torch.as_tensor(idx), None, nchw(data),
+                                                     0.75)
+        for k in jl:
+            np.testing.assert_allclose(float(tl[k]), float(jl[k]), err_msg=k, **LOSS_TOL)
+        assert_nets_close_after_steps(bridge.net_to_numpy(g), jcarry[0], 1, jcfg.lr_theta)
+        np.testing.assert_allclose(z_table.numpy(), np.asarray(jcarry[2]), **STEP_TOL)
+    assert z_opt.t == int(jcarry[3].t) == 3
 
 
 def assert_adam_step_close(port_tree, jax_tree, jax_grads, lr):
