@@ -53,6 +53,7 @@ import json
 import os
 import tempfile
 import time
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -75,7 +76,7 @@ def make_data(n=10000, v_dim=100, data_seed=7):
     return x.reshape(-1, 1), y.reshape(-1, 1), v, tau
 
 
-def main(argv=None):
+def make_parser():
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--quick", action="store_true", help="tiny smoke run")
     p.add_argument("--seed", type=int, default=123, help="model seed")
@@ -98,12 +99,15 @@ def main(argv=None):
                    help="checkpoint the fit here and resume it from there")
     p.add_argument("--member", type=int, default=None,
                    help="with --engine ensemble and --state_dir: fit this member alone")
-    args = p.parse_args(argv)
-    dev = resolve_device(args.device)
+    return p
 
+
+def recipe(args):
+    """The protocol at ``args``: a namespace of ``n``, ``data`` (x, y, v),
+    ``tau``, ``engine``, the model class ``cls`` with its ``params`` and
+    ``kw_init``, and the keyword arguments of ``fit`` and ``predict``."""
     n = args.n or (1000 if args.quick else 10000)
     x, y, v, tau = make_data(n=n, v_dim=args.v_dim, data_seed=args.data_seed)
-
     params = dict(
         v_dim=v.shape[1], z_dims=[3, 6, 3, 6], binary_treatment=True,
         dataset="binary_ate", output_dir=args.output_dir,
@@ -113,58 +117,74 @@ def main(argv=None):
            "fullmcmc": FullMCMCCausalBGM, "ensemble": EnsembleCausalBGM}[engine]
     if engine == "ensemble":
         params["n_members"] = args.n_members
-    if args.member is not None and (engine != "ensemble" or not args.state_dir
-                                    or not 0 <= args.member < args.n_members):
-        p.error("--member takes a member index of --engine ensemble with --state_dir")
     kw_init = {}
     if args.state_dir:
         tag = f"{engine}_seed{args.seed}"
         params.update(output_dir=args.state_dir, save_model=True,
                       metrics_path=os.path.join(args.state_dir, f"metrics_{tag}.jsonl"))
         kw_init["timestamp"] = tag
-    model = cls(params, random_seed=args.seed, device=dev, **kw_init)
     epochs = args.epochs if args.epochs is not None else (5 if args.quick else 100)
     egm = args.egm or (500 if args.quick else 30000)
     fit_kw = dict(epochs=epochs, epochs_per_eval=10, batch_size=32, use_egm_init=True,
                   egm_n_iter=egm, egm_batches_per_eval=egm, verbose=0)
+    n_mcmc, burn_in = (200, 300) if args.quick else (3000, 5000)
+    predict_kw = dict(alpha=0.05, n_mcmc=args.n_mcmc or n_mcmc,
+                      burn_in=args.burn_in or burn_in, q_sd=1.0)
+    return SimpleNamespace(n=n, data=(x, y, v), tau=tau, engine=engine, cls=cls,
+                           params=params, kw_init=kw_init, fit_kw=fit_kw,
+                           predict_kw=predict_kw)
+
+
+def result_line(args, rec, ite, intervals, t_fit, t_pred, **extra):
+    """The JSON line's dict: the JAX runner's keys, then ``iv_width_mean``
+    and ``extra`` (EGM wall, launches)."""
+    tau = rec.tau
+    ate_true = float(tau.mean())
+    d_ate = abs(float(ite.mean()) - ate_true)
+    pehe = float(np.sqrt(np.mean((ite - tau) ** 2)))
+    coverage = float(np.mean((intervals[:, 0] <= tau) & (tau <= intervals[:, 1])))
+    return dict(
+        n=rec.n, engine=rec.engine, seed=args.seed, data_seed=args.data_seed,
+        ate_true=round(ate_true, 4), ate_est=round(float(ite.mean()), 4),
+        d_ate=round(d_ate, 4), pehe=round(pehe, 4), ite_coverage=round(coverage, 3),
+        fit_s=round(t_fit, 1), predict_s=round(t_pred, 1),
+        bars=dict(d_ate=0.05, coverage=0.9),
+        iv_width_mean=float(np.mean(intervals[:, 1] - intervals[:, 0])), **extra)
+
+
+def main(argv=None):
+    p = make_parser()
+    args = p.parse_args(argv)
+    dev = resolve_device(args.device)
+    rec = recipe(args)
+    if args.member is not None and (rec.engine != "ensemble" or not args.state_dir
+                                    or not 0 <= args.member < args.n_members):
+        p.error("--member takes a member index of --engine ensemble with --state_dir")
+    model = rec.cls(rec.params, random_seed=args.seed, device=dev, **rec.kw_init)
     if args.member is not None:
-        return _fit_member(model.members[args.member], (x, y, v), fit_kw, args, n, dev)
+        return _fit_member(model.members[args.member], rec.data, rec.fit_kw, args, rec.n, dev)
     timing = _time_egm(model)
 
     t0 = time.time()
-    model.fit((x, y, v), **fit_kw)
+    model.fit(rec.data, **rec.fit_kw)
     t_fit = time.time() - t0
     launches_fit = _launches(model)
     extra = {}
-    if engine == "fullmcmc":
-        model.run_mcmc_training((x, y, v))
+    if rec.engine == "fullmcmc":
+        model.run_mcmc_training(rec.data)
         extra["launches_hmc"] = _since(_launches(model), launches_fit)
     before_predict = _launches(model)
     members = getattr(model, "members", [])
     members_fit = [_launches(m) for m in members]
 
     t0 = time.time()
-    n_mcmc, burn_in = (200, 300) if args.quick else (3000, 5000)
-    n_mcmc = args.n_mcmc or n_mcmc
-    burn_in = args.burn_in or burn_in
-    ite, intervals = model.predict((x, y, v), alpha=0.05, n_mcmc=n_mcmc,
-                                   burn_in=burn_in, q_sd=1.0)
+    ite, intervals = model.predict(rec.data, **rec.predict_kw)
     t_pred = time.time() - t0
 
-    ate_true = float(tau.mean())
-    d_ate = abs(float(ite.mean()) - ate_true)
-    pehe = float(np.sqrt(np.mean((ite - tau) ** 2)))
-    coverage = float(np.mean((intervals[:, 0] <= tau) & (tau <= intervals[:, 1])))
-    out = dict(
-        n=n, engine=engine, seed=args.seed, data_seed=args.data_seed,
-        ate_true=round(ate_true, 4), ate_est=round(float(ite.mean()), 4),
-        d_ate=round(d_ate, 4), pehe=round(pehe, 4), ite_coverage=round(coverage, 3),
-        fit_s=round(t_fit, 1), predict_s=round(t_pred, 1),
-        bars=dict(d_ate=0.05, coverage=0.9),
-        iv_width_mean=float(np.mean(intervals[:, 1] - intervals[:, 0])), **timing,
-        launches_fit=launches_fit, **extra,
-        launches_predict=_since(_launches(model), before_predict))
-    if engine == "ensemble":
+    out = result_line(args, rec, ite, intervals, t_fit, t_pred, **timing,
+                      launches_fit=launches_fit, **extra,
+                      launches_predict=_since(_launches(model), before_predict))
+    if rec.engine == "ensemble":
         out["launches_members"] = [dict(fit=f, predict=_since(_launches(m), f))
                                    for m, f in zip(members, members_fit)]
     if dev.type == "cuda":

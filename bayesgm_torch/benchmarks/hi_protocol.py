@@ -41,6 +41,7 @@ import json
 import os
 import tempfile
 import time
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -82,11 +83,13 @@ def _time_egm(model):
     return timing
 
 
-def run_seed(seed, args):
-    dev = resolve_device(args.device)
+def recipe(seed, args):
+    """One seed of the protocol at ``args``: a namespace of ``data`` (x, y,
+    v), the model class ``cls`` with its ``params`` and ``kw_init``, the
+    keyword arguments of ``fit`` and ``predict``, and the ADRF ``grid`` with
+    its ``true`` values."""
     x, y, v = Sim_Hirano_Imbens_sampler(N=args.n, v_dim=args.v_dim,
                                         seed=args.data_seed).load_all()
-
     params = dict(
         v_dim=args.v_dim, z_dims=list(args.z_dims), binary_treatment=False,
         dataset="HI_protocol", output_dir=args.output_dir,
@@ -118,54 +121,68 @@ def run_seed(seed, args):
         cls = FullMCMCCausalBGM
     else:
         cls = CausalBGM
-    model = cls(params, random_seed=seed, device=dev, **kw_init)
+    fit_kw = dict(epochs=args.epochs, epochs_per_eval=10, batch_size=32,
+                  use_egm_init=not args.no_egm, egm_n_iter=args.egm,
+                  egm_batches_per_eval=args.egm, verbose=0)
+    if args.egm_bs:
+        fit_kw["egm_batch_size"] = args.egm_bs
+    grid = np.linspace(0, 3, 20)
+    predict_kw = dict(alpha=0.01, n_mcmc=args.n_mcmc, burn_in=args.burn_in, x_values=grid,
+                      q_sd=1.0, bs=20000)
+    return SimpleNamespace(data=(x, y, v), cls=cls, params=params, kw_init=kw_init,
+                           fit_kw=fit_kw, predict_kw=predict_kw, grid=grid,
+                           true=get_ADRF(x_values=grid, dataset="Imbens"))
+
+
+def scores(adrf, iv, true):
+    """RMSE, MAPE, mean interval width and coverage of an ADRF against the
+    truth."""
+    return dict(rmse=float(np.sqrt(np.mean((adrf - true) ** 2))),
+                mape=float(np.mean(np.abs((adrf - true) / true))),
+                iv_width_mean=float(np.mean(iv[:, 1] - iv[:, 0])),
+                coverage=float(np.mean((true >= iv[:, 0]) & (true <= iv[:, 1]))))
+
+
+def run_seed(seed, args):
+    dev = resolve_device(args.device)
+    rec = recipe(seed, args)
+    model = rec.cls(rec.params, random_seed=seed, device=dev, **rec.kw_init)
 
     timing = _time_egm(model)
     t0 = time.time()
-    fit_kw = {"egm_batch_size": args.egm_bs} if args.egm_bs else {}
-    model.fit((x, y, v), epochs=args.epochs, epochs_per_eval=10,
-              batch_size=32, use_egm_init=not args.no_egm,
-              egm_n_iter=args.egm, egm_batches_per_eval=args.egm,
-              verbose=0, **fit_kw)
+    model.fit(rec.data, **rec.fit_kw)
     t_fit = time.time() - t0
     if args.fullmcmc:
         # weight-space HMC over the fitted nets; predict() marginalises
         # over these posterior weight draws (fullmcmc.py run_mcmc_training).
-        model.run_mcmc_training((x, y, v))
+        model.run_mcmc_training(rec.data)
     launches_fit = _launches(model)
-
-    grid = np.linspace(0, 3, 20)
-    true = get_ADRF(x_values=grid, dataset="Imbens")
 
     out = dict(seed=seed, best_epoch=getattr(model, "best_epoch", None),
                fit_s=round(t_fit, 1), **timing)
     t0 = time.time()
+    data, pred_kw, true = rec.data, rec.predict_kw, rec.true
     variant = args.identifiable or args.ensemble or args.fullmcmc
     kw = {} if variant else dict(use_best_nets=False)
-    pred_kw = dict(alpha=0.01, n_mcmc=args.n_mcmc, burn_in=args.burn_in, x_values=grid,
-                   q_sd=1.0, bs=20000)
-    adrf, iv = model.predict((x, y, v), **pred_kw, **kw)
-    out["rmse"] = float(np.sqrt(np.mean((adrf - true) ** 2)))
-    out["mape"] = float(np.mean(np.abs((adrf - true) / true)))
-    out["iv_width_mean"] = float(np.mean(iv[:, 1] - iv[:, 0]))
-    out["coverage"] = float(np.mean((true >= iv[:, 0]) & (true <= iv[:, 1])))
+    adrf, iv = model.predict(data, **pred_kw, **kw)
+    out.update(scores(adrf, iv, true))
     out["predict_s"] = round(time.time() - t0, 1)
     launches = _launches(model)
     out["launches_fit"] = launches_fit
     out["launches_predict"] = {k: launches[k] - launches_fit[k] for k in launches}
     adrf_final = adrf
     if args.also_best and not variant:
-        adrf_b, _ = model.predict((x, y, v), **pred_kw, use_best_nets=True)
+        adrf_b, _ = model.predict(data, **pred_kw, use_best_nets=True)
         out["rmse_best_nets"] = float(np.sqrt(np.mean((adrf_b - true) ** 2)))
     if args.also_swa and not variant:
-        adrf_s, _ = model.predict((x, y, v), **pred_kw, use_swa_nets=True)
+        adrf_s, _ = model.predict(data, **pred_kw, use_swa_nets=True)
         out["rmse_swa_nets"] = float(np.sqrt(np.mean((adrf_s - true) ** 2)))
         # snapshot ensemble: average the final-nets and SWA-nets curves
         adrf_e = 0.5 * (adrf_final + adrf_s)
         out["rmse_ensemble"] = float(np.sqrt(np.mean((adrf_e - true) ** 2)))
     if args.dump_curves:
         os.makedirs(args.dump_curves, exist_ok=True)
-        bundle = dict(grid=grid, true=true, adrf=adrf_final)
+        bundle = dict(grid=rec.grid, true=true, adrf=adrf_final)
         if "rmse_swa_nets" in out:
             bundle["adrf_swa"] = adrf_s
         np.savez(f"{args.dump_curves}/curves_seed{seed}.npz", **bundle)
@@ -187,7 +204,7 @@ def summarize(results):
     return summary
 
 
-def main(argv=None):
+def make_parser():
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seeds", type=int, nargs="+", default=[123, 456, 789, 1011, 1213])
     p.add_argument("--data_seed", type=int, default=0)
@@ -237,7 +254,11 @@ def main(argv=None):
     p.add_argument("--burn_in", type=int, default=5000)
     p.add_argument("--state_dir", type=str, default=None,
                    help="checkpoint each seed's fit here and resume it from there")
-    args = p.parse_args(argv)
+    return p
+
+
+def main(argv=None):
+    args = make_parser().parse_args(argv)
     results = [run_seed(s, args) for s in args.seeds]
     print("SUMMARY " + json.dumps(summarize(results)), flush=True)
 

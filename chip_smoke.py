@@ -11,7 +11,8 @@ non-zero:
 2. build    - build K1 and K2 (bayesgm_torch/csrc/bnn_hosteps.cu), K3 and
               K4 (bayesgm_torch/csrc/plain.cu) and K5, K6, K7 and K8
               (bayesgm_torch/csrc/bnn_inkernel.cu) with nvcc, one process
-              per source, started together;
+              per source, started together; phases 3-15 run while the
+              third builds, and phase 16 waits for it;
 3. philox   - the kernel's sign words equal the plain Philox words exactly;
 4. K1       - kernel vs its plain PyTorch version at the flagship width,
               unpaired (N=20000), plus binary treatment and fixed sigmas at
@@ -27,8 +28,8 @@ non-zero:
               launch queued behind a spin kernel, so without the wrapper's
               host time), each with its share of the bound;
 8. fit      - bayesgm_torch.CausalBGM(...).fit on Sim_Hirano_Imbens (n=20000,
-              v_dim=200, lr_decay cosine): EGM warm start of 200 iterations,
-              then 2 passes of 625 batches; checks the losses, the latent
+              v_dim=200, lr_decay cosine): EGM warm start of 100 iterations,
+              then 1 pass of 625 batches; checks the losses, the latent
               table, K2's launch count, that mse_x, mse_y and g's own
               objective loss_v (on all rows) fell below the untrained
               model's, and that mse_v stayed within 1 % of it (the 10-dim
@@ -55,8 +56,8 @@ benchmark: the same n, v_dim, z_dims and units, random weights from seed
 12. timing  - K4 (N=10000, 20000) and K3 (N=32, 20000) vs their plain
               versions, with their device time per launch (as phase 7) and
               its share of the bound (K4's targets: 0.05 and 0.10 ms);
-13. fit     - the plain model's fit, as phase 8 (EGM 200, 2 passes of 625
-              batches): K3 launches == 1250, none of K4;
+13. fit     - the plain model's fit, as phase 8 (EGM 100, 1 pass of 625
+              batches): K3 launches == 625, none of K4;
 14. predict - MH on the fitted plain model, burn_in=200, n_mcmc=200, two
               batches of 10000: K4 launches == 2 x (1 + 400), none of K3;
 15. MALA    - sampler="mala", burn_in=100, n_mcmc=100: on the plain model K3
@@ -138,7 +139,7 @@ The rest of CausalBGM's surface, each path with its kernels' counts:
 25. driver  - bayesgm_torch.main.main (the entry of python -m
               bayesgm_torch.main) on configs/Sim_Sun.yaml, read by
               config_io, without its model: line (the causalbgm engine at
-              n=20000), cut by -e 1 -b 200 and a predict: block (burn_in
+              n=20000), cut by -e 0 -b 100 and a predict: block (burn_in
               200, n_mcmc 1500, ess_target 400): checkpoint, finite ADRF,
               the RMSE line, K2 and K1 launches; then python -m
               bayesgm_torch causalbgm in a new process on a 2000-row .npz
@@ -155,7 +156,7 @@ CausalBGM's three variants:
               on 2000 Sim_Sun rows killed in the evaluate of epoch 2 and
               resumed by a new instance, bit-equal to an uninterrupted one;
 27. fullmcmc- FullMCMCCausalBGM at the plain model's widths: fit as phase
-              13 (K3 launches == 1250, no other kernel), run_mcmc_training
+              13 (K3 launches == 625, no other kernel), run_mcmc_training
               with 100 + 100 HMC steps per net (ms per HMC step and the
               acceptance of g, h and f), predict (200 + 200 MH steps, one
               weight draw per step, no kernel), and one 64-draw chunk of
@@ -170,8 +171,8 @@ Pallas kernel):
 
 29. BGM     - (a) configs/Sim_heteroskedastic.yaml (plain variational
               decoder, n=18000 training rows, x_dim 100, z_dim 10) through
-              bayesgm_torch.main.main, cut by -e 2 -b 200 and a predict:
-              block (100 + 100 HMC steps, L = 10) on the 2000 held-out rows
+              bayesgm_torch.main.main, cut by -e 1 -b 200 and a predict:
+              block (50 + 50 HMC steps, L = 10) on the 2000 held-out rows
               at bs=500: ms per EGM iteration, per training step and per
               HMC step, peak GiB, the correlation lines, finite outputs;
               (b) configs/Sim_low_rank.yaml (flipout decoder, n=10000) cut
@@ -191,7 +192,7 @@ kernel; its convolutions are cuDNN's):
               32/32/64, cosine decay, save_res and save_model) through
               bayesgm_torch.main.main on the 8192 seeded ellipse images,
               cut by -e 1 -b 200, a fit: block (an evaluation every epoch)
-              and a predict: block (100 + 100 HMC steps, L = 10) over the
+              and a predict: block (50 + 50 HMC steps, L = 10) over the
               driver's four masks on 64 images: ms per EGM iteration, per
               training step and per HMC step, the losses finite, MSE_x after
               the fit below the untrained model's, imputed pixels finite in
@@ -221,7 +222,7 @@ widths the flagship does not have), and the rest of the public surface:
               loader's drops, ~1 % NaN rows, ~5 % heavy first twins); then
               (a) configs/Semi_acic.yaml (binary, v_dim 177, z_dims
               [3,6,3,6]) and (b) configs/Semi_Twins.yaml (v_dim 50) through
-              bayesgm_torch.main.main, cut by -e 1 -b 200 and a predict:
+              bayesgm_torch.main.main, cut by -e 0 -b 100 and a predict:
               block (200 + 200 MH steps): the CSV load, fit and predict
               times, K2 launches == the fit's steps, K1 launches == the
               predict schedule's (per subject batch: one unpaired, one
@@ -311,7 +312,8 @@ PROBE_SHORT, PROBE_LONG = 10, 50  # the probe's two chain lengths (its defaults:
 # 0.0067: there the perturbation product (with P = sigma * 0.01 in noeps and
 # noprng) moves every variant's value from nopert's by over SEPARATION limits
 PROBE_SIGMA, SEPARATION = (0.05, 0.15), 10.0
-FIT_BATCH, FIT_EPOCHS, EGM_N_ITER = 32, 1, 200
+FIT_BATCH, FIT_EPOCHS, EGM_N_ITER = 32, 0, 100  # phases 8, 13, 27: one pass after EGM 100
+DRIVER_EPOCHS = 0  # the -e of phases 25, 26 and 31 (one pass), each with -b EGM_N_ITER
 PLAIN_BS = 10000  # predict's subject batch for plain nets (bs=None)
 N_RESUME, RESUME_EPOCHS, RESUME_EGM = 2000, 3, 50  # phase 22's fits
 API_KEEP = 100  # phase 23's kept MH draws of Z
@@ -320,9 +322,9 @@ DRIVER_N_MCMC, CLI_N = 1500, 2000  # phases 25's and 26's driver cap (one gate c
 HMC_STEPS = 100  # phase 27's HMC burn-in and kept steps per net (the JAX defaults: 1000, 2000)
 INFER_CHUNK_DRAWS = 64  # one chunk of FullMCMC's infer_from_latent_posterior
 ENS_EGM, ENS_EPOCHS = 100, 0  # phase 28's member fits: EGM iterations, passes - 1
-BGM_EPOCHS, BGM_EGM, BGM_HMC = 2, 200, 100  # phase 29's cut: -e, -b, HMC burn-in = kept steps
+BGM_EPOCHS, BGM_EGM, BGM_HMC = 1, 200, 50  # phase 29's cut: -e, -b, HMC burn-in = kept steps
 BGM_LEAPFROG, BGM_BS = 10, 500  # the driver's HMC leapfrog steps and subject batch (hetero)
-MNIST_EPOCHS, MNIST_EGM, MNIST_HMC = 1, 200, 100  # phase 30a's cut: -e, -b, HMC burn-in = kept steps
+MNIST_EPOCHS, MNIST_EGM, MNIST_HMC = 1, 200, 50  # phase 30a's cut: -e, -b, HMC burn-in = kept steps
 MNIST_BNN_EGM, MNIST_RESUME_N, MNIST_LEAPFROG = 100, 512, 10  # 30b's EGM, 30c's images, HMC's L
 ACIC_ROWS, ACIC_FACTUALS, TWINS_PAIRS = 20000, 10000, 12000  # phase 31's fixtures
 SPIN_CYCLES = 5_000_000  # ~2.5 ms of spin ahead of a timed call: longer than any wrapper's host time
@@ -919,7 +921,7 @@ def semi_phase() -> dict:
 
 def _semi_driver_run(driver, root, name):
     """31a (Semi_acic) or 31b (Semi_Twins): the shipped config through
-    bayesgm_torch.main.main, cut to -e 1 -b 200 and BURN_IN + N_MCMC MH
+    bayesgm_torch.main.main, cut to -e DRIVER_EPOCHS -b EGM_N_ITER and BURN_IN + N_MCMC MH
     steps, its spans timed and its launch counts checked; then K1 and K2
     against their plain versions at the config's shapes, timed."""
     import numpy as np
@@ -965,7 +967,7 @@ def _semi_driver_run(driver, root, name):
     t = time.perf_counter()
     try:
         with contextlib.redirect_stdout(printed):
-            est, ci = driver.main(["-c", cfg_path, "-e", "1", "-b", str(EGM_N_ITER),
+            est, ci = driver.main(["-c", cfg_path, "-e", str(DRIVER_EPOCHS), "-b", str(EGM_N_ITER),
                                    "--device", "cuda"])
     finally:
         CausalBGM.__init__, driver._load_causal_dataset = init, load
@@ -978,7 +980,7 @@ def _semi_driver_run(driver, root, name):
     cfg = model.cfg
     fit_k2 = after_fit.get("bnn_hosteps_grad", -1)
     pred = {k: kern.launches - after_fit.get(k, 0) for k, kern in model.kernels.items()}
-    steps = 2 * -(-n // FIT_BATCH)
+    steps = (DRIVER_EPOCHS + 1) * -(-n // FIT_BATCH)
     bs = 10000 if cfg.binary_treatment else n  # predict's subject batch (bs=None; the driver's n)
     n_batches = -(-n // bs)
     train_s = spans["fit"] - spans["egm_init"]
@@ -1000,7 +1002,8 @@ def _semi_driver_run(driver, root, name):
           f"predict {pred}; {report}", flush=True)
     checks = {
         "one model built": len(built) == 1,
-        f"K2 launches in fit == {steps} (2 passes of {-(-n // FIT_BATCH)} batches)":
+        f"K2 launches in fit == {steps} ({DRIVER_EPOCHS + 1} passes of {-(-n // FIT_BATCH)} "
+        "batches)":
             fit_k2 == steps and sum(after_fit.values()) == steps,
         f"K1 launches in predict == {n_batches} + {n_batches} x {BURN_IN + N_MCMC}":
             pred["bnn_hosteps"] == n_batches
@@ -1902,12 +1905,19 @@ def main() -> int:
     print(f"[1 device] {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
           f"nvidia-smi: {card}", flush=True)
 
-    # 2. build, one nvcc per source, all started together
-    with ThreadPoolExecutor() as pool:
-        libs = list(pool.map(load_library, ("bnn_hosteps.cu", "plain.cu", "bnn_inkernel.cu")))
-    for lib in libs:
+    # 2. build, one nvcc per source, all started together; K1-K4's sources
+    # are awaited here, K5-K8's (the longest build) before phase 16, so
+    # phases 3-15 run while it builds
+    def print_build(lib):
         ptxas = [l.strip() for l in lib.build_log.splitlines() if "registers" in l or "spill" in l]
         print(f"[2 build] {lib.path.name} in {lib.build_s:.1f} s; " + " | ".join(ptxas), flush=True)
+
+    build_pool = ThreadPoolExecutor()
+    builds = [build_pool.submit(load_library, src)
+              for src in ("bnn_hosteps.cu", "plain.cu", "bnn_inkernel.cu")]
+    build_pool.shutdown(wait=False)
+    for fut in builds[:2]:
+        print_build(fut.result())
 
     # Flagship model (port init, seed 123) and data.
     ds = Sim_Hirano_Imbens_sampler(batch_size=32, N=N, v_dim=V_DIM, seed=0)
@@ -2014,7 +2024,7 @@ def main() -> int:
 
     # 8. fit at the flagship width, from the untrained model of phases 4-7
     def drive_fit(tag, fit_model, grad_name, check_mse_v):
-        """Fit ``fit_model`` (EGM 200, 2 passes), time its spans, check it
+        """Fit ``fit_model`` (EGM_N_ITER, FIT_EPOCHS + 1 passes), time its spans, check it
         and return the kernels' launch counts of the fit."""
         mcfg = fit_model.cfg
         eval_gen = torch.Generator(device=dev).manual_seed(11)
@@ -2221,6 +2231,7 @@ def main() -> int:
 
     # 16. draws of the in-kernel-eps family: the kernels' against the plain
     # Philox draws for two (step, side) pairs, and the pairs differ
+    print_build(builds[2].result())
     d_cuda, d_plain = ik.DrawsCuda(seed), PhiloxDraws(seed)
     draw_sets = {}
     for step, side in ((0, 0), (1, 1)):
@@ -2661,7 +2672,7 @@ def main() -> int:
 
     # 25. the driver on configs/Sim_Sun.yaml (read by config_io) without its
     # model: line, so the causalbgm engine runs (phase 26 runs the file as
-    # shipped), depth cut by -e 1 -b 200 and a predict: block; then the CLI
+    # shipped), depth cut by -e DRIVER_EPOCHS -b EGM_N_ITER and a predict: block; then the CLI
     # in a new process on a 2000-row .npz triplet
     from bayesgm_torch import main as driver
 
@@ -2686,8 +2697,8 @@ def main() -> int:
     t = time.perf_counter()
     try:
         with contextlib.redirect_stdout(out):
-            adrf_d, ci_d = driver.main(["-c", cfg_path, "-e", "1", "-b", "200",
-                                        "--device", "cuda"])
+            adrf_d, ci_d = driver.main(["-c", cfg_path, "-e", str(DRIVER_EPOCHS), "-b",
+                                        str(EGM_N_ITER), "--device", "cuda"])
     finally:
         CausalBGM.__init__ = init
     torch.cuda.synchronize()
@@ -2706,8 +2717,8 @@ def main() -> int:
                                            and bool(np.all(ci_d[:, 0] <= ci_d[:, 1]))),
         "RMSE line printed": len(rmse_lines) == 1,
         "checkpoint of epoch 0 written": ckpts == ["ckpt-0.npz"],
-        f"K2 launches == {2 * (N // FIT_BATCH)}": drive_launches["bnn_hosteps_grad"]
-                                                  == 2 * (N // FIT_BATCH),
+        f"K2 launches == {(DRIVER_EPOCHS + 1) * (N // FIT_BATCH)}": (
+            drive_launches["bnn_hosteps_grad"] == (DRIVER_EPOCHS + 1) * (N // FIT_BATCH)),
         "K1 paired launched": drive_launches["bnn_hosteps_paired"] >= BURN_IN + 1000,
     }
     triplet = os.path.join(drive_root, "triplet.npz")
@@ -2776,14 +2787,15 @@ def main() -> int:
     out = io.StringIO()
     try:
         with contextlib.redirect_stdout(out):
-            adrf_i, ci_i = driver.main(["-c", cfg_path, "-e", "1", "-b", "200", "--device", "cuda"])
+            adrf_i, ci_i = driver.main(["-c", cfg_path, "-e", str(DRIVER_EPOCHS), "-b",
+                                        str(EGM_N_ITER), "--device", "cuda"])
     finally:
         IdentifiableCausalBGM.__init__, mcmc.adaptive_mh = ident_init, mh
     printed = out.getvalue().splitlines()
     im = built[0]
     ident_launches = {name: k.launches for name, k in im.kernels.items()}
     ident_launches.update({f"bnn_inkernel_{e}": n for e, n in ik.LAUNCHES.items()})
-    n_ident_steps = 2 * (N // FIT_BATCH)
+    n_ident_steps = (DRIVER_EPOCHS + 1) * (N // FIT_BATCH)
     train_s = spans["fit"] - spans["egm_init"] - spans["evaluate"]
     (burn_i, kept_i), = chains
     with np.load(os.path.join(im.checkpoint_path, "ckpt-0.npz")) as f:

@@ -38,6 +38,7 @@ from bayesgm_torch.benchmarks import binary_ate as ba  # noqa: E402
 from bayesgm_torch.benchmarks import mnist_inpaint as mi  # noqa: E402
 from bayesgm_torch.benchmarks import sun_colangelo_ivae as sc  # noqa: E402
 from bayesgm_torch.datasets.images import make_ellipse_images  # noqa: E402
+from bayesgm_torch.models.fullmcmc import FullMCMCCausalBGM  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -337,6 +338,42 @@ def test_binary_ate_fullmcmc_counts_the_weight_hmc_apart(capsys, tmp_path):
     assert line["engine"] == "fullmcmc" and np.isfinite(line["pehe"])
     assert set(line["launches_fit"]) == set(line["launches_hmc"]) == \
         set(line["launches_predict"]) == {"plain", "plain_grad"}
+
+
+def _load_tool(name):
+    spec = importlib.util.spec_from_file_location(f"_tool_{name}", REPO / "tools" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_fullmcmc_stage_split_ends_with_binary_ates_line(monkeypatch, capsys, tmp_path):
+    """The stage split sees the runner's generator sequence (fit, weight
+    HMC, predict): its first stage-C line is ``binary_ate --engine
+    fullmcmc``'s line, key for key, at the same seed (times aside); the
+    weight HMC is cut to 10 + 20 steps a net in both."""
+    run = FullMCMCCausalBGM.run_mcmc_training
+    monkeypatch.setattr(FullMCMCCausalBGM, "run_mcmc_training", lambda self, data, **kw: run(
+        self, data, **{"num_samples": 20, "num_burnin": 10, **kw}))
+    flags = BINARY_TINY + ["--seed", "789"]
+    ba.main(flags + ["--engine", "fullmcmc", "--output_dir", str(tmp_path / "runner")])
+    (want,) = _json_lines(capsys.readouterr().out)
+    _load_tool("fullmcmc_stage_split").main(
+        flags + ["--out", str(tmp_path / "split"), "--output_dir", str(tmp_path / "tool")])
+    lines = _json_lines(capsys.readouterr().out)
+    assert [(line["stage"], line.get("net"), line.get("predict")) for line in lines] == [
+        ("fit", None, None), ("B", "g", None), ("B", "h", None), ("B", "f", None),
+        ("C", None, 1), ("C", None, 2), ("A", None, None)]
+    first = lines[4]
+    _assert_same_metrics(want, first, skip=TIMES + ("egm_s",))
+    assert set(want) - set(TIMES) - {"egm_s"} <= set(first)
+    assert first["launches_hmc"] == want["launches_hmc"] == {"plain": 0, "plain_grad": 0}
+    assert (tmp_path / "split" / "fitted.npz").exists()
+    for line in lines[1:4]:
+        assert 0.0 <= line["accept"] <= 1.0 and line["step_size"] > 0
+        assert np.isfinite(line["loglik_fit"]) and line["w_ess_min"] >= 1.0
+    for line in lines[4:]:
+        assert 0.0 < line["latent_accept"] < 1.0 and np.isfinite(line["d_ate"])
 
 
 def test_binary_ate_ensemble_members_fit_apart_then_resume(capsys, tmp_path):

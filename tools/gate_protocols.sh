@@ -4,8 +4,13 @@
 # identifiable at seed 123, FullMCMC (fullmcmc_*: fit, weight-space HMC,
 # predict) and the 3-member ensemble (ensemble_*) at seeds 123 456 789 (data
 # seed 7, the runner's defaults), sun_colangelo_ivae's SUN and COLANGELO
-# runs (seed 42) and mnist_inpaint --lr_decay cosine (seed 42).  RUNS picks
-# a subset (default: all thirteen).  An ensemble run fits its three members
+# runs (seed 42) and mnist_inpaint --lr_decay cosine (seed 42); also
+# identifiable at seeds 456 789 (binary_ident_*) and FullMCMC through
+# tools/fullmcmc_stage_split.py (split_*: binary_ate's recipe read after
+# fit, weight HMC and predict, at seeds 123 789 1011 1213 1415 1617 1819 2021
+# 42; flagship_split_*: hi_protocol --lr_decay cosine --fullmcmc at seeds 123
+# 456 789), its fitted state under $OUT/state/split/<run>.  RUNS picks a
+# subset (default: the first thirteen).  An ensemble run fits its three members
 # as three processes (binary_ate --member i, logs <run>_m<i>.log), then runs
 # the ensemble command, which resumes every member after its last epoch and
 # predicts.  Each run is checkpointed under $OUT/state (log <run>.log) and
@@ -41,7 +46,15 @@ declare -A CMD=(
   [sun]="sun_colangelo_ivae --runs SUN"
   [colangelo]="sun_colangelo_ivae --runs COLANGELO"
   [mnist]="mnist_inpaint --lr_decay cosine"
+  [binary_ident_456]="binary_ate --engine identifiable --seed 456"
+  [binary_ident_789]="binary_ate --engine identifiable --seed 789"
 )
+for s in 123 789 1011 1213 1415 1617 1819 2021 42; do
+  CMD[split_$s]="stage_split --seed $s"
+done
+for s in 123 456 789; do
+  CMD[flagship_split_$s]="stage_split --flagship --seed $s"
+done
 declare -A CKPT=(  # each run's checkpoint folders under the state folder (globs)
   [binary_123]=binary_ate/base_seed123 [binary_456]=binary_ate/base_seed456
   [binary_789]=binary_ate/base_seed789 [binary_ident_123]=binary_ate/identifiable_seed123
@@ -51,7 +64,15 @@ declare -A CKPT=(  # each run's checkpoint folders under the state folder (globs
   [ensemble_456]="binary_ate_member*/ensemble_seed456"
   [ensemble_789]="binary_ate_member*/ensemble_seed789"
   [sun]=ivae_SUN/seed42 [colangelo]=ivae_COLANGELO/seed42 [mnist]=mnist_inpaint/seed42
+  [binary_ident_456]=binary_ate/identifiable_seed456
+  [binary_ident_789]=binary_ate/identifiable_seed789
 )
+for s in 123 789 1011 1213 1415 1617 1819 2021 42; do
+  CKPT[split_$s]=binary_ate/fullmcmc_seed$s
+done
+for s in 123 456 789; do
+  CKPT[flagship_split_$s]=HI_protocol/seed$s
+done
 echo "nproc $(nproc), online $(nproc --all)"
 export OMP_NUM_THREADS=2
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
@@ -59,19 +80,27 @@ python -c 'import sys, torch; print(sys.version, torch.__version__, torch.versio
 python -c 'from bayesgm_torch.ops._build import load_library; import time; t=time.time(); load_library("bnn_hosteps.cu"); print("build", time.time()-t)'
 DEADLINE=$(( $(date +%s) + LIMIT ))
 
-ended() { grep -q '^{' "$1" 2>/dev/null; }  # a log that holds its result line
+# a log that holds its result line (the stage split's last line is stage A)
+ended() {
+  grep -q '^{' "$1" 2>/dev/null && { ! grep -q '"stage"' "$1" || grep -q '"stage": "A"' "$1"; }
+}
 
 launch() {  # launch <log> <runner and flags...>: one process, stopped at the deadline
   local log=$1; shift
   echo "=== call start $(date -u)" >> $log
-  timeout -k 20 $(( DEADLINE - $(date +%s) )) python -m bayesgm_torch.benchmarks.$* >> $log 2>&1
+  local cmd="python -m bayesgm_torch.benchmarks.$1"
+  [ $1 = stage_split ] && cmd="python tools/fullmcmc_stage_split.py"
+  shift
+  timeout -k 20 $(( DEADLINE - $(date +%s) )) $cmd "$@" >> $log 2>&1
 }
 
 start() {  # start <run> <state dir> <log> [extra flags]
   local r=$1 st=$2 log=$3; shift 3
+  local out="--out $st/split/$r"
   # mnist_inpaint ends within one call, and its 35 MB checkpoint would crowd
   # what a call may bring back: it runs without a state folder
   [ $r = mnist ] && st= || st="--state_dir $st"
+  case $r in *split_*) st="$st $out" ;; esac
   case $r in
     ensemble_*)  # the members in parallel, then the ensemble once all have ended
       (
