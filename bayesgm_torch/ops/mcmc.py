@@ -468,12 +468,17 @@ def _adapt_step_size(step_size, log_accept_ratio, t: int, n_adapt: int, target_a
                      adaptation_rate: float):
     """Scalar step-size adaptation toward the target acceptance (the
     SimpleStepSizeAdaptation recipe): one multiplicative nudge per step
-    while ``t < n_adapt``."""
+    while ``t < n_adapt``.  The float32 step size goes down by a product
+    with the float32 reciprocal of ``1 + adaptation_rate``, which is what
+    XLA makes of the JAX package's division by that constant in its jitted
+    chain (a true division differs in the last bit about a quarter of the
+    time)."""
     if t >= n_adapt:
         return step_size
     accept_prob = rows_mod.mean(torch.exp(torch.clamp_max(log_accept_ratio, 0.0)))
+    down = float(np.float32(1.0) / np.float32(1.0 + adaptation_rate))
     return torch.where(accept_prob > target_accept, step_size * (1.0 + adaptation_rate),
-                       step_size / (1.0 + adaptation_rate))
+                       step_size * down)
 
 
 def _momentum(state, generator):

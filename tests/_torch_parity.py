@@ -11,8 +11,12 @@ the port the same random numbers.
   with one deterministic numpy stream: call ``i`` of either package gets the
   same eps and signs for the same layer shapes;
 - :func:`patch_interp_weights` hands both packages the same WGAN-GP
-  interpolation weights.
+  interpolation weights;
+- :func:`jax_chain_step_size` is the step size after one HMC step as the
+  JAX package's jitted chain rounds its nudge.
 """
+
+import functools
 
 import numpy as np
 import torch
@@ -20,6 +24,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from bayesgm_tpu.ops import mcmc as jmcmc
 from bayesgm_tpu.ops import nn as jnn
 from bayesgm_torch.models import causalbgm as tcb
 from bayesgm_torch.ops import nn as tnn
@@ -201,3 +206,27 @@ def patch_interp_weights(monkeypatch, weights):
     monkeypatch.setattr(jax.random, "uniform",
                         lambda key, shape=(), *a, **k: jnp.full(shape, next(j_it), jnp.float32))
     monkeypatch.setattr(tcb, "_interp_weight", lambda generator, device: torch.tensor(next(t_it)))
+
+
+@functools.lru_cache(maxsize=None)
+def _jitted_flat_hmc_step(n_adapt, adaptation_rate):
+    def flat(s, key):
+        return jnp.zeros(s.shape[:1]) + 0.0 * jnp.sum(s, axis=-1)
+
+    return jax.jit(lambda carry: jmcmc._hmc_step(
+        carry, jax.random.PRNGKey(0), log_prob_fn=flat,
+        grad_fn=jax.grad(lambda s, k: jnp.sum(flat(s, k))), num_leapfrog=1, target_accept=0.75,
+        n_adapt=n_adapt, adaptation_rate=adaptation_rate))
+
+
+def jax_chain_step_size(step_size, up, t=0, n_adapt=10, adaptation_rate=0.05):
+    """The float32 step size after one step of JAX's ``_hmc_step`` as its
+    chain runs it (jitted, where XLA turns the down nudge's division by
+    ``1 + adaptation_rate`` into a product with the reciprocal; an eager
+    call divides exactly), from ``step_size`` with the mean accept
+    probability above the 0.75 target (``up``) or below it, at step ``t``."""
+    state = jnp.zeros((4, 2), jnp.float32)
+    carried = jnp.full((4,), 0.0 if up else 5.0)  # log accept ratio 0 or -5
+    (_, _, size, _), _ = _jitted_flat_hmc_step(n_adapt, adaptation_rate)(
+        (state, carried, jnp.float32(step_size), jnp.int32(t)))
+    return float(size)

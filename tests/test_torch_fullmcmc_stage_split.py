@@ -3,7 +3,9 @@ that ``tools/fullmcmc_stage_split.py`` saves loads into JAX's
 ``FullMCMCCausalBGM.load_weights`` with the same log posterior under one
 weight triple, and ``tests/_jax_fullmcmc_reference.py`` runs JAX's weight
 HMC and predict from it end to end, with the port tool's stage keys and the
-same HMC targets at the fitted weights."""
+same HMC targets at the fitted weights; so does the flagship recipe
+(``--flagship``), in float32 and with bf16 operands in every dense layer
+(``--matmul bf16``)."""
 
 import contextlib
 import importlib.util
@@ -37,6 +39,15 @@ B_KEYS = {"stage", "net", "hmc_s", "accept", "step_size", "loglik_fit", "loglik_
           "w_ess_median", "n_weights", "seed"}
 C_KEYS = {"stage", "predict", "predict_seed", "n", "ate_true", "ate_est", "d_ate", "pehe",
           "ite_coverage", "iv_width_mean", "predict_s", "latent_accept", "latent_q_sd", "seed"}
+FLAGSHIP_C_KEYS = {"stage", "predict", "predict_seed", "rmse", "mape", "iv_width_mean",
+                   "coverage", "predict_s", "latent_accept", "latent_q_sd", "seed"}
+FLAGSHIP_TINY = ["--flagship", "--device", "cpu", "--n", str(N), "--v_dim", str(V_DIM),
+                 "--egm", "4", "--epochs", "1", "--n_mcmc", "6", "--burn_in", "6",
+                 "--seed", str(SEED)]
+# bf16 keeps 8 bits of each operand: the rounding of a dense layer's product
+# is ~2e-3 of its size, and a log-likelihood over 120 x 8 entries moves by a
+# few parts in a thousand
+BF16_TOL = dict(rtol=2e-2)
 
 
 def _load(path, name):
@@ -50,11 +61,9 @@ def _json_lines(text):
     return [json.loads(line) for line in text.splitlines() if line.startswith("{")]
 
 
-@pytest.fixture(scope="module")
-def split(tmp_path_factory):
+def _port_split(out, flags):
     """The port tool at a tiny size (weight HMC 10 + 20 steps a net), its
-    weight samples saved: ``(out folder, its JSON lines)``."""
-    out = tmp_path_factory.mktemp("split")
+    weight samples saved: its JSON lines."""
     run = FullMCMCCausalBGM.run_mcmc_training
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(FullMCMCCausalBGM, "run_mcmc_training",
@@ -62,9 +71,23 @@ def split(tmp_path_factory):
         tool = _load("tools/fullmcmc_stage_split.py", "_tool_fullmcmc_stage_split")
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
-            tool.main(TINY + ["--out", str(out), "--output_dir", str(out / "model"),
-                              "--save_samples"])
-    return out, _json_lines(buf.getvalue())
+            tool.main(flags + ["--out", str(out), "--output_dir", str(out / "model"),
+                               "--save_samples"])
+    return _json_lines(buf.getvalue())
+
+
+@pytest.fixture(scope="module")
+def split(tmp_path_factory):
+    """binary_ate's recipe through the port tool: ``(out folder, lines)``."""
+    out = tmp_path_factory.mktemp("split")
+    return out, _port_split(out, TINY)
+
+
+@pytest.fixture(scope="module")
+def flagship_split(tmp_path_factory):
+    """The flagship recipe through the port tool: ``(out folder, lines)``."""
+    out = tmp_path_factory.mktemp("flagship_split")
+    return out, _port_split(out, FLAGSHIP_TINY)
 
 
 def test_saved_state_loads_into_jax_with_the_same_log_posterior(split, tmp_path):
@@ -110,6 +133,47 @@ def test_jax_reference_runs_from_the_saved_state(split, capsys):
         assert C_KEYS <= set(line)
         assert 0.0 < line["latent_accept"] < 1.0 and np.isfinite(line["d_ate"])
         assert line["ate_true"] == port_c[0]["ate_true"]
+
+
+@pytest.mark.parametrize("matmul", ["f32", "bf16"])
+def test_jax_reference_runs_the_flagship_from_the_saved_state(flagship_split, capsys, matmul,
+                                                               tmp_path):
+    """``--flagship``: the stage-C lines hold the flagship runner's scores;
+    the HMC targets at the fitted weights are the port's (float32), or
+    round as bf16 operands do (``--matmul bf16``), and the samples land in
+    ``--save_samples``; the dense layer is JAX's own again afterwards."""
+    out, port_lines = flagship_split
+    ref = _load("tests/_jax_fullmcmc_reference.py", "_jax_fullmcmc_reference")
+    dense = ref.nn.dense_apply
+    ref.main(["--flagship", "--seed", str(SEED), "--n", str(N), "--v_dim", str(V_DIM),
+              "--n_mcmc", "6", "--burn_in", "6", "--state", str(out / "fitted.npz"),
+              "--hmc_samples", "20", "--hmc_burnin", "10", "--matmul", matmul,
+              "--predicts", "1", "--save_samples", str(tmp_path)])
+    assert ref.nn.dense_apply is dense
+    lines = _json_lines(capsys.readouterr().out)
+    assert [(line["stage"], line.get("net"), line.get("predict")) for line in lines] == [
+        ("B", "g", None), ("B", "h", None), ("B", "f", None), ("C", None, 1)]
+    port_b = [line for line in port_lines if line["stage"] == "B"]
+    port_c = [line for line in port_lines if line["stage"] == "C"]
+    assert len(port_b) == 3 and len(port_c) == 2
+    for line in lines + port_c:
+        assert line.get("matmul", "f32") in ("f32", matmul)
+    for jax_line, port_line in zip(lines[:3], port_b):
+        assert B_KEYS <= set(jax_line)
+        assert jax_line["n_weights"] == port_line["n_weights"]
+        if matmul == "f32":
+            np.testing.assert_allclose(jax_line["loglik_fit"], port_line["loglik_fit"],
+                                       rtol=1e-5)
+        else:
+            np.testing.assert_allclose(jax_line["loglik_fit"], port_line["loglik_fit"],
+                                       **BF16_TOL)
+            assert jax_line["loglik_fit"] != port_line["loglik_fit"]
+    for line in lines[3:] + port_c:
+        assert FLAGSHIP_C_KEYS <= set(line)
+        assert np.isfinite(line["rmse"]) and line["iv_width_mean"] > 0
+        assert 0.0 <= line["coverage"] <= 1.0 and 0.0 < line["latent_accept"] < 1.0
+    with np.load(tmp_path / "samples.npz") as f:
+        assert [f[k].shape for k in "ghf"] == [(20, line["n_weights"]) for line in port_b]
 
 
 def test_stage_split_tool_imports_no_jax(tmp_path):

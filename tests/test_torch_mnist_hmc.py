@@ -22,6 +22,7 @@ from bayesgm_torch.models import mnist as tmn  # noqa: E402
 from bayesgm_torch.ops import mcmc as tmcmc  # noqa: E402
 from bayesgm_torch.utils import helpers as thelpers  # noqa: E402
 
+from _torch_parity import jax_chain_step_size  # noqa: E402
 from test_torch_conv import GEN_LAYERS, Queue, patch_jax_draws  # noqa: E402
 from test_torch_mnist import Z_DIM, _bridged, _gen_draws, _images  # noqa: E402
 
@@ -110,7 +111,8 @@ def test_hmc_step_matches_jax(tmp_path, monkeypatch, t, use_bnn):
     assert 0 < int(tacc.sum()) < N_ROWS
     np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4)
-    np.testing.assert_allclose(float(tstep), float(jstep), rtol=1e-7)
+    # the nudge as JAX's jitted chain rounds it, in the direction of the eager step's
+    assert float(tstep) == jax_chain_step_size(0.3, float(jstep) > 0.3, t=t, n_adapt=10)
     assert tt == t + 1
 
 

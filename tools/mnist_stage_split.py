@@ -13,7 +13,10 @@ generators, so the fit draws what the runner's fit draws.
 post-EGM nets (a pickle of the JAX package's ``model.nets`` as numpy
 trees, read through ``bridge.nets_from_numpy``) in place of the EGM.
 ``--save_nets PREFIX`` writes the post-EGM and final nets the same way
-(``PREFIX.post_egm.pkl``, ``PREFIX.final.pkl``).  ``--conv_dtype bf16``
+(``PREFIX.post_egm.pkl``, ``PREFIX.final.pkl``).  ``--read_every K`` also
+prints an ``epoch`` line after every K-th epoch of the iterative phase
+(epochs 0, K, 2K, ..., the last one the ``final`` line's nets), the
+read-outs taken between two epochs of the fit.  ``--conv_dtype bf16``
 runs every convolution and dense layer of the conv nets on bf16 operands
 with f32 results, as a TPU does at its default precision; the package
 itself has no such setting (its convolutions are f32).
@@ -21,6 +24,7 @@ itself has no such setting (its convolutions are f32).
 Usage (card, ~8 min at full depth):
     python tools/mnist_stage_split.py --seed 42 [--egm 5000 --epochs 60]
     python tools/mnist_stage_split.py --seed 42 --conv_dtype bf16
+    python tools/mnist_stage_split.py --seed 42 --from_nets P.post_egm.pkl --read_every 5
 """
 
 from __future__ import annotations
@@ -41,7 +45,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from bayesgm_torch import bridge  # noqa: E402
 from bayesgm_torch.datasets.images import make_ellipse_images  # noqa: E402
 from bayesgm_torch.models.mnist import MNISTBGM  # noqa: E402
-from bayesgm_torch.ops import conv  # noqa: E402
+from bayesgm_torch.ops import conv, optim  # noqa: E402
 from bayesgm_torch.utils.device import card_info, resolve_device  # noqa: E402
 
 
@@ -94,6 +98,8 @@ def main(argv=None):
     p.add_argument("--conv_dtype", choices=["f32", "bf16"], default="f32")
     p.add_argument("--from_nets", default=None)
     p.add_argument("--save_nets", default=None)
+    p.add_argument("--read_every", type=int, default=0,
+                   help="also read the model every K epochs of the iterative phase")
     args = p.parse_args(argv)
     dev = resolve_device(args.device)
     if args.conv_dtype == "bf16":
@@ -123,9 +129,24 @@ def main(argv=None):
         _save(model, args.save_nets, "post_egm")
 
     model.egm_init = egm_then_read
+    schedule = optim.lr_schedule_scale
+
+    def read_between_epochs(decay, epoch, total):
+        # called as epoch ``epoch`` starts: the nets are those after epoch - 1
+        if epoch > 0 and (epoch - 1) % args.read_every == 0:
+            print(json.dumps({**_readout(model, train[:2048], "epoch", t0), "epoch": epoch - 1,
+                              **common}), flush=True)
+        return schedule(decay, epoch, total)
+
+    if args.read_every:
+        optim.lr_schedule_scale = read_between_epochs
     model.fit(train, epochs=args.epochs, epochs_per_eval=20, use_egm_init=True,
               egm_n_iter=args.egm, egm_batches_per_eval=args.egm, verbose=0)
-    print(json.dumps({**_readout(model, train[:2048], "final", t0), **common}), flush=True)
+    optim.lr_schedule_scale = schedule
+    final = _readout(model, train[:2048], "final", t0)
+    if args.read_every and args.epochs % args.read_every == 0:
+        print(json.dumps({**final, "stage": "epoch", "epoch": args.epochs, **common}), flush=True)
+    print(json.dumps({**final, **common}), flush=True)
     _save(model, args.save_nets, "final")
 
 
